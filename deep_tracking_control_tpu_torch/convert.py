@@ -1,0 +1,73 @@
+"""Carry weights and env state across from the JAX package.
+
+Both functions take plain numpy trees (``jax.tree.map(np.asarray, tree)``
+on the JAX side), so this module needs no JAX.
+
+  params_from_flax(tree)   flax ActorCriticDecoder params -> the
+                           state_dict of models.networks.ActorCriticDecoder
+  env_from_jax(...)        LeggedEnv (params, state) of the JAX package ->
+                           the (params, state) of this package's LeggedEnv,
+                           terrain included, so both step the same world
+"""
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+from .terrain.grid import TerrainGrid
+
+
+def params_from_flax(tree) -> dict:
+    """flax params (nested dicts of numpy arrays, with or without the
+    top-level "params" key) -> ActorCriticDecoder state_dict.  A flax Dense
+    kernel is (in, out); a torch weight is (out, in), so kernels are
+    transposed.  Submodules named Dense_i become layers.i."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + [k])
+            return
+        names = [re.sub(r"^Dense_(\d+)$", r"layers.\1", p) for p in path]
+        arr = np.asarray(node, dtype=np.float32)
+        if names[-1] == "kernel":
+            names[-1] = "weight"
+            arr = arr.T
+        out[".".join(names)] = torch.from_numpy(np.array(arr, order="C"))
+    walk(tree, [])
+    return out
+
+
+def _to_torch(node, device):
+    if isinstance(node, dict):
+        return {k: _to_torch(v, device) for k, v in node.items()}
+    arr = np.asarray(node)
+    if arr.dtype == np.float64:
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.array(arr, order="C")).to(device)
+
+
+def env_from_jax(env_params, env_state, grid_height, env,
+                 terrain_origins=None):
+    """The JAX package's env (params, state) -> this package's.
+
+    env_params / env_state: numpy trees of the JAX LeggedEnv.init/step
+    results; grid_height: the JAX env's heightfield (grid.height, meters);
+    env: this package's LeggedEnv, for the terrain geometry and device;
+    terrain_origins: the JAX env's (rows, cols, 3) tile origins (the resets
+    respawn there; default: env's own).  Returns (params, state)."""
+    dev = env.device
+    params = {k: _to_torch(v, dev) for k, v in env_params.items()}
+    cfg = env.cfg.terrain
+    grid = TerrainGrid(height=_to_torch(grid_height, dev),
+                       horizontal_scale=cfg.horizontal_scale,
+                       border_size=cfg.border_size)
+    params["terrain"] = env.make_patch_source(grid)
+    params["terrain_origins"] = (env.terrain_origins if terrain_origins is None
+                                 else _to_torch(terrain_origins, dev))
+    return params, _to_torch(env_state, dev)

@@ -1,0 +1,219 @@
+"""Actor-critic networks as torch nn.Modules — the ActorCriticDecoder.
+
+Counterpart of the JAX package's models/networks.py (parity with
+rsl_rl/modules/actor_critic_decoder.py, the live teacher path).
+
+Architecture (dims from AC_Args, actor_critic_decoder.py:36-88,118-119):
+  Vae:
+    cenet_encoder  265 -> 128 -> 64            (ReLU)
+    latent_mu      64 -> 19  (3 vel + 16 z mean)
+    latent_var     64 -> 16  (log-variance)
+    cenet_decoder  (16+3+512) -> 64 -> 128 -> 53
+    terrain_encoder 693 -> 512 -> 512 -> 512
+    terrain_decoder 512 -> 512 -> 512 -> 693
+    memory_mlp     (265+512) -> 256 -> 128 -> 512
+  actor_body  (53+16+3+512) -> 512 -> 256 -> 128 -> 12   (ELU)
+  critic_body (53+3+3+693)=752 -> 512 -> 256 -> 128 -> 1 (ELU)
+  learned global std (12,), init 1.0 (:364)
+
+The MLPs keep float32 parameters and compute in bfloat16 with a float32
+output, rounding where the JAX package rounds: inputs cast to bf16 before
+the concat, the matmul rounded to bf16, then the bias added in bf16.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+BF16 = torch.bfloat16
+
+_ACTIVATIONS = {"elu": F.elu, "relu": F.relu, "selu": F.selu, "crelu": F.relu,
+                "lrelu": F.leaky_relu, "tanh": torch.tanh,
+                "sigmoid": torch.sigmoid}
+
+
+class Dense(nn.Module):
+    """y = x W^T + b with the weight (out, in); `init` is "lecun" (flax's
+    default Dense init: truncated normal, variance 1/fan_in) or
+    "orthogonal" (gain 0.01, layer_init :268-272).  Biases start at 0."""
+
+    def __init__(self, fan_in: int, fan_out: int, init: str = "lecun",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(fan_out, fan_in))
+        self.bias = nn.Parameter(torch.zeros(fan_out))
+        with torch.no_grad():
+            if init == "orthogonal":
+                nn.init.orthogonal_(self.weight, gain=0.01, generator=generator)
+            else:
+                # stddev of the [-2, 2]-truncated unit normal (flax)
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                nn.init.trunc_normal_(self.weight, std=std, a=-2 * std,
+                                      b=2 * std, generator=generator)
+
+    def forward(self, x):
+        if x.dtype == BF16:
+            return F.linear(x, self.weight.to(BF16)) + self.bias.to(BF16)
+        return F.linear(x, self.weight, self.bias)
+
+
+class MLP(nn.Module):
+    """Stack with the reference init: first layer default, the rest
+    orthogonal(0.01); bfloat16 compute, float32 output."""
+
+    def __init__(self, fan_in: int, hidden: Sequence[int], out: int,
+                 act: str = "relu", final_act: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        dims = [fan_in] + list(hidden) + [out]
+        self.layers = nn.ModuleList(
+            Dense(dims[i], dims[i + 1], "lecun" if i == 0 else "orthogonal",
+                  generator) for i in range(len(dims) - 1))
+        self.act = _ACTIVATIONS[act]
+        self.final_act = final_act
+
+    def forward(self, x):
+        x = x.to(BF16)
+        n = len(self.layers)
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i < n - 1 or self.final_act:
+                x = self.act(x)
+        return x.float()
+
+
+def bf16_concat(*parts):
+    """Concatenate MLP inputs in bfloat16: every MLP casts its input to
+    bf16 first, so the cast before the concat feeds identical values."""
+    return torch.cat([p.to(BF16) for p in parts], dim=-1)
+
+
+def masked_median(x, valid):
+    """Median of x[valid] — the lower middle element for even counts, as
+    torch.median and the JAX package's masked_median (networks.py:83-140)
+    return it — without a host round trip: invalid entries sort last, and
+    the rank is read on the device."""
+    flat = x.reshape(-1)
+    v = valid.reshape(-1)
+    keyed = torch.where(v, flat, torch.full_like(flat, float("inf")))
+    srt = torch.sort(keyed).values
+    k = torch.clamp((v.sum() + 1) // 2 - 1, min=0)
+    return srt.gather(0, k.reshape(1))[0]
+
+
+class Vae(nn.Module):
+    """CE-net + terrain autoencoder + belief memory MLP (Vae, :91-303)."""
+
+    def __init__(self, num_obs=53, obs_history_dim=265, terrain_dim=693,
+                 terrain_latent=512, z_dim=16, generator=None):
+        super().__init__()
+        g = generator
+        self.z_dim = z_dim
+        self.cenet_encoder = MLP(obs_history_dim, (128,), 64, "relu", generator=g)
+        self.latent_mu = Dense(64, 3 + z_dim, "orthogonal", g)
+        self.latent_var = Dense(64, z_dim, "orthogonal", g)
+        self.cenet_decoder = MLP(z_dim + 3 + terrain_latent, (64, 128), num_obs,
+                                 "relu", generator=g)
+        self.terrain_encoder = MLP(terrain_dim, (512, 512), terrain_latent,
+                                   "relu", generator=g)
+        self.terrain_decoder = MLP(terrain_latent, (512, 512), terrain_dim,
+                                   "relu", generator=g)
+        self.memory_mlp = MLP(obs_history_dim + terrain_latent, (256, 128),
+                              terrain_latent, "relu", generator=g)
+
+    def cenet_stats(self, obs_history):
+        """(mu, logvar) with the latent_var outlier filter (:286-302):
+        entries beyond 2 sigma (over the whole batch) take the median of
+        the others."""
+        e = self.cenet_encoder(obs_history)
+        mu = self.latent_mu(e)
+        logvar = self.latent_var(e)
+        m = logvar.mean()
+        s = logvar.std(correction=0)
+        outliers = torch.abs(logvar - m) > 2.0 * s
+        center = masked_median(logvar, ~outliers)
+        return mu, torch.where(outliers, center, logvar)
+
+    def reparam(self, mu, logvar, eps):
+        """z = mu[3:] + eps * exp(logvar / 2) (:274-284) for standard normal
+        eps of logvar's shape."""
+        return mu[..., 3:] + eps * torch.exp(0.5 * logvar)
+
+    def cenet_forward(self, obs_history, eps):
+        mu, logvar = self.cenet_stats(obs_history)
+        return mu, logvar, self.reparam(mu, logvar, eps)
+
+    def encode_terrain(self, heights):
+        return self.terrain_encoder(heights)
+
+    def decode_terrain(self, l_t):
+        return self.terrain_decoder(l_t)
+
+    def decode_cenet(self, z, vel, l_t):
+        return self.cenet_decoder(bf16_concat(z, vel, l_t))
+
+    def belief(self, obs_history, l_t):
+        """Teacher-inference belief (act_teacher, :516-518)."""
+        b_t1 = self.memory_mlp(bf16_concat(obs_history, l_t))
+        return b_t1 + l_t * b_t1
+
+
+class ActorCriticDecoder(nn.Module):
+    """The DTC teacher actor-critic (ActorCriticDecoder, :305-563)."""
+
+    def __init__(self, num_obs=53, num_privileged_obs=1389, num_actions=12,
+                 obs_history_dim=265, terrain_dim=693, terrain_latent=512,
+                 z_dim=16, actor_hidden=(512, 256, 128),
+                 critic_hidden=(512, 256, 128), activation="elu",
+                 init_noise_std=1.0, generator: torch.Generator | None = None):
+        super().__init__()
+        g = generator
+        self.terrain_dim = terrain_dim
+        self.z_dim = z_dim
+        self.vae = Vae(num_obs, obs_history_dim, terrain_dim, terrain_latent,
+                       z_dim, generator=g)
+        self.actor_body = MLP(num_obs + z_dim + 3 + terrain_latent,
+                              actor_hidden, num_actions, activation,
+                              generator=g)
+        critic_in = num_obs + 3 + 3 + (num_privileged_obs - terrain_dim - 3)
+        self.critic_body = MLP(critic_in, critic_hidden, 1, activation,
+                               generator=g)
+        self.std = nn.Parameter(init_noise_std * torch.ones(num_actions))
+
+    def act_stats(self, obs, obs_history, privileged_obs, eps_z):
+        """Training-path distribution stats (update_distribution, :409-437):
+        (mean, std, (mu, logvar, z), l_t) with l_t fed raw to the actor."""
+        mu, logvar, z = self.vae.cenet_forward(obs_history, eps_z)
+        l_t = self.vae.encode_terrain(privileged_obs[..., :self.terrain_dim])
+        mean = self.actor_body(bf16_concat(obs, z, mu[..., :3], l_t))  # :431
+        return mean, self.std.expand_as(mean), (mu, logvar, z), l_t
+
+    def act_teacher(self, obs, obs_history, privileged_obs):
+        """Deterministic teacher policy (:504-538): latent means and the
+        belief b_t in the last input slot (the reference's layout)."""
+        e = self.vae.cenet_encoder(obs_history)
+        latent = self.vae.latent_mu(e)
+        l_t = self.vae.encode_terrain(privileged_obs[..., :self.terrain_dim])
+        b_t = self.vae.belief(obs_history, l_t)
+        return self.actor_body(bf16_concat(obs, latent[..., 3:],
+                                           latent[..., :3], b_t))
+
+    def act_deterministic(self, obs, obs_history, privileged_obs):
+        """Deterministic actor on the training input layout: latent means
+        and raw l_t."""
+        e = self.vae.cenet_encoder(obs_history)
+        latent = self.vae.latent_mu(e)
+        l_t = self.vae.encode_terrain(privileged_obs[..., :self.terrain_dim])
+        return self.actor_body(bf16_concat(obs, latent[..., 3:],
+                                           latent[..., :3], l_t))
+
+    def evaluate(self, obs, privileged_obs, base_vel):
+        """Critic (:540-551): [obs, base_vel, force(3), clean heights]."""
+        td = self.terrain_dim
+        x = bf16_concat(obs, base_vel, privileged_obs[..., td:td + 3],
+                        privileged_obs[..., td + 3:])
+        return self.critic_body(x)[..., 0]

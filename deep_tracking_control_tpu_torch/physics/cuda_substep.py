@@ -1,0 +1,332 @@
+"""The physics decimation step: the CUDA kernel csrc/substep.cu and its
+plain version.
+
+Replaces the JAX package's physics/pallas_substep.py `decimation_step`
+(the Pallas kernels `_substep_kernel_fused` / `_substep_kernel`, body
+`_substep_body`): all `decimation` physics substeps of one policy step in
+one launch — PD torques with the joint-limit spring, leg-batched FK, the
+contact points' world state, terrain under each point, the implicit
+penalty normal + stiction-anchor friction with cliff/rim support, per-body
+force sums, the leg-batched ABA with its 6x6 SPD base solve, and the
+semi-implicit integration.
+
+Terrain inside the step, as in the TPU kernel:
+  * each FOOT samples bilinear height + slope from a 16x16-cell band of
+    its env's 40x128-cell contact window (raw-table rows [r0+16, r0+56) of
+    the env's patch), the band placed at substep 0 and clamped beyond its
+    edge (pallas_substep.py:129-187);
+  * each BODY point uses the plane (h0, dh/dx, dh/dy at x0, y0) sampled at
+    the end of the previous step, frozen through the step (:534-541).
+
+On the H100 the kernel is bound by latency and local memory: one thread
+runs one env's whole serial program (13-body recursions, data-dependent
+terrain reads), and the ABA's articulated 6x6 inertias do not fit in
+registers.  The design runs one thread per env, 128 threads per block,
+reads the env-trailing (k, N) arrays coalesced as they are, reads its
+feet's terrain cells straight from the blocked table (no window copy),
+and takes every per-robot constant from one packed float32 table.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import cuda_build
+from ..ops import spatial as sp
+from ..robot.model import RobotModel
+from ..terrain.patch import gather_cells
+from . import engine, quadruped
+from .engine import SimParams
+from .sim import ContactGeometry
+
+WIN_R0, WIN_R = 16, 40     # contact window rows within the 64-row patch
+WIN_C0, WIN_C = 0, 128
+BAND = 16                  # per-foot band: 16x16 cells
+_BAND_MAX = BAND - 1.001
+THREADS = 128
+
+# packed constant table (float32), shared with csrc/substep.cu
+C_LO, C_HI, C_TLIM, C_VLIM = 24, 36, 48, 60      # per joint (12 each)
+C_AXIS, C_R, C_BODY, C_JOINT, C_THIGH = 72, 81, 117, 129, 141
+C_PTS = 145                # then radius, eff_mass (P each), offset (3P),
+                           # dyn_idx, report_idx (P each)
+MAX_POINTS, MAX_REPORT = 32, 32
+_quad_models: dict = {}       # models whose quadruped layout was checked
+
+
+def pack_constants(model: RobotModel, geom: ContactGeometry, sim: SimParams,
+                   thigh_dyn_idx, hs: float) -> np.ndarray:
+    """The per-robot constant table the kernel reads (layout above)."""
+    layout = quadruped.quad_layout(model)
+    P = len(geom.dyn_idx)
+    dt = sim.dt / sim.substeps
+    c = np.zeros(C_PTS + 7 * P, dtype=np.float64)
+    # scalars; products of Python floats are taken in double and rounded
+    # once, as the plain version's scalar arithmetic does
+    c[:20] = [dt, sim.gravity, sim.contact_stiffness, sim.contact_damping,
+              sim.max_contact_force, sim.armature, sim.joint_friction,
+              sim.limit_stiffness, sim.limit_damping,
+              sim.tangential_stiffness, sim.tangential_damping,
+              sim.normal_slope_cap, sim.cliff_threshold,
+              sim.cliff_active_depth, hs, cuda_build.inv(hs),
+              sim.contact_stiffness * dt,
+              (sim.tangential_stiffness * dt + sim.tangential_damping) * dt,
+              cuda_build.inv(sim.tangential_stiffness), dt * 0.5]
+    # the cnq rows of the TPU kernel (pallas_substep.py:712-714)
+    c[C_LO:C_LO + 12] = model.pos_limit[:, 0]
+    c[C_HI:C_HI + 12] = model.pos_limit[:, 1]
+    c[C_TLIM:C_TLIM + 12] = 0.8 * model.effort_limit
+    c[C_VLIM:C_VLIM + 12] = model.vel_limit
+    c[C_AXIS:C_AXIS + 9] = layout.axis.reshape(-1)
+    c[C_R:C_R + 36] = layout.r.reshape(-1)
+    c[C_BODY:C_BODY + 12] = layout.body_idx.reshape(-1)
+    c[C_JOINT:C_JOINT + 12] = layout.joint_idx.reshape(-1)
+    c[C_THIGH:C_THIGH + 4] = np.asarray(thigh_dyn_idx)
+    # the cgeom rows (:715-716) and the point geometry
+    o = C_PTS
+    c[o:o + P] = geom.radius
+    c[o + P:o + 2 * P] = geom.eff_mass
+    c[o + 2 * P:o + 5 * P] = np.asarray(geom.offset).reshape(-1)
+    c[o + 5 * P:o + 6 * P] = geom.dyn_idx
+    c[o + 6 * P:o + 7 * P] = geom.report_idx
+    return c.astype(np.float32)
+
+
+def _band_bilinear(raw, starts, fr, fc, band_r, band_c, hs):
+    """Bilinear height + slope + max corner of each foot from its band
+    (pallas_substep.py:150-187).  fr/fc (nf,N) window cell coords; band_r/
+    band_c (nf,N) the band's first window row/col (multiples of 8)."""
+    lfr = torch.clamp(fr - band_r, 0.0, _BAND_MAX)
+    lfc = torch.clamp(fc - band_c, 0.0, _BAND_MAX)
+    i0 = torch.floor(lfr)
+    j0 = torch.floor(lfc)
+    tx = lfr - i0
+    ty = lfc - j0
+    rows = (WIN_R0 + band_r + i0).long().T          # (N, nf) patch rows
+    cols = (WIN_C0 + band_c + j0).long().T
+
+    def cell(di, dj):
+        return gather_cells(raw, starts, rows + di, cols + dj).T
+    c00, c10, c01, c11 = cell(0, 0), cell(1, 0), cell(0, 1), cell(1, 1)
+    hgt = (c00 * (1.0 - tx) * (1.0 - ty) + c10 * tx * (1.0 - ty)
+           + c01 * (1.0 - tx) * ty + c11 * tx * ty)
+    dx = ((c10 - c00) * (1.0 - ty) + (c11 - c01) * ty) / hs
+    dy = ((c01 - c00) * (1.0 - tx) + (c11 - c10) * tx) / hs
+    h_max = torch.maximum(torch.maximum(c00, c10), torch.maximum(c01, c11))
+    cap = 3.0
+    return hgt, torch.clamp(dx, -cap, cap), torch.clamp(dy, -cap, cap), h_max
+
+
+def _quat_integrate_t(q, w, dt):
+    """Exponential-map integration, env-last ((4,N), (3,N)), in the
+    association of the TPU kernel (pallas_substep.py:74-92)."""
+    angle = torch.sqrt(w[0] ** 2 + w[1] ** 2 + w[2] ** 2)
+    inv = 1.0 / torch.clamp(angle, min=1e-9)
+    half = angle * (dt * 0.5)
+    si = torch.sin(half) * inv
+    c = torch.cos(half)
+    ax, ay, az, aw = w[0] * si, w[1] * si, w[2] * si, c
+    bx, by, bz, bw = q[0], q[1], q[2], q[3]
+    out = torch.stack([
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+        aw * bw - ax * bx - ay * by - az * bz,
+    ])
+    norm = torch.sqrt(out[0] ** 2 + out[1] ** 2 + out[2] ** 2 + out[3] ** 2)
+    return out / torch.clamp(norm, min=1e-9)
+
+
+def decimation_step_plain(model: RobotModel, geom: ContactGeometry,
+                          sim: SimParams, decimation: int, thigh_dyn_idx,
+                          inertias, phys, anchors, goals, kp_eff, kd_eff,
+                          strengths, offsets, friction, restitution,
+                          win_origin, planes, hs, blocks, starts):
+    """Plain PyTorch version of the kernel (same arguments and results as
+    `decimation_step`)."""
+    layout = quadruped.quad_layout(model)
+    dev = phys["pos"].device
+    f32 = torch.float32
+    nf = len(model.foot_body_index)
+    dt = sim.dt / sim.substeps
+
+    def col(a):
+        return torch.as_tensor(np.asarray(a), dtype=f32, device=dev)[:, None]
+    lim_lo, lim_hi = col(model.pos_limit[:, 0]), col(model.pos_limit[:, 1])
+    tau_lim, vel_lim = col(0.8 * model.effort_limit), col(model.vel_limit)
+    radius = torch.as_tensor(geom.radius, dtype=f32, device=dev)
+    eff_mass = torch.as_tensor(geom.eff_mass, dtype=f32, device=dev)
+    raw = blocks[0]
+
+    q, qd = phys["q"], phys["qd"]
+    pos, quat = phys["pos"], phys["quat"]
+    lin_vel, ang_vel = phys["lin_vel"], phys["ang_vel"]
+    band_r = band_c = None
+    for s in range(decimation * sim.substeps):
+        # PD torques (legged_robot.py:595-630) + joint-limit spring
+        tau = kp_eff * (goals[s] - q + offsets) - kd_eff * qd
+        tau = torch.maximum(torch.minimum(tau * strengths, tau_lim), -tau_lim)
+        tl = (sim.limit_stiffness * (torch.clamp(lim_lo - q, min=0.0)
+                                     - torch.clamp(q - lim_hi, min=0.0))
+              - sim.limit_damping * qd * ((q < lim_lo) | (q > lim_hi)))
+        state = dict(pos=pos, quat=quat, lin_vel=lin_vel, ang_vel=ang_vel,
+                     q=q, qd=qd)
+        kin = quadruped.fk(model, layout, state)
+        pts_pos, pts_vel = engine.body_point_state(kin, geom.dyn_idx,
+                                                   geom.offset)
+
+        # feet: bilinear from the band placed at substep 0
+        fr = (pts_pos[:nf, 0] - win_origin[0]) / hs
+        fc = (pts_pos[:nf, 1] - win_origin[1]) / hs
+        if s == 0:
+            band_r = torch.clamp(torch.floor((fr - 2.0) / 8.0), 0,
+                                 (WIN_R - BAND) // 8) * 8.0
+            band_c = torch.clamp(torch.floor((fc - 2.0) / 8.0), 0,
+                                 (WIN_C - BAND) // 8) * 8.0
+        hf, gxf, gyf, hmf = _band_bilinear(raw, starts, fr, fc, band_r,
+                                           band_c, hs)
+        # body points: the frozen planes (h0, gx, gy, x0, y0)
+        xb, yb = pts_pos[nf:, 0], pts_pos[nf:, 1]
+        hp = planes[:, 0] + planes[:, 1] * (xb - planes[:, 3]) \
+            + planes[:, 2] * (yb - planes[:, 4])
+        terrain = (torch.cat([hf, hp]), torch.cat([gxf, planes[:, 1]]),
+                   torch.cat([gyf, planes[:, 2]]), torch.cat([hmf, hp]))
+        forces, anchors = engine.heightfield_contact(
+            pts_pos, pts_vel, radius, eff_mass, anchors, terrain, friction,
+            restitution, sim, dt)
+        f_ext = engine.accumulate_body_forces(model.nb, geom.dyn_idx, kin,
+                                              pts_pos, forces)
+        qdd, a0 = quadruped.aba(model, layout, inertias, kin, qd, tau + tl,
+                                f_ext, sim)
+
+        # semi-implicit integration (the JAX package's engine.integrate)
+        R0 = kin["R0"]
+        g_b = sp.rtmul(R0, torch.stack([torch.zeros_like(pos[0]),
+                                        torch.zeros_like(pos[0]),
+                                        torch.full_like(pos[0], sim.gravity)]))
+        v0 = kin["v0"] + dt * (a0 + torch.cat([torch.zeros_like(g_b), g_b]))
+        w_w = torch.clamp(sp.rmul(R0, v0[:3]), -50.0, 50.0)
+        v_w = torch.clamp(sp.rmul(R0, v0[3:]), -100.0, 100.0)
+        qd = qd + dt * qdd
+        qd = torch.maximum(torch.minimum(qd, vel_lim), -vel_lim)
+        q = q + dt * qd
+        pos = pos + dt * v_w
+        quat = _quat_integrate_t(quat, w_w, dt)
+        lin_vel, ang_vel = v_w, w_w
+
+    # reporting mirrors the last substep (pallas_substep.py:620-643)
+    rep = []
+    for b in range(model.num_bodies):
+        acc = torch.zeros_like(forces[0])
+        for p in range(len(geom.report_idx)):
+            if geom.report_idx[p] == b:
+                acc = acc + forces[p]
+        rep.append(acc)
+    thigh = torch.as_tensor(np.asarray(thigh_dyn_idx), dtype=torch.long,
+                            device=dev)
+    phys_n = dict(pos=pos, quat=quat, lin_vel=lin_vel, ang_vel=ang_vel,
+                  q=q, qd=qd)
+    info = dict(contact_forces=torch.stack(rep) / sim.substeps,
+                foot_pos=pts_pos[:nf], foot_vel=pts_vel[:nf],
+                thigh_pos=kin["x"][thigh], torques=tau,
+                body_pts=pts_pos[nf:])
+    return phys_n, anchors, info
+
+
+def decimation_step(model: RobotModel, geom: ContactGeometry, sim: SimParams,
+                    decimation: int, thigh_dyn_idx, inertias, phys, anchors,
+                    goals, kp_eff, kd_eff, strengths, offsets, friction,
+                    restitution, win_origin, planes, hs, blocks, starts,
+                    consts=None):
+    """Run `decimation` physics substeps in one launch.
+
+    All array args are env-LAST:
+      phys: dict(pos (3,N), quat (4,N), lin_vel, ang_vel, q (nq,N), qd)
+      anchors (P,2,N); inertias (nb,6,6,N)
+      goals (decimation, nq, N) PD joint-position targets
+      kp_eff/kd_eff/strengths/offsets (nq,N); friction/restitution (N,)
+      win_origin (2, N) world xy of contact-window cell (0,0)
+      planes (P-nf, 5, N) frozen local planes for body points
+      blocks (T, B, R_pad, 128) the blocked terrain tables (raw = [0]) and
+      starts (N, 2) int32 (terrain/patch.py patch_starts)
+      consts: the packed constant table on the card (pack_constants);
+      built when None
+    Returns (phys', anchors', info) with info = contact_forces (nrb,3,N),
+    foot_pos / foot_vel (nf,3,N), thigh_pos (4,3,N), torques (nq,N) and
+    body_pts (P-nf,3,N), all of the last substep.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    args = (model, geom, sim, decimation, thigh_dyn_idx, inertias, phys,
+            anchors, goals, kp_eff, kd_eff, strengths, offsets, friction,
+            restitution, win_origin, planes, hs, blocks, starts)
+    dev = phys["pos"].device
+    if dev.type == "cpu":
+        return decimation_step_plain(*args)
+    if id(model) not in _quad_models:
+        if quadruped.quad_layout(model) is None:
+            raise ValueError("the decimation kernel needs the quadruped layout")
+        _quad_models[id(model)] = model
+    if sim.substeps != 1:
+        raise ValueError("the decimation kernel takes one substep per sim step")
+    N = phys["pos"].shape[-1]
+    nq, nf, nrb = model.nq, len(model.foot_body_index), model.num_bodies
+    P = len(geom.dyn_idx)
+    if nq != 12 or nf != 4 or P > MAX_POINTS or nrb > MAX_REPORT:
+        raise ValueError(f"unsupported robot geometry nq={nq} nf={nf} P={P} "
+                         f"bodies={nrb}")
+    if consts is None:
+        consts = torch.as_tensor(pack_constants(model, geom, sim,
+                                                thigh_dyn_idx, hs),
+                                 device=dev)
+    T, B, Rp, C = blocks.shape
+    f32 = torch.float32
+    chk = cuda_build.check
+    for k in ("q", "qd"):
+        chk(phys[k], k, (nq, N), f32, dev)
+    chk(phys["pos"], "pos", (3, N), f32, dev)
+    chk(phys["quat"], "quat", (4, N), f32, dev)
+    chk(phys["lin_vel"], "lin_vel", (3, N), f32, dev)
+    chk(phys["ang_vel"], "ang_vel", (3, N), f32, dev)
+    chk(anchors, "anchors", (P, 2, N), f32, dev)
+    chk(inertias, "inertias", (model.nb, 6, 6, N), f32, dev)
+    chk(goals, "goals", (decimation, nq, N), f32, dev)
+    for name, t in (("kp_eff", kp_eff), ("kd_eff", kd_eff),
+                    ("strengths", strengths), ("offsets", offsets)):
+        chk(t, name, (nq, N), f32, dev)
+    chk(friction, "friction", (N,), f32, dev)
+    chk(restitution, "restitution", (N,), f32, dev)
+    chk(win_origin, "win_origin", (2, N), f32, dev)
+    chk(planes, "planes", (P - nf, 5, N), f32, dev)
+    chk(blocks, "blocks", (T, B, Rp, WIN_C), f32, dev)
+    chk(starts, "starts", (N, 2), torch.int32, dev)
+    chk(consts, "consts", (C_PTS + 7 * P,), f32, dev)
+
+    def out(*shape):
+        return torch.empty(shape + (N,), dtype=f32, device=dev)
+    o = dict(q=out(nq), qd=out(nq), pos=out(3), quat=out(4), lin_vel=out(3),
+             ang_vel=out(3), anchors=out(P, 2), report=out(nrb, 3),
+             foot_pos=out(nf, 3), foot_vel=out(nf, 3), thigh=out(4, 3),
+             tau=out(nq), body_pts=out(P - nf, 3))
+    p = cuda_build.ptr
+    cuda_build.launch(
+        "dtc_decimation_step",
+        p(phys["q"]), p(phys["qd"]), p(phys["pos"]), p(phys["quat"]),
+        p(phys["lin_vel"]), p(phys["ang_vel"]), p(anchors), p(inertias),
+        p(goals), p(kp_eff), p(kd_eff), p(strengths), p(offsets),
+        p(friction), p(restitution), p(blocks), p(starts), p(win_origin),
+        p(planes), p(consts),
+        p(o["q"]), p(o["qd"]), p(o["pos"]), p(o["quat"]), p(o["lin_vel"]),
+        p(o["ang_vel"]), p(o["anchors"]), p(o["report"]), p(o["foot_pos"]),
+        p(o["foot_vel"]), p(o["thigh"]), p(o["tau"]), p(o["body_pts"]),
+        N, P, nrb, decimation, B, Rp, THREADS, cuda_build.stream_ptr(dev))
+    _counter.launches += 1
+    phys_n = {k: o[k] for k in ("pos", "quat", "lin_vel", "ang_vel", "q", "qd")}
+    info = dict(contact_forces=o["report"], foot_pos=o["foot_pos"],
+                foot_vel=o["foot_vel"], thigh_pos=o["thigh"],
+                torques=o["tau"], body_pts=o["body_pts"])
+    return phys_n, o["anchors"], info
+
+
+# the launch count: a plain integer on the public wrapper, counted through
+# this fixed reference (a caller may wrap the module attribute)
+decimation_step.launches = 0
+_counter = decimation_step

@@ -1,0 +1,99 @@
+"""The torch port's copies of the framework-free modules, and its hygiene.
+
+robot/model.py, robot/quadrupeds.py, terrain/generator.py (Python
+backend), env/config.py and tasks/registry.py are copied into the port
+(which must not import the JAX package); each copy must stay equal to its
+original.  The port itself imports neither jax, flax, optax nor triton.
+"""
+import dataclasses
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from deep_tracking_control_tpu.env import config as jconfig
+from deep_tracking_control_tpu.physics import engine as jengine
+from deep_tracking_control_tpu.physics import sim as jsim
+from deep_tracking_control_tpu.robot import quadrupeds as jrobots
+from deep_tracking_control_tpu.tasks import registry as jreg
+from deep_tracking_control_tpu.terrain import generator as jgen
+from deep_tracking_control_tpu_torch.env import config as tconfig
+from deep_tracking_control_tpu_torch.physics import sim as tsim
+from deep_tracking_control_tpu_torch.robot import quadrupeds as trobots
+from deep_tracking_control_tpu_torch.tasks import registry as treg
+from deep_tracking_control_tpu_torch.terrain import generator as tgen
+
+PORT = pathlib.Path(__file__).resolve().parents[1] / "deep_tracking_control_tpu_torch"
+
+
+@pytest.mark.parametrize("task", jreg.task_names())
+def test_task_configs_equal(task):
+    assert treg.task_names() == jreg.task_names()
+    jt, jtr = jreg.get_cfgs(task)
+    tt, ttr = treg.get_cfgs(task)
+    assert dataclasses.asdict(tt) == dataclasses.asdict(jt)
+    assert dataclasses.asdict(ttr) == dataclasses.asdict(jtr)
+
+
+def test_sim_params_and_defaults_equal():
+    assert (dataclasses.asdict(tconfig.SimParams())
+            == dataclasses.asdict(jengine.SimParams()))
+    assert (dataclasses.asdict(tconfig.TaskCfg())
+            == dataclasses.asdict(jconfig.TaskCfg()))
+    assert (dataclasses.asdict(tconfig.TrainCfg())
+            == dataclasses.asdict(jconfig.TrainCfg()))
+
+
+@pytest.mark.parametrize("robot", ["lite3", "x30"])
+def test_robot_tables_equal(robot):
+    jm, tm = jrobots.get_robot(robot), trobots.get_robot(robot)
+    for f in dataclasses.fields(jm):
+        a, b = getattr(jm, f.name), getattr(tm, f.name)
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(b, a, err_msg=f.name)
+        else:
+            assert b == a, f.name
+    jg, tg = jsim.default_contact_geometry(jm), tsim.default_contact_geometry(tm)
+    for f in dataclasses.fields(jg):
+        np.testing.assert_array_equal(getattr(tg, f.name), getattr(jg, f.name))
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+def test_python_terrain_equal(seed):
+    cfg = tconfig.TerrainCfg(num_rows=3, num_cols=3, border_size=4.0)
+    jcfg = jconfig.TerrainCfg(num_rows=3, num_cols=3, border_size=4.0)
+    jt = jgen.Terrain(jcfg, seed=seed, backend="python")
+    tt = tgen.Terrain(cfg, seed=seed)
+    assert tt.backend == "python"
+    np.testing.assert_array_equal(tt.height_field_raw, jt.height_field_raw)
+    np.testing.assert_array_equal(tt.env_origins, jt.env_origins)
+    np.testing.assert_array_equal(tt.heights_meters(), jt.heights_meters())
+    assert tgen.column_families(cfg) == jgen.column_families(jcfg)
+
+
+def test_port_imports_no_jax_or_triton():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import deep_tracking_control_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'triton',\n"
+        "              'deep_tracking_control_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=PORT.parent, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_port_sources_import_no_jax():
+    bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|triton"
+                     r"|deep_tracking_control_tpu\b(?!_torch))|pallas.*import"
+                     r"|import.*pallas", re.M)
+    for path in PORT.rglob("*.py"):
+        m = bad.search(path.read_text())
+        assert m is None, f"{path.name}: {m.group(0)!r}"

@@ -1,0 +1,144 @@
+"""Networks and PPO acting of the torch port against the JAX package.
+
+Weights come from the flax ActorCriticDecoder through params_from_flax;
+the same numpy inputs (and the same standard normal latent draws) go
+through both.  The MLPs compute in bfloat16 in both packages, rounding at
+the same points; the order of the sums inside a matmul differs, so the
+outputs agree to bf16 precision: max |diff| <= 2% of the output's max
+magnitude (bf16 keeps 8 significant bits, 0.4% a rounding, over up to
+four layers).  Float32 parts (normal_log_prob, GAE, the median) agree to
+1e-5.
+"""
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from deep_tracking_control_tpu.agent import ppo as jppo
+from deep_tracking_control_tpu.env.config import AlgorithmCfg
+from deep_tracking_control_tpu.models import networks as jnet
+from deep_tracking_control_tpu_torch.agent import ppo as tppo
+from deep_tracking_control_tpu_torch.convert import params_from_flax
+from deep_tracking_control_tpu_torch.models import networks as tnet
+
+N = 8
+BF16_REL = 0.02
+
+
+@pytest.fixture(scope="module")
+def nets():
+    rng = np.random.default_rng(0)
+    f32 = np.float32
+    x = dict(obs=rng.normal(0, 1, (N, 53)).astype(f32),
+             hist=rng.normal(0, 1, (N, 265)).astype(f32),
+             priv=rng.normal(0, 1, (N, 1389)).astype(f32),
+             base_vel=rng.normal(0, 1, (N, 3)).astype(f32))
+    jm = jnet.ActorCriticDecoder()
+    key = jax.random.PRNGKey(3)
+    params = jax.jit(jm.init)(key, *(jnp.asarray(x[k]) for k in
+                                     ("obs", "hist", "priv", "base_vel")), key)
+    # weights of a trained-looking scale: the orthogonal(0.01) init makes
+    # every output tiny, so rescale the later layers to unit-gain
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, v: v * 50.0 if "Dense_0" not in jax.tree_util.keystr(p)
+        and "kernel" in jax.tree_util.keystr(p) else v, params)
+    tm = tnet.ActorCriticDecoder()
+    tm.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)),
+                       strict=True)
+    return jm, params, tm, x
+
+
+def _close_bf16(got, want, name):
+    got, want = np.asarray(got), np.asarray(want)
+    err = np.abs(got - want).max()
+    scale = np.abs(want).max()
+    assert err <= BF16_REL * scale + 1e-6, f"{name}: {err} vs max {scale}"
+
+
+def _j(x, k):
+    return jnp.asarray(x[k])
+
+
+def _t(x, k):
+    return torch.from_numpy(np.array(x[k]))
+
+
+def test_params_from_flax_covers_every_weight(nets):
+    jm, params, tm, x = nets
+    n_flax = sum(np.asarray(v).size for v in jax.tree.leaves(params))
+    n_torch = sum(p.numel() for p in tm.parameters())
+    assert n_flax == n_torch
+
+
+def test_act_stats_matches(nets):
+    jm, params, tm, x = nets
+    key = jax.random.PRNGKey(11)
+    eps = np.asarray(jax.random.normal(key, (N, 16), jnp.float32))
+    jmean, jstd, (jmu, jlv, jz), _ = jm.apply(
+        params, _j(x, "obs"), _j(x, "hist"), _j(x, "priv"), key,
+        method=jm.act_stats)
+    with torch.no_grad():
+        tmean, tstd, (tmu, tlv, tz), _ = tm.act_stats(
+            _t(x, "obs"), _t(x, "hist"), _t(x, "priv"), torch.from_numpy(np.array(eps)))
+    _close_bf16(tmu, jmu, "mu")
+    _close_bf16(tlv, jlv, "logvar")
+    _close_bf16(tz, jz, "z")
+    _close_bf16(tmean, jmean, "mean")
+    np.testing.assert_array_equal(tstd.detach().numpy(), np.asarray(jstd))
+
+
+@pytest.mark.parametrize("method", ["act_teacher", "act_deterministic"])
+def test_deterministic_actors_match(nets, method):
+    jm, params, tm, x = nets
+    want = jm.apply(params, _j(x, "obs"), _j(x, "hist"), _j(x, "priv"),
+                    method=getattr(jm, method))
+    with torch.no_grad():
+        got = getattr(tm, method)(_t(x, "obs"), _t(x, "hist"), _t(x, "priv"))
+    _close_bf16(got, want, method)
+
+
+def test_critic_matches(nets):
+    jm, params, tm, x = nets
+    want = jm.apply(params, _j(x, "obs"), _j(x, "priv"), _j(x, "base_vel"),
+                    method=jm.evaluate)
+    with torch.no_grad():
+        got = tm.evaluate(_t(x, "obs"), _t(x, "priv"), _t(x, "base_vel"))
+    _close_bf16(got, want, "value")
+
+
+@pytest.mark.parametrize("n,frac", [(24, 0.1), (25, 0.3), (16, 0.0)])
+def test_masked_median_matches(n, frac):
+    rng = np.random.default_rng(n)
+    x = rng.normal(0, 1, (n, 4)).astype(np.float32)
+    x[0, :2] = x[1, :2]                          # ties
+    valid = rng.random((n, 4)) >= frac
+    want = np.asarray(jnet.masked_median(jnp.asarray(x), jnp.asarray(valid)))
+    got = tnet.masked_median(torch.from_numpy(x), torch.from_numpy(valid))
+    assert float(got) == float(want)
+    assert float(got) == float(torch.median(torch.from_numpy(x[valid])))
+
+
+def test_normal_log_prob_and_gae_match():
+    rng = np.random.default_rng(5)
+    T = 6
+    mean, x = rng.normal(0, 1, (2, N, 12)).astype(np.float32)
+    std = rng.uniform(0.3, 1.5, (N, 12)).astype(np.float32)
+    np.testing.assert_allclose(
+        tppo.normal_log_prob(*map(torch.from_numpy, (mean, std, x))).numpy(),
+        np.asarray(jppo.normal_log_prob(*map(jnp.asarray, (mean, std, x)))),
+        rtol=1e-5, atol=1e-5)
+    rew = rng.normal(0, 1, (T, N)).astype(np.float32)
+    dones = rng.random((T, N)) < 0.2
+    values = rng.normal(0, 1, (T, N)).astype(np.float32)
+    last = rng.normal(0, 1, N).astype(np.float32)
+    alg = AlgorithmCfg()
+    jr, ja = jppo.PPO(net=None, alg=alg).compute_gae(
+        jnp.asarray(rew), jnp.asarray(dones), jnp.asarray(values),
+        jnp.asarray(last))
+    tr, ta = tppo.PPO(net=None, alg=alg).compute_gae(
+        torch.from_numpy(rew), torch.from_numpy(dones),
+        torch.from_numpy(values), torch.from_numpy(last))
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-5, atol=1e-5)

@@ -1,0 +1,185 @@
+"""The physics decimation step (K1) of the torch port against the JAX
+package.
+
+The plain version of the port's decimation kernel must reproduce
+physics/pallas_substep.py `decimation_step` (its fused-window variant, run
+in interpret mode) at the JAX package's single-step budget, atol 2e-5 /
+rtol 1e-5 (tests/test_pallas_substep.py:71-87).  Inputs are made with
+numpy from a seed: 4 robots standing on a 2x2-tile terrain, decimation 2,
+with body-point planes high enough that some body points touch.  The
+leg-batched FK/ABA and the inertias are compared on their own as well.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from deep_tracking_control_tpu.env.config import TerrainCfg
+from deep_tracking_control_tpu.physics import engine as jengine
+from deep_tracking_control_tpu.physics import pallas_substep as jsub
+from deep_tracking_control_tpu.physics import quadruped as jquad
+from deep_tracking_control_tpu.physics import sim as jsim
+from deep_tracking_control_tpu.robot import quadrupeds
+from deep_tracking_control_tpu.tasks.registry import get_cfgs
+from deep_tracking_control_tpu.terrain import patch as jpatch
+from deep_tracking_control_tpu.terrain.generator import Terrain
+from deep_tracking_control_tpu.terrain.grid import TerrainGrid
+from deep_tracking_control_tpu_torch.env import config as tconfig
+from deep_tracking_control_tpu_torch.physics import cuda_substep as tsub
+from deep_tracking_control_tpu_torch.physics import engine as tengine
+from deep_tracking_control_tpu_torch.physics import quadruped as tquad
+from deep_tracking_control_tpu_torch.physics import sim as tsim
+from deep_tracking_control_tpu_torch.robot import quadrupeds as tquadrupeds
+
+N, DECIM = 4, 2
+TIGHT = dict(atol=2e-5, rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def case():
+    task, _ = get_cfgs("lite3_dtc")
+    model = quadrupeds.get_robot("lite3")
+    geom = jsim.default_contact_geometry(model)
+    rng = np.random.default_rng(42)
+    tcfg = TerrainCfg(num_rows=2, num_cols=2, border_size=4.0)
+    terr = Terrain(tcfg, seed=3, backend="python")
+    grid = TerrainGrid(height=jnp.asarray(terr.heights_meters()),
+                       horizontal_scale=tcfg.horizontal_scale,
+                       border_size=tcfg.border_size, is_plane=False)
+    m3, m10 = jpatch.pooled_tables(grid)
+    src = jpatch.make_source(grid, jnp.stack([grid.height, m3, m10]))
+
+    f32 = np.float32
+    origins = terr.env_origins.reshape(-1, 3)[rng.integers(0, 4, N)]
+    pos = (origins + np.c_[rng.uniform(-0.3, 0.3, (N, 2)),
+                           rng.uniform(0.27, 0.33, (N, 1))]).T.astype(f32)
+    default_q = np.array([a for _, a in task.init_state.default_joint_angles],
+                         dtype=f32)
+    q = (default_q[:, None] + rng.normal(0, 0.05, (12, N))).astype(f32)
+    tilt = rng.normal(0, 0.05, (3, N))
+    quat = np.concatenate([tilt, np.ones((1, N))]).astype(f32)
+    quat /= np.linalg.norm(quat, axis=0, keepdims=True)
+    phys = dict(pos=pos, quat=quat,
+                lin_vel=rng.normal(0, 0.2, (3, N)).astype(f32),
+                ang_vel=rng.normal(0, 0.2, (3, N)).astype(f32),
+                q=q, qd=rng.normal(0, 0.5, (12, N)).astype(f32))
+    P = len(geom.dyn_idx)
+    nb = P - len(model.foot_body_index)
+    inertias, _ = jengine.make_inertias(
+        model, payload=jnp.asarray(rng.uniform(-1, 1, N), jnp.float32),
+        num_envs=N)
+    starts, origin = jpatch.patch_starts(src, jnp.asarray(pos[:2].T))
+    hs = tcfg.horizontal_scale
+    worigin = (origin + hs * jnp.array([jsub.WIN_R0, jsub.WIN_C0],
+                                       jnp.float32)).T
+    planes = np.stack([
+        origins[:, 2][None] + rng.uniform(-0.05, 0.3, (nb, N)),
+        rng.uniform(-0.3, 0.3, (nb, N)), rng.uniform(-0.3, 0.3, (nb, N)),
+        np.broadcast_to(pos[0], (nb, N)), np.broadcast_to(pos[1], (nb, N))],
+        axis=1).astype(f32)
+    planes[:, 0, 0] = -1e4                       # env 0: no body contact
+    arrays = dict(
+        inertias=np.asarray(inertias), phys=phys,
+        anchors=(pos[None, :2] + rng.normal(0, 0.1, (P, 2, N))).astype(f32),
+        goals=(default_q[None, :, None]
+               + rng.normal(0, 0.1, (DECIM, 12, N))).astype(f32),
+        kp_eff=(25.0 * rng.uniform(0.95, 1.05, (12, N))).astype(f32),
+        kd_eff=(0.5 * rng.uniform(0.95, 1.05, (12, N))).astype(f32),
+        strengths=rng.uniform(0.9, 1.1, (12, N)).astype(f32),
+        offsets=rng.normal(0, 0.01, (12, N)).astype(f32),
+        friction=rng.uniform(0.5, 1.25, N).astype(f32),
+        restitution=rng.uniform(0.0, 1.0, N).astype(f32),
+        win_origin=np.asarray(worigin), planes=planes,
+        blocks=np.asarray(src.blocks), starts=np.asarray(starts))
+    thigh = np.array([model.body_dyn_index[i] for i, n in
+                      enumerate(model.body_names) if "THIGH" in n], np.int32)
+    common = (DECIM, thigh)
+
+    def jax_args():
+        a = {k: (v if k == "phys" else jnp.asarray(v)) for k, v in arrays.items()}
+        a["phys"] = {k: jnp.asarray(v) for k, v in phys.items()}
+        return a
+
+    def run(a):
+        return jsub.decimation_step(
+            model, geom, task.sim, *common, a["inertias"], a["phys"],
+            a["anchors"], a["goals"], a["kp_eff"], a["kd_eff"],
+            a["strengths"], a["offsets"], a["friction"], a["restitution"],
+            None, a["win_origin"], a["planes"], hs, interpret=True,
+            blocks=a["blocks"], starts=a["starts"])
+    want = run(jax_args())
+    return model, geom, task, arrays, common, hs, want
+
+
+def _port_step(case, fn):
+    model, geom, task, arrays, common, hs, _ = case
+    tmodel = tquadrupeds.get_robot("lite3")
+    tgeom = tsim.default_contact_geometry(tmodel)
+    sim = tconfig.SimParams(**dataclasses.asdict(task.sim))
+    t = {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()
+         if k != "phys"}
+    phys = {k: torch.from_numpy(v.copy()) for k, v in arrays["phys"].items()}
+    return fn(tmodel, tgeom, sim, *common, t["inertias"], phys, t["anchors"],
+              t["goals"], t["kp_eff"], t["kd_eff"], t["strengths"],
+              t["offsets"], t["friction"], t["restitution"], t["win_origin"],
+              t["planes"], hs, t["blocks"], t["starts"])
+
+
+def test_plain_decimation_step_matches_pallas_kernel(case):
+    want_phys, want_anchors, want_info = case[-1]
+    phys, anchors, info = _port_step(case, tsub.decimation_step)
+    for k in ("pos", "quat", "lin_vel", "ang_vel", "q", "qd"):
+        np.testing.assert_allclose(phys[k].numpy(), np.asarray(want_phys[k]),
+                                   **TIGHT, err_msg=k)
+    np.testing.assert_allclose(anchors.numpy(), np.asarray(want_anchors),
+                               **TIGHT)
+    for k in ("foot_pos", "foot_vel", "thigh_pos", "torques", "body_pts"):
+        np.testing.assert_allclose(info[k].numpy(), np.asarray(want_info[k]),
+                                   **TIGHT, err_msg=k)
+    # contact forces are stiff springs (12 kN/m) on these positions
+    np.testing.assert_allclose(info["contact_forces"].numpy(),
+                               np.asarray(want_info["contact_forces"]),
+                               atol=1e-3, rtol=1e-5)
+    # the case exercises contact: feet and some body points carry load
+    cf = np.asarray(want_info["contact_forces"])
+    assert np.abs(cf[[4, 8, 12, 16]]).max() > 1.0
+    assert np.abs(cf[0]).max() > 1.0
+
+
+def test_fk_aba_and_inertias_match_jax(case):
+    model, geom, task, arrays, common, hs, _ = case
+    tmodel = tquadrupeds.get_robot("lite3")
+    sim = tconfig.SimParams(**dataclasses.asdict(task.sim))
+    jl, tl = jquad.quad_layout(model), tquad.quad_layout(tmodel)
+    for f in dataclasses.fields(jl):
+        np.testing.assert_array_equal(getattr(tl, f.name), getattr(jl, f.name))
+    rng = np.random.default_rng(9)
+    payload = rng.uniform(-1, 1, N).astype(np.float32)
+    scale = rng.uniform(0.95, 1.05, N).astype(np.float32)
+    ji, jm = jengine.make_inertias(model, payload=jnp.asarray(payload),
+                                   link_mass_scale=jnp.asarray(scale), num_envs=N)
+    ti, tm = tengine.make_inertias(tmodel, payload=torch.from_numpy(payload),
+                                   link_mass_scale=torch.from_numpy(scale),
+                                   num_envs=N)
+    np.testing.assert_allclose(ti.numpy(), np.asarray(ji), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=1e-6)
+
+    phys = arrays["phys"]
+    jstate = {k: jnp.asarray(v) for k, v in phys.items()}
+    tstate = {k: torch.from_numpy(v.copy()) for k, v in phys.items()}
+    jk = jquad.fk(model, jl, jstate)
+    tk = tquad.fk(tmodel, tl, tstate)
+    for k in ("R", "x", "v"):
+        np.testing.assert_allclose(tk[k].numpy(), np.asarray(jk[k]),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+    f_ext = rng.normal(0, 20.0, (model.nb, 6, N)).astype(np.float32)
+    tau = rng.normal(0, 5.0, (12, N)).astype(np.float32)
+    jq, ja = jquad.aba(model, jl, ji, jk, jstate["qd"], jnp.asarray(tau),
+                       jnp.asarray(f_ext), task.sim)
+    tq, ta = tquad.aba(tmodel, tl, ti, tk, tstate["qd"], torch.from_numpy(tau),
+                       torch.from_numpy(f_ext), sim)
+    np.testing.assert_allclose(tq.numpy(), np.asarray(jq), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-4, atol=1e-4)
