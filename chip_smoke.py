@@ -8,24 +8,41 @@ Phases (each prints its own line; any failure ends the run non-zero):
   2. build of the CUDA kernels from deep_tracking_control_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version on the inputs of a real
      lite3_dtc step at 4096 envs, with the kernel and plain times;
-  4. the main path: LeggedEnv(lite3_dtc, 4096 envs) + ActorCriticDecoder +
-     OnPolicyRunner, 3 collect() iterations of 24 steps, every launch
-     counted; then one step of a small env on the card against the same
-     step on the CPU (the plain versions);
-  5. a JSON line of the kernels, the nvidia-smi line, and the result line.
+  4. the collection path: LeggedEnv(lite3_dtc, 4096 envs) +
+     ActorCriticDecoder + OnPolicyRunner, 3 collect() iterations of 24
+     steps, every launch counted; the gather kernel against its plain
+     version on the last collect's batch (bit-exact); then one step of a
+     small env on the card against the same step on the CPU;
+  5. the training path: one warm-up learn(1), then learn(3) at 4096 envs
+     (collect + the 5 x 4 minibatch PPO+VAE update), every launch counted,
+     with the train-iteration env-steps/s and the collect/update split;
+     then a profile of one collect and one update (device busy share,
+     device ops, the largest items);
+  6. one update of a small net on the card against the same update on the
+     CPU (same batch and draws), and a save/load round trip on the card;
+  7. a JSON line of the kernels, the nvidia-smi line, and the result line.
+Each kernel's bound is the least time the card could take for its work:
+the larger of its bytes (each input read once, each output written once)
+over 3.35 TB/s and its operations over 67 TFLOP/s (float32 off the
+tensor cores), both counted from this run's inputs.
 Weights are random (seeded); nothing is downloaded.  Needs a CUDA device:
 without one it stops before printing any result.
 """
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 NUM_ENVS = 4096
 ITERS = 3
 REPEATS = 20
+PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3
+PEAK_F32_OPS_S = 67e12        # H100 SXM float32, off the tensor cores
 
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -35,6 +52,8 @@ KERNELS = {
                    "deep_tracking_control_tpu/terrain/pallas_sampler.py:150"),
     "plan_footholds": ("deep_tracking_control_tpu_torch/csrc/planner.cu",
                        "deep_tracking_control_tpu/env/pallas_planner.py:133"),
+    "permute_groups": ("deep_tracking_control_tpu_torch/csrc/gather.cu",
+                       "deep_tracking_control_tpu/experimental/pallas_gather.py:58"),
 }
 
 
@@ -65,22 +84,25 @@ def wall_ms(torch, fn, repeats=REPEATS):
 
 
 def device_ms(torch, fn, repeats=REPEATS):
-    """Median over `repeats` calls of the device time of all the work one
-    fn() call queues (torch.profiler, CUDA activity only)."""
+    """Mean over `repeats` calls of the device time of all the work one
+    fn() call queues: one torch.profiler session (CUDA activity only)
+    around the calls, each followed by a synchronize."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    per_call = []
-    for _ in range(repeats):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
             fn()
             torch.cuda.synchronize()
-        per_call.append(sum(e.self_device_time_total
-                            for e in prof.key_averages()) / 1e3)
-    per_call.sort()
-    if per_call[-1] <= 0.0:
-        raise AssertionError("the profiler saw no device time")
-    return per_call[len(per_call) // 2]
+    ms = sum(e.self_device_time_total
+             for e in prof.key_averages()) / 1e3 / repeats
+    if ms <= 0.0:
+        # the profiler may see no device activity at all; then CUDA events
+        # around back-to-back calls stand in (they include host overhead
+        # where it exceeds the device work)
+        say("timing", "the profiler saw no device time: stream time instead")
+        return wall_ms(torch, fn, repeats)
+    return ms
 
 
 def timings(torch, kernel, plain, plain_repeats=REPEATS):
@@ -135,13 +157,106 @@ def check_close(name, got, want, atol, rtol):
             f"{rtol}, max abs err {float((got - want).abs().max())}")
 
 
-def compare_kernels(calls):
-    """Phase 3: each kernel vs its plain version on recorded inputs."""
+def tensor_bytes(tree, skip=()):
+    """Bytes of every tensor in a nest of tuples, lists, dicts and
+    dataclasses, each counted once; tensors whose id is in `skip` (the
+    terrain tables, of which a kernel reads only the cells its queries
+    touch) are left out."""
+    import torch
+    seen = set(skip)
+    total = 0
+
+    def walk(x):
+        nonlocal total
+        if isinstance(x, torch.Tensor):
+            if id(x) not in seen:
+                seen.add(id(x))
+                total += x.numel() * x.element_size()
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                walk(v)
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+    walk(tree)
+    return total
+
+
+# aten ops that move or make data and compute nothing
+_MOVES = {
+    "view", "_unsafe_view", "reshape", "expand", "clone", "copy", "_to_copy",
+    "cat", "stack", "slice", "select", "index", "index_select", "gather",
+    "unsqueeze", "squeeze", "permute", "transpose", "t", "contiguous",
+    "alias", "detach", "empty", "empty_like", "empty_strided", "zeros",
+    "zeros_like", "ones", "ones_like", "full", "full_like", "fill", "arange",
+    "lift_fresh", "split", "split_with_sizes", "unbind", "narrow", "as_strided",
+    "new_empty", "new_zeros", "new_full", "scalar_tensor", "_local_scalar_dense",
+    "index_put", "scatter", "masked_fill", "repeat", "flip", "roll", "set"}
+_REDUCTIONS = {"sum", "mean", "amax", "amin", "max", "min", "prod", "argmax",
+               "argmin", "any", "all", "norm", "linalg_vector_norm", "var",
+               "std", "cumsum", "cumprod", "logsumexp", "sort", "topk"}
+
+
+def count_ops(fn):
+    """Operations of one fn() call, counted per element as PyTorch's
+    dispatcher sees them: an elementwise op counts one per output element,
+    a reduction one per input element, a product 2*M*N*K, and data
+    movement none."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    def numel(x):
+        if isinstance(x, torch.Tensor):
+            return x.numel()
+        if isinstance(x, (tuple, list)):
+            return sum(numel(v) for v in x)
+        return 0
+
+    class Counter(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__.rstrip("_")
+            if name in ("mm", "addmm"):
+                a, b = args[-2], args[-1]
+                Counter.ops += 2 * a.shape[0] * a.shape[1] * b.shape[1]
+            elif name in ("bmm", "baddbmm"):
+                a, b = args[-2], args[-1]
+                Counter.ops += 2 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
+            elif name in _REDUCTIONS:
+                Counter.ops += numel(args[0])
+            elif name not in _MOVES:
+                Counter.ops += numel(out)
+            return out
+
+    with Counter():
+        fn()
+    return Counter.ops
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 rate."""
+    by_bytes = nbytes / PEAK_BYTES_S * 1e3
+    by_ops = ops / PEAK_F32_OPS_S * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def compare_kernels(calls, tables):
+    """Phase 3: each kernel vs its plain version on recorded inputs, with
+    its bound from the same inputs (tables: the ids of the terrain tables,
+    counted by the cells the queries touch)."""
     import torch
     from deep_tracking_control_tpu_torch.env import cuda_planner
     from deep_tracking_control_tpu_torch.physics import cuda_substep
     from deep_tracking_control_tpu_torch.terrain import cuda_sampler
     results = {}
+    work = {}        # kernel -> (bytes, its plain version to count ops on)
 
     # K1: one policy step of physics.  Budget 1e-4: FMA contraction and
     # rsqrtf in the kernel round differently from the plain op chain, and
@@ -160,6 +275,13 @@ def compare_kernels(calls):
                 pinfo["contact_forces"], 1e-2, 1e-4)
     err = max_err([(phys[k], pphys[k]) for k in phys]
                   + [(anchors, panchors)])
+    # bytes: the arguments and results, and per env the 4 raw cells under
+    # each of the 4 feet in each substep
+    dec, n = args[3], args[6]["pos"].shape[-1]
+    nbytes = (tensor_bytes((args, kwargs), tables)
+              + tensor_bytes((phys, anchors, info)) + n * 4 * dec * 4 * 4)
+    work["decimation_step"] = (
+        nbytes, lambda a=args, k=kw: cuda_substep.decimation_step_plain(*a, **k))
     results["decimation_step"] = dict(max_abs_err=err, **timings(
         torch, lambda: cuda_substep.decimation_step(*args, **kwargs),
         lambda: cuda_substep.decimation_step_plain(*args, **kw), 5))
@@ -177,6 +299,13 @@ def compare_kernels(calls):
     check_close("sample_all gx", gx, pgx, 1e-4, 0.0)
     check_close("sample_all gy", gy, pgy, 1e-4, 0.0)
     err = max_err([(h, ph), (gx, pgx), (gy, pgy)])
+    # bytes: the arguments and results, and per env one bf16 cell for each
+    # nearest sample and 4 float32 cells for each bilinear one
+    n = h.shape[0]
+    nbytes = (tensor_bytes(args, tables) + tensor_bytes((h, gx, gy))
+              + n * (near * 2 + cuda_sampler.Q_BIL * 4 * 4))
+    work["sample_all"] = (
+        nbytes, lambda a=args: cuda_sampler.sample_all_plain(*a))
     results["sample_all"] = dict(max_abs_err=err, **timings(
         torch, lambda: cuda_sampler.sample_all(*args),
         lambda: cuda_sampler.sample_all_plain(*args)))
@@ -205,11 +334,20 @@ def compare_kernels(calls):
                 raise AssertionError(f"plan_footholds: env {n} leg {leg} "
                                      f"differs without a near-tie")
     err = max_err([(got[~differ], want[~differ])]) if (~differ).any() else 0.0
+    nbytes = tensor_bytes((scal, heights, stat)) + tensor_bytes(got)
+    work["plan_footholds"] = (
+        nbytes, lambda: cuda_planner.plan_plain(scal, heights, stat, ny))
     results["plan_footholds"] = dict(max_abs_err=err, **timings(
         torch, lambda: cuda_planner.select_footholds(scal, heights, stat, ny),
         lambda: cuda_planner.plan_plain(scal, heights, stat, ny)))
     say(3, f"plan_footholds vs plain: {frac:.3%} of envs differ (budget 2%, "
            f"near-ties only); max abs err elsewhere {err:.3e}")
+    # operations are counted after all the timings: the counting mode
+    # intercepts every op of the plain version
+    for k, (nbytes, plain) in work.items():
+        ops = count_ops(plain)
+        results[k].update(zip(("bound_ms", "bound_by"), bound(nbytes, ops)))
+        say(3, f"{k}: {nbytes} bytes, {ops} operations")
     return results
 
 
@@ -264,6 +402,244 @@ def small_reference_check(registry, LeggedEnv, device="cuda"):
     return err
 
 
+def compare_gather(ppo, batch, gen):
+    """K9 against its plain version on the batch of a real collect, as the
+    update shuffles it (S=1: the flat batch, one group permutation):
+    bit-exact.  Also times torch.index_select on the (C, G*w) view of each
+    field (the library call computing the same function), summed over the
+    fields."""
+    import torch
+    from deep_tracking_control_tpu_torch.agent.ppo import shuffle_layout
+    from deep_tracking_control_tpu_torch.ops import cuda_gather
+    T, N = batch["values"].shape
+    S, _, _, G = shuffle_layout(ppo.alg, T, N, ppo.n_env_shards)
+    if S != 1:
+        raise AssertionError(f"one card should shuffle in one stratum, not {S}")
+    flat = {k: x.reshape((T * N,) + x.shape[2:]) for k, x in batch.items()}
+    perm = torch.randperm(T * N // G, generator=gen, device=gen.device)
+    got = cuda_gather.permute_groups(flat, perm, G)
+    want = cuda_gather.permute_groups_plain(flat, perm, G)
+    torch.cuda.synchronize()
+    for k in flat:
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"permute_groups: field {k} differs")
+    C = perm.shape[0]
+    views = [x.reshape(C, -1) for x in flat.values()]
+
+    def library():
+        for v in views:
+            torch.index_select(v, 0, perm)
+    nbytes = 2 * tensor_bytes(flat) + tensor_bytes(perm)
+    res = dict(max_abs_err=0.0, **dict(zip(("bound_ms", "bound_by"),
+                                            bound(nbytes, 0))),
+               **timings(torch, lambda: cuda_gather.permute_groups(flat, perm, G),
+                         lambda: cuda_gather.permute_groups_plain(flat, perm, G)),
+               library_ms=device_ms(torch, library),
+               library_wall_ms=wall_ms(torch, library))
+    say(4, f"permute_groups vs plain: {len(flat)} fields, {T * N} rows of "
+           f"{tensor_bytes(flat) // (T * N)} bytes, G={G}: bit-exact; "
+           f"{nbytes / 1e6:.1f} MB moved")
+    return res
+
+
+def train_path(runner, counters, card):
+    """Phase 5: learn(ITERS) after a warm-up learn(1), every launch counted
+    from zero; stats finite, params moved, the learning rate in its band.
+    Returns the launch counts."""
+    import numpy as np
+    import torch
+    runner.learn(1)               # warm-up: the update's allocations
+    torch.cuda.synchronize()
+    before = [p.detach().clone() for p in runner.net.parameters()]
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rows = runner.learn(ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    T = runner.cfg.runner.num_steps_per_env
+    want = {k: (ITERS if k == "permute_groups" else ITERS * T)
+            for k in counters}
+    if launches != want:
+        raise AssertionError(f"learn({ITERS}): launches {launches}, "
+                             f"expected {want}")
+    for i, row in enumerate(rows):
+        bad = [k for k, v in row.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"learn iteration {i}: {bad} not finite")
+    if all(torch.equal(a, b) for a, b in zip(before, runner.net.parameters())):
+        raise AssertionError("learn: the params did not move")
+    lr = float(runner.ppo.learning_rate)
+    if not float(np.float32(1e-5)) <= lr <= float(np.float32(1e-2)):
+        raise AssertionError(f"learn: learning rate {lr} out of its band")
+    coll = [r["collection_time"] for r in rows]
+    learn = [r["learning_time"] for r in rows]
+    steps = ITERS * T * runner.env.num_envs
+    say(5, f"learn({ITERS}) at {runner.env.num_envs} envs after one warm-up "
+           f"iteration: {steps / wall:.1f} train-iteration env-steps/s "
+           f"({wall:.3f} s); collection seconds per iteration {coll}, "
+           f"learning seconds {learn}; update share "
+           f"{sum(learn) / (sum(coll) + sum(learn)):.3f} ({card})")
+    say(5, f"launches in the training path: {launches}; last stats: "
+           + ", ".join(f"{k} {rows[-1][k]:.4g}" for k in (
+               "value_loss", "surrogate_loss", "kl", "recons_loss",
+               "vel_loss", "kld_loss", "height_loss", "lr")))
+    return launches
+
+
+def profile_phases(runner, card, top=6):
+    """Device time of one collect and of one update, each in its own
+    torch.profiler session (CUDA activity only) around a synchronized
+    run: the busy share (device time over the phase's wall time), the
+    number of device ops and the largest items."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    batch = None
+    for phase in ("collect", "update"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if phase == "collect":
+                batch, _ = runner.collect()
+            else:
+                runner.ppo.update(batch, runner.generator)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        ops = sum(e.count for e in events)
+        events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        items = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms"
+                          f" x{e.count}" for e in events[:top])
+        say(5, f"profiled {phase}: wall {wall:.1f} ms, device {busy:.2f} ms "
+               f"(busy share {busy / wall:.3f}), {ops} device ops; largest: "
+               f"{items} ({card})")
+
+
+def small_update_check():
+    """One update of a small ActorCriticDecoder on the card against the
+    same update on the CPU: same weights, batch and draws.  The learning
+    rates are set small so that the params barely move between the 20
+    minibatch steps and every step's stats are read at the same params on
+    both sides (Adam's first steps move each entry by the sign of its
+    gradient, so bf16 noise on a near-zero gradient would flip it): stats
+    rtol 1e-3, and the first minibatch's gradients at cosine >= 0.999 per
+    parameter group (the MLPs compute in bf16)."""
+    import copy
+    import numpy as np
+    import torch
+    from deep_tracking_control_tpu_torch.agent import ppo as tppo
+    from deep_tracking_control_tpu_torch.env.config import AlgorithmCfg
+    from deep_tracking_control_tpu_torch.models.networks import (
+        ActorCriticDecoder)
+    T, N = 8, 64
+    rng = np.random.default_rng(0)
+    f = np.float32
+    mu = rng.normal(0, 0.3, (T, N, 12)).astype(f)
+    sigma = rng.uniform(0.8, 1.2, (T, N, 12)).astype(f)
+    arrays = dict(
+        obs=rng.normal(size=(T, N, 53)), next_obs=rng.normal(size=(T, N, 53)),
+        privileged_obs=rng.normal(size=(T, N, 1389)),
+        obs_history=rng.normal(size=(T, N, 265)),
+        base_vel=rng.normal(size=(T, N, 3)),
+        actions=mu + sigma * rng.normal(size=(T, N, 12)), old_mu=mu,
+        old_sigma=sigma, values=rng.normal(size=(T, N)),
+        returns=rng.normal(size=(T, N)), advantages=rng.normal(size=(T, N)),
+        old_log_prob=rng.normal(-15, 1, (T, N)))
+    batch = {k: torch.from_numpy(v.astype(f)).to(
+        torch.bfloat16 if k in ("privileged_obs", "obs_history")
+        else torch.float32) for k, v in arrays.items()}
+    net = ActorCriticDecoder(terrain_latent=32, actor_hidden=(32,),
+                             critic_hidden=(32,),
+                             generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():           # trained-scale weights past layer 0
+        for name, p in net.named_parameters():
+            if name.endswith("weight") and ".layers.0." not in name:
+                p.mul_(50.0)
+    alg = AlgorithmCfg(learning_rate=1e-7, vae_learning_rate=1e-7)
+    sides = {}
+    for dev in ("cpu", "cuda"):
+        ppo = tppo.PPO(net=copy.deepcopy(net).to(dev), alg=alg)
+        sides[dev] = (ppo, {k: v.to(dev) for k, v in batch.items()})
+    perm, eps = sides["cpu"][0].draw(T, N, torch.Generator().manual_seed(1),
+                                     "cpu")
+    grads = {}
+    for dev, (ppo, b) in sides.items():
+        mb = ppo.minibatch(ppo.shuffle(b, perm.to(dev)), 0, 1)
+        _, _, vg, g = ppo.joint_grads(mb, eps[0, 0].to(dev), eps[0, 1].to(dev))
+        grads[dev] = [(opt.names, gs) for opt, gs in
+                      ((ppo.vae_optimizer, vg), (ppo.optimizer, g))]
+    worst = 1.0
+    for (names, gc), (_, gg) in zip(grads["cpu"], grads["cuda"]):
+        groups = {}
+        for n, a, b in zip(names, gc, gg):
+            if a is not None:
+                groups.setdefault(n.rsplit(".", 2)[0], []).append(
+                    (a.reshape(-1), b.reshape(-1).cpu()))
+        for grp, pairs in groups.items():
+            a = torch.cat([x for x, _ in pairs]).double()
+            b = torch.cat([y for _, y in pairs]).double()
+            if float(a.norm()) > 0:
+                cos = float(a @ b / (a.norm() * b.norm()))
+                worst = min(worst, cos)
+                if not cos >= 0.999:
+                    raise AssertionError(f"small update: {grp} gradient "
+                                         f"cosine {cos}")
+    stats = {dev: ppo.update(b, perm=perm.to(dev), eps=eps.to(dev))
+             for dev, (ppo, b) in sides.items()}
+    rel = 0.0
+    for k in tppo.STAT_NAMES:
+        got, want = float(stats["cuda"][k]), float(stats["cpu"][k])
+        if not abs(got - want) <= 1e-6 + 1e-3 * abs(want):
+            raise AssertionError(f"small update: {k} {got} on the card, "
+                                 f"{want} on the CPU")
+        rel = max(rel, abs(got - want) / max(abs(want), 1e-12))
+    return worst, rel
+
+
+def save_load_check(registry, LeggedEnv, OnPolicyRunner):
+    """A 16-env runner on the card learns one iteration and saves; a fresh
+    runner loads the file: params, both optimizers, the learning rate, the
+    generator and the env state come back exactly."""
+    import torch
+    task, train = registry.get_cfgs("lite3_dtc")
+    task = dataclasses.replace(
+        task, env=dataclasses.replace(task.env, num_envs=16),
+        terrain=dataclasses.replace(task.terrain, num_rows=3, num_cols=2,
+                                    border_size=4.0))
+    a = OnPolicyRunner(LeggedEnv(task, device="cuda"), train)
+    a.learn(1)
+    b = OnPolicyRunner(LeggedEnv(task, device="cuda"), train)
+    with tempfile.TemporaryDirectory(dir=HERE) as d:
+        path = os.path.join(d, "model_1.pt")
+        a.save(path)
+        b.load(path)
+    pairs = [(f"params {k}", v, b.net.state_dict()[k])
+             for k, v in a.net.state_dict().items()]
+    for name in ("optimizer", "vae_optimizer"):
+        oa, ob = getattr(a.ppo, name), getattr(b.ppo, name)
+        pairs += [(f"{name} {m}", getattr(oa, m), getattr(ob, m))
+                  for m in ("mu", "nu", "count")]
+    pairs.append(("learning rate", a.ppo.learning_rate, b.ppo.learning_rate))
+    pairs.append(("generator", a.generator.get_state(),
+                  b.generator.get_state()))
+
+    def leaves(prefix, x, y):
+        if isinstance(x, dict):
+            for k in x:
+                leaves(f"{prefix}.{k}", x[k], y[k])
+        elif isinstance(x, torch.Tensor):
+            pairs.append((prefix, x, y))
+    leaves("env_state", a.env_state, b.env_state)
+    for name, x, y in pairs:
+        if x.device != y.device or not torch.equal(x, y):
+            raise AssertionError(f"save/load: {name} differs")
+    if b.current_learning_iteration != 1:
+        raise AssertionError("save/load: the iteration was not restored")
+    return len(pairs)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -272,6 +648,7 @@ def main():
     from deep_tracking_control_tpu_torch import cuda_build
     from deep_tracking_control_tpu_torch.env import cuda_planner
     from deep_tracking_control_tpu_torch.env.legged_env import LeggedEnv
+    from deep_tracking_control_tpu_torch.ops import cuda_gather
     from deep_tracking_control_tpu_torch.physics import cuda_substep
     from deep_tracking_control_tpu_torch.runner.train import OnPolicyRunner
     from deep_tracking_control_tpu_torch.tasks import registry
@@ -306,14 +683,16 @@ def main():
            f"{time.perf_counter() - t0:.1f} s")
     calls, runner.env_state = record_kernel_inputs(
         env, runner.env_params, runner.env_state, runner.generator)
-    results = compare_kernels(calls)
+    tables = {id(env.patch_src.blocks), id(env.patch_src.blocks16)}
+    results = compare_kernels(calls, tables)
 
-    # ---- 4: the main path -------------------------------------------------
+    # ---- 4: the collection path -------------------------------------------
     runner.collect()              # warm-up: allocator, cuBLAS heuristics
     torch.cuda.synchronize()
     counters = {"decimation_step": cuda_substep.decimation_step,
                 "sample_all": cuda_sampler.sample_all,
-                "plan_footholds": cuda_planner.plan_footholds_fused}
+                "plan_footholds": cuda_planner.plan_footholds_fused,
+                "permute_groups": cuda_gather.permute_groups}
     for fn in counters.values():
         fn.launches = 0
     T = train.runner.num_steps_per_env
@@ -333,31 +712,54 @@ def main():
             if not bool(torch.isfinite(torch.as_tensor(v)).all()):
                 raise AssertionError(f"collect {it}: {k} not finite")
         for k, fn in counters.items():         # one launch per step
-            if fn.launches != (it + 1) * T:
+            want = 0 if k == "permute_groups" else (it + 1) * T
+            if fn.launches != want:
                 raise AssertionError(f"{k}: {fn.launches} launches after "
                                      f"{it + 1} collects of {T} steps")
-    launches = {k: fn.launches for k, fn in counters.items()}
+    collect_launches = {k: fn.launches for k, fn in counters.items()}
     steps = T * NUM_ENVS
     rate = steps * ITERS / sum(iter_s)
     say(4, f"collect: {ITERS} x {T} steps x {NUM_ENVS} envs after one "
            f"warm-up collect; iteration seconds {iter_s}; {rate:.1f} "
            f"env-steps/s ({card})")
-    say(4, f"launches in the main path: {launches}; episodes ended "
-           f"{float(aux['ep_count']):.0f} in the last iteration")
+    say(4, f"launches in the collection path: {collect_launches}; episodes "
+           f"ended {float(aux['ep_count']):.0f} in the last iteration")
+    results["permute_groups"] = compare_gather(runner.ppo, batch,
+                                               runner.generator)
+    del batch
     for k, r in results.items():
-        say(4, f"{k} at {NUM_ENVS} envs: device time per call, median of "
+        lib = ("" if "library_ms" not in r else
+               f"; index_select over the fields: device {r['library_ms']:.4f}"
+               f" ms, stream {r['library_wall_ms']:.4f} ms")
+        say(4, f"{k} at {NUM_ENVS} envs: device time per call, mean of "
                f"{REPEATS}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
                f" ms; stream time per call: kernel {r['wall_ms']:.4f} ms, "
-               f"plain {r['plain_wall_ms']:.4f} ms ({card})")
+               f"plain {r['plain_wall_ms']:.4f} ms{lib}; bound "
+               f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({card})")
     err = small_reference_check(registry, LeggedEnv)
     say(4, f"16-env step on the card vs on the CPU: max abs err {err:.3e} "
            f"(budget 1e-4)")
 
-    # ---- 5: result lines ----------------------------------------------
+    # ---- 5: the training path ------------------------------------------
+    launches = train_path(runner, counters, card)
+    profile_phases(runner, card)
+
+    # ---- 6: small update card vs CPU, save/load ---------------------------
+    cos, rel = small_update_check()
+    say(6, f"small-net update on the card vs on the CPU: gradient cosine "
+           f">= {cos:.6f} (budget 0.999), stats max rel err {rel:.3e} "
+           f"(budget 1e-3)")
+    n = save_load_check(registry, LeggedEnv, OnPolicyRunner)
+    say(6, f"save/load on the card: {n} tensors restored exactly")
+
+    # ---- 7: result lines ----------------------------------------------
     kernels = [dict(name=k, route="cuda", source=KERNELS[k][0],
                     replaces=KERNELS[k][1], launches=launches[k],
                     max_abs_err=results[k]["max_abs_err"],
-                    ms=results[k]["ms"], plain_ms=results[k]["plain_ms"])
+                    ms=results[k]["ms"], plain_ms=results[k]["plain_ms"],
+                    bound_ms=results[k]["bound_ms"],
+                    bound_by=results[k]["bound_by"],
+                    library_ms=results[k].get("library_ms"))
                for k in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card)

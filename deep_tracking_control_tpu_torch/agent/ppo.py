@@ -1,8 +1,18 @@
-"""PPO acting and GAE on torch tensors.
+"""PPO on torch tensors: acting, GAE and the joint VAE + policy update.
 
-Counterpart of the collection half of the JAX package's agent/ppo.py
-(rsl_rl ppo.py:137-155 act, rollout_storage.py:138-152 compute_returns).
-The update (the joint VAE + policy minibatch step) is not ported yet.
+Counterpart of the JAX package's agent/ppo.py for the ActorCriticDecoder
+(its policy_kind "decoder"; rsl_rl ppo.py:137-155 act,
+rollout_storage.py:138-152 compute_returns, ppo.py:174-357 update): the
+5-epoch x 4-minibatch update over the flattened (T*N) batch, with ONE
+grouped permutation per update applied by the gather kernel
+(ops/cuda_gather.py) and reused by every epoch, the fused (Jacobi) or the
+sequential VAE+policy step, the adaptive-KL learning rate and the two Adam
+optimizers in optax's exact form.  The MLP and recurrent policies are not
+ported yet.
+
+Random draws (the group permutation and the standard normal draws of the
+reparameterized latents) are arguments; they come from a torch.Generator
+when not given, so tests can feed the JAX package's draws.
 """
 from __future__ import annotations
 
@@ -10,9 +20,16 @@ import dataclasses
 import math
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..env.config import AlgorithmCfg
+from ..ops import cuda_gather
+from ..utils.flags import strict_parity
+
+# the nine stats of an update, averaged over its minibatch steps
+STAT_NAMES = ("value_loss", "surrogate_loss", "entropy", "kl", "recons_loss",
+              "vel_loss", "kld_loss", "height_loss", "lr")
 
 
 def normal_log_prob(mean, std, x):
@@ -23,11 +40,132 @@ def normal_log_prob(mean, std, x):
     return torch.sum(lp, dim=-1)
 
 
+def normal_entropy(std):
+    return torch.sum(0.5 + 0.5 * math.log(2.0 * math.pi) + torch.log(std),
+                     dim=-1)
+
+
+class ClippedAdam:
+    """optax.chain(clip_by_global_norm(max_norm), adam(lr)) over a list of
+    named parameters, which it updates in place.
+
+    The clip scales by max_norm / norm only when norm >= max_norm (optax's
+    form; torch's clip_grad_norm_ divides by norm + 1e-6).  Adam is optax's
+    scale_by_adam: b1=0.9, b2=0.999, eps=1e-8, eps_root=0, moments
+    bias-corrected by 1 - b^t.  With injected=True the hyperparameters are
+    float32 values, as optax.inject_hyperparams stores them, so the moment
+    weights 1 - b are formed in float32 (1 - f32(0.999) is 1.3e-5 off
+    0.001).  The moments live in two flat float32 buffers, so one step is a
+    few dozen device ops whatever the number of parameters; a missing
+    gradient counts as zero."""
+
+    def __init__(self, named_params, max_norm: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8, injected: bool = False):
+        named_params = list(named_params)
+        self.names = [n for n, _ in named_params]
+        self.params = [p for _, p in named_params]
+        self.max_norm, self.b1, self.b2, self.eps = max_norm, b1, b2, eps
+        one = np.float32(1.0) if injected else 1.0
+        self.c1 = float(one - (np.float32(b1) if injected else b1))
+        self.c2 = float(one - (np.float32(b2) if injected else b2))
+        dev = self.params[0].device
+        size = sum(p.numel() for p in self.params)
+        self.mu = torch.zeros(size, device=dev)
+        self.nu = torch.zeros(size, device=dev)
+        self.count = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def _views(self, flat):
+        out, i = [], 0
+        for p in self.params:
+            out.append(flat[i:i + p.numel()].view_as(p))
+            i += p.numel()
+        return out
+
+    @torch.no_grad()
+    def step(self, grads, lr):
+        """One update with these gradients (a list parallel to the params,
+        None for zero) at learning rate lr (a float or a 0-d tensor)."""
+        g = torch.cat([(torch.zeros_like(p) if gi is None else gi).reshape(-1)
+                       for gi, p in zip(grads, self.params)])
+        # sqrt of a plain sum of squares (vector_norm on the CPU loses
+        # ~5e-5 of a 20k-entry f32 norm)
+        norm = torch.sqrt(torch.sum(torch.square(g)))
+        g = torch.where(norm < self.max_norm, g, g / norm * self.max_norm)
+        self.mu = self.c1 * g + self.b1 * self.mu
+        self.nu = self.c2 * torch.square(g) + self.b2 * self.nu
+        self.count = self.count + 1
+        t = self.count.float()
+        mu_hat = self.mu / (1 - self.b1 ** t)
+        nu_hat = self.nu / (1 - self.b2 ** t)
+        update = mu_hat / (torch.sqrt(nu_hat) + self.eps) * (-lr)
+        torch._foreach_add_(self.params, self._views(update))
+
+    def state_dict(self) -> dict:
+        return dict(count=self.count.clone(),
+                    mu=dict(zip(self.names, (v.clone() for v in
+                                             self._views(self.mu)))),
+                    nu=dict(zip(self.names, (v.clone() for v in
+                                             self._views(self.nu)))))
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict):
+        dev = self.mu.device
+        self.count = sd["count"].to(device=dev, dtype=torch.int32).reshape(())
+        for name, buf in (("mu", self.mu), ("nu", self.nu)):
+            if set(sd[name]) != set(self.names):
+                raise KeyError(f"optimizer state {name}: other parameters")
+            for v, n in zip(self._views(buf), self.names):
+                v.copy_(sd[name][n])
+
+
+def make_optimizers(net, alg: AlgorithmCfg):
+    """(main, vae) optimizers (ppo.py:40-50): the main one spans every
+    parameter, its learning rate injected each minibatch; the VAE one spans
+    the vae subtree only (mask_non_vae, ppo.py:519-525) at
+    vae_learning_rate, clipped on the VAE gradient's own norm."""
+    named = list(net.named_parameters())
+    main = ClippedAdam(named, alg.max_grad_norm, injected=True)
+    vae = ClippedAdam([(n, p) for n, p in named if n.startswith("vae.")],
+                      alg.max_grad_norm)
+    return main, vae
+
+
+def shuffle_layout(alg: AlgorithmCfg, T: int, N: int, n_env_shards: int = 1):
+    """(S, rows per stratum, minibatch rows per stratum, G) of the update
+    (ppo.py:287-300): S strata (0 = auto: the env-shard count, 1 on one
+    device; 1 under DTC_STRICT_PARITY), shrunk until every stratum splits
+    into whole minibatches, and the granule G capped at gcd(granule, mb_s).
+    """
+    total, nmb = T * N, alg.num_mini_batches
+    want_s = (int(alg.shuffle_strata) if alg.shuffle_strata > 0
+              else max(int(n_env_shards), 1))
+    S = 1 if strict_parity() else math.gcd(want_s, N)
+    while S > 1 and (total // S) % nmb:
+        S -= 1
+        while N % S:
+            S -= 1
+    rows_s = total // S
+    mb_s = rows_s // nmb
+    G = math.gcd(max(int(alg.minibatch_perm_granule), 1), mb_s)
+    return S, rows_s, mb_s, G
+
+
 @dataclasses.dataclass
 class PPO:
-    """PPO over an ActorCriticDecoder (the reference's teacher path)."""
+    """PPO over an ActorCriticDecoder (the reference's teacher path).  With
+    a net it owns the two optimizers and the learning rate, a 0-d tensor on
+    the net's device."""
     net: Any
     alg: AlgorithmCfg
+    n_env_shards: int = 1
+
+    def __post_init__(self):
+        if self.net is not None:
+            self.optimizer, self.vae_optimizer = make_optimizers(self.net,
+                                                                 self.alg)
+            self.learning_rate = torch.tensor(
+                self.alg.learning_rate, dtype=torch.float32,
+                device=self.net.std.device)
 
     def value(self, obs, privileged_obs, base_vel):
         return self.net.evaluate(obs, privileged_obs, base_vel)
@@ -69,3 +207,177 @@ class PPO:
         returns = advs + values
         advantages = (advs - advs.mean()) / (advs.std(correction=0) + 1e-8)
         return returns, advantages
+
+    # ---------------- update ----------------
+    def _pol_terms(self, mean, std, value, mb):
+        """(loss, surrogate, value loss, entropy, mean KL) (ppo.py:265-335)."""
+        alg = self.alg
+        log_prob = normal_log_prob(mean, std, mb["actions"])
+        ratio = torch.exp(log_prob - mb["old_log_prob"])
+        adv = mb["advantages"]
+        surr = -adv * ratio
+        surr_clipped = -adv * torch.clamp(ratio, 1.0 - alg.clip_param,
+                                          1.0 + alg.clip_param)
+        surrogate_loss = torch.mean(torch.maximum(surr, surr_clipped))
+        if alg.use_clipped_value_loss:                    # ppo.py:318-323
+            v_clipped = mb["values"] + torch.clamp(
+                value - mb["values"], -alg.clip_param, alg.clip_param)
+            value_loss = torch.mean(torch.maximum(
+                torch.square(value - mb["returns"]),
+                torch.square(v_clipped - mb["returns"])))
+        else:
+            value_loss = torch.mean(torch.square(mb["returns"] - value))
+        entropy = torch.mean(normal_entropy(std))
+        loss = (surrogate_loss + alg.value_loss_coef * value_loss
+                - alg.entropy_coef * entropy)
+        kl = torch.sum(
+            torch.log(std / mb["old_sigma"] + 1e-5)
+            + (torch.square(mb["old_sigma"]) + torch.square(mb["old_mu"] - mean))
+            / (2.0 * torch.square(std)) - 0.5, dim=-1)
+        return loss, surrogate_loss, value_loss, entropy, torch.mean(kl)
+
+    def _vae_loss(self, parts, mb):
+        alg = self.alg
+        recons, vel, kld, height = parts
+        loss = recons + vel + alg.kld_weight * kld + height
+        if alg.belief_loss_coef > 0.0:
+            loss = loss + alg.belief_loss_coef * self.net.belief_loss(
+                mb["obs_history"], mb["privileged_obs"])
+        return loss
+
+    def joint_grads(self, mb, eps_vae, eps_pol):
+        """The fused step's forward and both gradients at the same params
+        (ppo.py:402-443): returns (vae parts, policy terms, VAE gradients
+        over the vae subtree, policy gradients over every parameter)."""
+        net = self.net
+        with torch.enable_grad():
+            parts, mean, std, value = net.joint_forward(
+                mb["obs"], mb["obs_history"], mb["privileged_obs"],
+                mb["next_obs"], mb["base_vel"], eps_vae, eps_pol)
+            pol = self._pol_terms(mean, std, value, mb)
+            vae_grads = torch.autograd.grad(
+                self._vae_loss(parts, mb), self.vae_optimizer.params,
+                retain_graph=True, allow_unused=True)
+            grads = torch.autograd.grad(pol[0], self.optimizer.params,
+                                        allow_unused=True)
+        return parts, pol, vae_grads, grads
+
+    def _sequential_step(self, mb, eps_vae, eps_pol):
+        """The reference's order (ppo.py:444-483): VAE loss, VAE optimizer
+        step, then the policy loss at the updated VAE params."""
+        net = self.net
+        with torch.enable_grad():
+            parts = net.vae_losses(mb["obs_history"], mb["privileged_obs"],
+                                   mb["next_obs"], mb["base_vel"], eps_vae)
+            vae_grads = torch.autograd.grad(
+                self._vae_loss(parts, mb), self.vae_optimizer.params,
+                allow_unused=True)
+        self.vae_optimizer.step(vae_grads, self.alg.vae_learning_rate)
+        with torch.enable_grad():
+            mean, std, _, _ = net.act_stats(mb["obs"], mb["obs_history"],
+                                            mb["privileged_obs"], eps_pol)
+            value = net.evaluate(mb["obs"], mb["privileged_obs"],
+                                 mb["base_vel"])
+            pol = self._pol_terms(mean, std, value, mb)
+            grads = torch.autograd.grad(pol[0], self.optimizer.params,
+                                        allow_unused=True)
+        return parts, pol, grads
+
+    def adapt_lr(self, lr, kl):
+        """Adaptive-KL learning rate (ppo.py:300-307), on the device."""
+        alg = self.alg
+        if alg.schedule == "adaptive" and alg.desired_kl is not None:
+            lr = torch.where(kl > alg.desired_kl * 2.0,
+                             torch.clamp(lr / 1.5, min=1e-5), lr)
+            lr = torch.where((kl < alg.desired_kl / 2.0) & (kl > 0),
+                             torch.clamp(lr * 1.5, max=1e-2), lr)
+        return lr
+
+    def draw(self, T: int, N: int, generator: torch.Generator, device):
+        """The update's random draws: the group permutation of each stratum
+        (S, rows_s // G) and the standard normal latent draws
+        (steps, 2, minibatch rows, z_dim), [:, 0] for the VAE head and
+        [:, 1] for the policy."""
+        alg = self.alg
+        S, rows_s, _, G = shuffle_layout(alg, T, N, self.n_env_shards)
+        perm = torch.stack([torch.randperm(rows_s // G, generator=generator,
+                                           device=device) for _ in range(S)])
+        steps = alg.num_learning_epochs * alg.num_mini_batches
+        eps = torch.randn((steps, 2, T * N // alg.num_mini_batches,
+                           self.net.z_dim), generator=generator, device=device)
+        return perm, eps
+
+    def shuffle(self, batch: dict, perm) -> dict:
+        """The batch permuted once for the whole update (ppo.py:307-346):
+        rows in an (S * rows_s) layout — stratum s is env block s over all
+        T steps, time-major (S=1: the flat batch, no copy) — with each
+        stratum permuted in groups of G by its row of perm (S, rows_s // G),
+        all fields in one gather (K9 on the card)."""
+        T, N = batch["values"].shape
+        total = T * N
+        S, rows_s, _, G = shuffle_layout(self.alg, T, N, self.n_env_shards)
+        dev = batch["values"].device
+        C_s = rows_s // G
+        perm = perm.to(device=dev, dtype=torch.int64).reshape(S, C_s)
+        if S == 1:
+            flat = {k: x.reshape((total,) + x.shape[2:])
+                    for k, x in batch.items()}
+            gperm = perm.reshape(-1)
+        else:
+            flat = {k: x.reshape((T, S, N // S) + x.shape[2:]).transpose(0, 1)
+                    .reshape((total,) + x.shape[2:]) for k, x in batch.items()}
+            gperm = (perm + C_s * torch.arange(S, device=dev)[:, None]
+                     ).reshape(-1)
+        return cuda_gather.permute_groups(flat, gperm, G)
+
+    def minibatch(self, flat: dict, i: int, S: int) -> dict:
+        """Minibatch step i of a batch shuffled in S strata: an equal
+        contiguous slice of every stratum (S=1: a plain slice, no copy)."""
+        total = next(iter(flat.values())).shape[0]
+        nmb = self.alg.num_mini_batches
+        rows_s = total // S
+        mb_s = rows_s // nmb
+        off = (i % nmb) * mb_s
+        return {k: x.reshape((S, rows_s) + x.shape[1:])[:, off:off + mb_s]
+                .reshape((S * mb_s,) + x.shape[1:]) for k, x in flat.items()}
+
+    @torch.no_grad()
+    def update(self, batch: dict, generator: torch.Generator | None = None,
+               perm=None, eps=None) -> dict:
+        """5 epochs x 4 minibatches over the flattened batch (PPO.update,
+        ppo.py:247-516), updating the net, both optimizers and the learning
+        rate in place.
+
+        batch: (T, N, ...) fields obs, next_obs, privileged_obs,
+        obs_history, base_vel, actions, values, returns, advantages,
+        old_log_prob, old_mu, old_sigma.  perm (S, rows_s // G) and eps
+        (steps, 2, minibatch rows, z_dim) as `draw` makes them from
+        `generator` when not given.  Returns the nine stats (STAT_NAMES),
+        0-d tensors averaged over the minibatch steps."""
+        alg = self.alg
+        T, N = batch["values"].shape
+        S = shuffle_layout(alg, T, N, self.n_env_shards)[0]
+        if perm is None or eps is None:
+            dperm, deps = self.draw(T, N, generator, batch["values"].device)
+            perm = dperm if perm is None else perm
+            eps = deps if eps is None else eps
+        flat = self.shuffle(batch, perm)
+        lr = self.learning_rate
+        stats = []
+        for i in range(alg.num_learning_epochs * alg.num_mini_batches):
+            mb = self.minibatch(flat, i, S)
+            if alg.fused_joint_step:
+                parts, pol, vae_grads, grads = self.joint_grads(
+                    mb, eps[i, 0], eps[i, 1])
+                self.vae_optimizer.step(vae_grads, alg.vae_learning_rate)
+            else:
+                parts, pol, grads = self._sequential_step(mb, eps[i, 0],
+                                                          eps[i, 1])
+            _, surr, value_loss, entropy, kl = pol
+            lr = self.adapt_lr(lr, kl)
+            self.optimizer.step(grads, lr)
+            stats.append(torch.stack([value_loss, surr, entropy, kl, *parts,
+                                      lr]).detach())
+        self.learning_rate = lr
+        means = torch.stack(stats).mean(dim=0)
+        return dict(zip(STAT_NAMES, means.unbind()))

@@ -5,6 +5,9 @@ on the JAX side), so this module needs no JAX.
 
   params_from_flax(tree)   flax ActorCriticDecoder params -> the
                            state_dict of models.networks.ActorCriticDecoder
+  opt_state_from_optax(..) the optax states of the JAX update's two
+                           optimizers and its learning rate -> the state of
+                           this package's PPO optimizers
   env_from_jax(...)        LeggedEnv (params, state) of the JAX package ->
                            the (params, state) of this package's LeggedEnv,
                            terrain included, so both step the same world
@@ -40,6 +43,46 @@ def params_from_flax(tree) -> dict:
             arr = arr.T
         out[".".join(names)] = torch.from_numpy(np.array(arr, order="C"))
     walk(tree, [])
+    return out
+
+
+def _adam_state(state):
+    """The ScaleByAdamState (count, mu, nu) inside an optax chain state."""
+    if all(hasattr(state, f) for f in ("count", "mu", "nu")):
+        return state
+    if isinstance(state, (tuple, list)):
+        for sub in state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    inner = getattr(state, "inner_state", None)
+    return None if inner is None else _adam_state(inner)
+
+
+def opt_state_from_optax(opt_state, vae_opt_state, lr) -> dict:
+    """The JAX update's optimizer states -> this package's.
+
+    opt_state / vae_opt_state: the (clip, adam) chain states of
+    agent/ppo.py make_optimizers with numpy leaves
+    (``jax.tree.map(np.asarray, state)``); lr: the runner's learning rate.
+    Returns dict(opt_state, vae_opt_state, learning_rate) for
+    PPO.optimizer / PPO.vae_optimizer `load_state_dict` and
+    PPO.learning_rate: the Adam moments per parameter under the leaf
+    mapping of params_from_flax (the VAE optimizer keeps only the vae
+    subtree: its moments elsewhere are zero, mask_non_vae)."""
+    out = {}
+    for name, state, keep in (("opt_state", opt_state, lambda n: True),
+                              ("vae_opt_state", vae_opt_state,
+                               lambda n: n.startswith("vae."))):
+        adam = _adam_state(state)
+        if adam is None:
+            raise ValueError(f"{name}: no Adam state (count, mu, nu) found")
+        out[name] = dict(
+            count=torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32),
+            **{m: {k: v for k, v in params_from_flax(getattr(adam, m)).items()
+                   if keep(k)} for m in ("mu", "nu")})
+    out["learning_rate"] = torch.tensor(float(np.asarray(lr)),
+                                        dtype=torch.float32)
     return out
 
 

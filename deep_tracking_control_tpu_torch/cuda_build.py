@@ -1,11 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-All sources under ``csrc/`` compile with one ``nvcc`` call into one shared
-library with a plain C interface, loaded with ctypes (no PyTorch headers,
-so the build takes seconds).  The library goes into ``_build/`` beside
-this file, named by a hash of the sources and flags, and is built at first
-use; nothing is downloaded and nothing outside the package sources and the
-CUDA toolkit is read.
+All sources under ``csrc/`` compile in parallel (one ``nvcc`` per source)
+and link into one shared library with a plain C interface, loaded with
+ctypes (no PyTorch headers, so the build takes seconds).  The library
+goes into ``_build/`` beside this file, named by a hash of the sources and
+flags, and is built at first use; nothing is downloaded and nothing
+outside the package sources and the CUDA toolkit is read.
 
 Each C entry point takes device pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch; `launch` raises on a
@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 build_seconds = None     # wall time of this process's nvcc run, if any
@@ -60,24 +60,37 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library unless it is up to date."""
+    """Compile csrc/*.cu into the shared library unless it is up to date:
+    one nvcc per source, all started together, then one link."""
     global build_seconds, build_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)          # atomic: concurrent builds agree
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(logs)
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        if not failed:
+            lib = os.path.join(tmpdir, "lib.so")
+            link = subprocess.run(
+                [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                 "-o", lib, *objs], capture_output=True, text=True)
+            build_log += link.stdout + link.stderr
+            failed = [link.returncode] if link.returncode else []
+        build_seconds = time.perf_counter() - t0
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed}):\n{build_log}")
+        os.replace(lib, out)          # atomic: concurrent builds agree
     return out
 
 
@@ -90,7 +103,8 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, *args) -> None:
     """Call entry point `name`; ints go as c_int, floats as c_float, and
-    device addresses (Ptr: tensor data pointers, the stream) as c_void_p."""
+    device addresses (Ptr: tensor data pointers, the stream) and ctypes
+    host arrays as c_void_p."""
     types = tuple(_ctype(a) for a in args)
     fn = _entry_points.get((name, types))
     if fn is None:
@@ -111,6 +125,8 @@ class Ptr(int):
 
 
 def _ctype(a):
+    if isinstance(a, ctypes.Array):
+        return ctypes.c_void_p        # a host array, passed by address
     if isinstance(a, bool) or not isinstance(a, (int, float)):
         raise TypeError(f"unsupported kernel argument {a!r}")
     if isinstance(a, Ptr):

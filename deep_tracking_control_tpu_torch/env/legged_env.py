@@ -49,7 +49,7 @@ class LeggedEnv:
     """Static env object: robot model, terrain, constants.  All step/reset
     logic is in methods over (params, state) dicts."""
 
-    def __init__(self, cfg: TaskCfg, terrain_seed: int = 0, device="cpu"):
+    def __init__(self, cfg: TaskCfg, terrain_seed: int = 0, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         dev = self.device

@@ -92,27 +92,51 @@ def bf16_concat(*parts):
     return torch.cat([p.to(BF16) for p in parts], dim=-1)
 
 
+class _MaskedMedian(torch.autograd.Function):
+    """Forward: the rank read from a device-side sort.  Backward: the
+    JAX package's rule (networks.py:137-140) — the median is reconnected
+    through a max over the valid elements equal to it, and the gradient
+    of a max splits equally among ties."""
+
+    @staticmethod
+    def forward(ctx, x, valid):
+        flat = x.reshape(-1)
+        v = valid.reshape(-1)
+        keyed = torch.where(v, flat, torch.full_like(flat, float("inf")))
+        srt = torch.sort(keyed).values
+        k = torch.clamp((v.sum() + 1) // 2 - 1, min=0)
+        med = srt.gather(0, k.reshape(1))[0]
+        ctx.save_for_backward(x, valid, med)
+        return med
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, valid, med = ctx.saved_tensors
+        sel = (valid & (x == med)).to(x.dtype)
+        return grad * sel / torch.clamp(sel.sum(), min=1.0), None
+
+
 def masked_median(x, valid):
     """Median of x[valid] — the lower middle element for even counts, as
     torch.median and the JAX package's masked_median (networks.py:83-140)
     return it — without a host round trip: invalid entries sort last, and
-    the rank is read on the device."""
-    flat = x.reshape(-1)
-    v = valid.reshape(-1)
-    keyed = torch.where(v, flat, torch.full_like(flat, float("inf")))
-    srt = torch.sort(keyed).values
-    k = torch.clamp((v.sum() + 1) // 2 - 1, min=0)
-    return srt.gather(0, k.reshape(1))[0]
+    the rank is read on the device.  Its gradient is split equally among
+    the valid elements equal to the median, as in the JAX package."""
+    return _MaskedMedian.apply(x, valid)
 
 
 class Vae(nn.Module):
     """CE-net + terrain autoencoder + belief memory MLP (Vae, :91-303)."""
 
     def __init__(self, num_obs=53, obs_history_dim=265, terrain_dim=693,
-                 terrain_latent=512, z_dim=16, generator=None):
+                 terrain_latent=512, z_dim=16, outlier_filter="median",
+                 generator=None):
         super().__init__()
+        if outlier_filter not in ("median", "mean"):
+            raise ValueError(f"outlier_filter {outlier_filter!r}")
         g = generator
         self.z_dim = z_dim
+        self.outlier_filter = outlier_filter
         self.cenet_encoder = MLP(obs_history_dim, (128,), 64, "relu", generator=g)
         self.latent_mu = Dense(64, 3 + z_dim, "orthogonal", g)
         self.latent_var = Dense(64, z_dim, "orthogonal", g)
@@ -128,14 +152,19 @@ class Vae(nn.Module):
     def cenet_stats(self, obs_history):
         """(mu, logvar) with the latent_var outlier filter (:286-302):
         entries beyond 2 sigma (over the whole batch) take the median of
-        the others."""
+        the others ("median", the reference) or their mean ("mean")."""
         e = self.cenet_encoder(obs_history)
         mu = self.latent_mu(e)
         logvar = self.latent_var(e)
         m = logvar.mean()
         s = logvar.std(correction=0)
         outliers = torch.abs(logvar - m) > 2.0 * s
-        center = masked_median(logvar, ~outliers)
+        valid = ~outliers
+        if self.outlier_filter == "median":
+            center = masked_median(logvar, valid)
+        else:
+            center = (torch.where(valid, logvar, 0.0).sum()
+                      / torch.clamp(valid.sum(), min=1))
         return mu, torch.where(outliers, center, logvar)
 
     def reparam(self, mu, logvar, eps):
@@ -169,13 +198,14 @@ class ActorCriticDecoder(nn.Module):
                  obs_history_dim=265, terrain_dim=693, terrain_latent=512,
                  z_dim=16, actor_hidden=(512, 256, 128),
                  critic_hidden=(512, 256, 128), activation="elu",
-                 init_noise_std=1.0, generator: torch.Generator | None = None):
+                 init_noise_std=1.0, outlier_filter="median",
+                 generator: torch.Generator | None = None):
         super().__init__()
         g = generator
         self.terrain_dim = terrain_dim
         self.z_dim = z_dim
         self.vae = Vae(num_obs, obs_history_dim, terrain_dim, terrain_latent,
-                       z_dim, generator=g)
+                       z_dim, outlier_filter, generator=g)
         self.actor_body = MLP(num_obs + z_dim + 3 + terrain_latent,
                               actor_hidden, num_actions, activation,
                               generator=g)
@@ -217,3 +247,51 @@ class ActorCriticDecoder(nn.Module):
         x = bf16_concat(obs, base_vel, privileged_obs[..., td:td + 3],
                         privileged_obs[..., td + 3:])
         return self.critic_body(x)[..., 0]
+
+    def _vae_terms(self, mu, logvar, z, l_t, privileged_obs, next_obs,
+                   base_vel):
+        """(recons, vel, kld, height) losses of the VAE head (ppo.py:197-247)
+        from one encoder pass."""
+        td = self.terrain_dim
+        recons = self.vae.decode_cenet(z, mu[..., :3], l_t)
+        recons_loss = torch.mean(torch.mean(torch.square(recons - next_obs),
+                                            dim=-1))
+        height_recon = self.vae.decode_terrain(l_t)
+        height_loss = torch.mean(torch.square(height_recon
+                                              - privileged_obs[..., td + 3:]))
+        vel_loss = torch.mean(torch.square(mu[..., :3] - base_vel))
+        kld = torch.mean(-0.5 * torch.sum(
+            1 + logvar - torch.square(mu[..., 3:]) - torch.exp(logvar), dim=-1))
+        return recons_loss, vel_loss, kld, height_loss
+
+    def vae_losses(self, obs_history, privileged_obs, next_obs, base_vel,
+                   eps):
+        """VAE training pieces (ppo.py:197-247): (recons, vel, kld, height)
+        for the standard normal draw eps (N, z_dim) of the latent."""
+        mu, logvar, z = self.vae.cenet_forward(obs_history, eps)
+        l_t = self.vae.encode_terrain(privileged_obs[..., :self.terrain_dim])
+        return self._vae_terms(mu, logvar, z, l_t, privileged_obs, next_obs,
+                               base_vel)
+
+    def belief_loss(self, obs_history, privileged_obs):
+        """Belief-distillation loss (AlgorithmCfg.belief_loss_coef): l_t is
+        detached as input and target, so only memory_mlp learns."""
+        l_t = self.vae.encode_terrain(
+            privileged_obs[..., :self.terrain_dim]).detach()
+        b_t = self.vae.belief(obs_history, l_t)
+        return torch.mean(torch.square(b_t - l_t))
+
+    def joint_forward(self, obs, obs_history, privileged_obs, next_obs,
+                      base_vel, eps_vae, eps_pol):
+        """One encoder pass for the fused VAE+policy minibatch step
+        (AlgorithmCfg.fused_joint_step): the VAE and policy heads read the
+        same (mu, logvar, l_t) and draw their own latents from eps_vae and
+        eps_pol.  Returns ((recons, vel, kld, height), mean, std, value)."""
+        mu, logvar = self.vae.cenet_stats(obs_history)
+        l_t = self.vae.encode_terrain(privileged_obs[..., :self.terrain_dim])
+        parts = self._vae_terms(mu, logvar, self.vae.reparam(mu, logvar, eps_vae),
+                                l_t, privileged_obs, next_obs, base_vel)
+        z_p = self.vae.reparam(mu, logvar, eps_pol)
+        mean = self.actor_body(bf16_concat(obs, z_p, mu[..., :3], l_t))
+        value = self.evaluate(obs, privileged_obs, base_vel)
+        return parts, mean, self.std.expand_as(mean), value

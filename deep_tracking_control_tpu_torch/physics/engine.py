@@ -23,7 +23,7 @@ def make_state(pos, quat, lin_vel, ang_vel, q, qd) -> dict:
 
 def make_inertias(model: RobotModel, payload=None, com_disp=None,
                   link_mass_scale=None, num_envs: int | None = None,
-                  device="cpu"):
+                  device="cuda"):
     """Per-env spatial inertias (nb, 6, 6, N) with domain randomization and
     the per-env total mass (N,) (legged_robot.py:511-527, :1512)."""
     N = num_envs if num_envs is not None else (

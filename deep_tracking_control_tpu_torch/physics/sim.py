@@ -76,7 +76,7 @@ def default_contact_geometry(model: RobotModel) -> ContactGeometry:
     )
 
 
-def init_anchors(geom: ContactGeometry, num_envs: int, device="cpu"):
+def init_anchors(geom: ContactGeometry, num_envs: int, device="cuda"):
     """Fresh stiction anchors (reset together with the physics state)."""
     return torch.zeros((len(geom.dyn_idx), 2, num_envs), dtype=torch.float32,
                        device=device)

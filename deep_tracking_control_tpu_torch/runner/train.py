@@ -1,13 +1,26 @@
-"""OnPolicyRunner — the rollout collection phase.
+"""OnPolicyRunner — rollout collection, the PPO+VAE update, the training
+loop and checkpoints.
 
-Counterpart of the collection half of the JAX package's runner/train.py
-(`collect`, train.py:175-272; rsl_rl on_policy_runner.py:112-146): 24 x
-(PPO.act -> LeggedEnv.step) with the timeout bootstrap, bf16 storage of
-the privileged obs and the obs history, episode bookkeeping, the last
-values and GAE.  `learn`, the update and checkpoints are not ported yet.
+Counterpart of the JAX package's runner/train.py (rsl_rl
+on_policy_runner.py:45-274) for the ActorCriticDecoder.  Each iteration
+of `learn` runs `collect` (24 x PPO.act -> LeggedEnv.step with the timeout
+bootstrap, bf16 storage of the privileged obs and the obs history,
+episode bookkeeping, the last values and GAE), then `PPO.update`, in one
+plain loop on the env's device; the stats leave the device once per
+iteration as one packed tensor.  The JAX runner's iters_per_dispatch,
+perf_split and asynchronous saves were host tricks of a remote TPU and
+have no counterpart: the collection and learning seconds are measured
+every iteration (synchronized) and logged under the reference's names.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
+import time
+from collections import deque
+from typing import Optional
+
+import numpy as np
 import torch
 
 from ..agent.ppo import PPO
@@ -15,20 +28,47 @@ from ..env.config import TrainCfg
 from ..env.legged_env import LeggedEnv
 from ..models.networks import ActorCriticDecoder
 from ..utils import flags
+from . import checkpoint as ckpt
+
+
+def _same_layout(a, b) -> bool:
+    """Same keys, and tensors of the same shape and dtype, all the way down."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict)
+                and set(a) == set(b)
+                and all(_same_layout(a[k], b[k]) for k in a))
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return a.shape == b.shape and a.dtype == b.dtype
+    return type(a) is type(b)
 
 
 class OnPolicyRunner:
-    def __init__(self, env: LeggedEnv, train_cfg: TrainCfg):
+    def __init__(self, env: LeggedEnv, train_cfg: TrainCfg,
+                 log_dir: Optional[str] = None, writer=None):
         pol = train_cfg.policy
         if pol.policy_class_name != "ActorCriticDecoder":
             raise NotImplementedError(
                 f"{pol.policy_class_name} is not ported yet")
+        if flags.strict_parity():
+            # the reference's update: sequential VAE-then-policy steps and
+            # a per-row permutation (runner/train.py:34-44 of the JAX
+            # package); the bf16 storage is switched off in collect()
+            train_cfg = dataclasses.replace(
+                train_cfg, algorithm=dataclasses.replace(
+                    train_cfg.algorithm, fused_joint_step=False,
+                    minibatch_perm_granule=1, shuffle_strata=1))
         self.env = env
         self.cfg = train_cfg
         self.device = env.device
+        self.log_dir = log_dir
+        self.writer = writer
+        self.current_learning_iteration = 0
+        self.tot_timesteps = 0
+        self.tot_time = 0.0
         seed = train_cfg.runner.seed
         # weights are drawn on the CPU, so a seed gives the same net on
-        # every device; the rollout draws from a generator on the device
+        # every device; the rollout and the update draw from a generator on
+        # the device
         init_gen = torch.Generator().manual_seed(seed)
         self.net = ActorCriticDecoder(
             num_obs=env.num_obs, num_privileged_obs=env.num_privileged_obs,
@@ -38,6 +78,7 @@ class OnPolicyRunner:
             actor_hidden=tuple(pol.actor_hidden_dims),
             critic_hidden=tuple(pol.critic_hidden_dims),
             activation=pol.activation, init_noise_std=pol.init_noise_std,
+            outlier_filter=pol.outlier_filter,
             generator=init_gen).to(self.device)
         self.ppo = PPO(net=self.net, alg=train_cfg.algorithm)
         self.generator = torch.Generator(self.device).manual_seed(seed + 1)
@@ -46,6 +87,9 @@ class OnPolicyRunner:
         self.log_state = dict(
             cur_reward_sum=torch.zeros(N, device=self.device),
             cur_episode_length=torch.zeros(N, device=self.device))
+        # episode stats (on_policy_runner.py:103-106)
+        self.rewbuffer = deque(maxlen=100)
+        self.lenbuffer = deque(maxlen=100)
 
     @torch.no_grad()
     def collect(self):
@@ -103,3 +147,176 @@ class OnPolicyRunner:
         self.env_state, self.log_state = state, log
         aux = {**{"metric_" + k: v for k, v in metrics.items()}, **ep}
         return batch, aux
+
+    # ------------------------------------------------------------------
+    def _clock(self) -> float:
+        """Host seconds after the device has finished the queued work."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def learn(self, num_learning_iterations: int, log_every: int = 10,
+              init_at_random_ep_len: bool = False):
+        """Training loop (OnPolicyRunner.learn, on_policy_runner.py:86-163).
+
+        Returns one dict per iteration: the update's stats, the rollout's
+        metric and episode sums, mean_noise_std, and the synchronized
+        seconds of the two phases, collection_time and learning_time."""
+        save_interval = self.cfg.runner.save_interval
+        T = self.cfg.runner.num_steps_per_env
+        N = self.env.num_envs
+        start = self.current_learning_iteration
+        if init_at_random_ep_len and start == 0:
+            # desynchronize the resets from iteration 0
+            # (on_policy_runner.py:105-109)
+            self.env_state["episode_length"] = torch.randint(
+                0, self.env.max_episode_length, (N,), generator=self.generator,
+                device=self.device, dtype=torch.int32)
+        rows = []
+        for it in range(start, start + num_learning_iterations):
+            t0 = self._clock()
+            batch, aux = self.collect()
+            t1 = self._clock()
+            stats = self.ppo.update(batch, self.generator)
+            stats = {**stats, **aux, "mean_noise_std": self.net.std.mean()}
+            names = sorted(stats)
+            # one device -> host transfer of every scalar of the iteration
+            vec = torch.stack([torch.as_tensor(stats[n], device=self.device)
+                               .float().reshape(()) for n in names]).cpu()
+            t2 = time.perf_counter()
+            row = dict(zip(names, vec.tolist()),
+                       collection_time=t1 - t0, learning_time=t2 - t1)
+            rows.append(row)
+            self.tot_timesteps += T * N
+            self.tot_time += t2 - t0
+            if row["ep_count"] > 0:
+                self.rewbuffer.append(row["ep_rew_sum"] / row["ep_count"])
+                self.lenbuffer.append(row["ep_len_sum"] / row["ep_count"])
+            if self.log_dir is not None and it % log_every == 0:
+                self._log(it, row, t2 - t0)
+            if self.log_dir is not None and it % save_interval == 0:
+                # periodic saves are light: the reference's save scope
+                self.save(os.path.join(self.log_dir, f"model_{it}.pt"),
+                          full=False)
+            self.current_learning_iteration = it + 1
+        if self.log_dir is not None:
+            self.save(os.path.join(
+                self.log_dir, f"model_{self.current_learning_iteration}.pt"))
+        return rows
+
+    # ------------------------------------------------------------------
+    def _log(self, it, stats, dt_iter):
+        """TensorBoard scalars matching on_policy_runner.py:187-203."""
+        fps = int(self.cfg.runner.num_steps_per_env * self.env.num_envs
+                  / max(dt_iter, 1e-9))
+        scalars = {
+            "Loss/value_function": stats["value_loss"],
+            "Loss/surrogate": stats["surrogate_loss"],
+            "Loss/Reconstruction": stats["recons_loss"],
+            "Loss/Vel_estimation": stats["vel_loss"],
+            "Loss/KL_div": stats["kld_loss"],
+            "Loss/height": stats["height_loss"],
+            "Loss/learning_rate": stats["lr"],
+            "Policy/mean_noise_std": stats["mean_noise_std"],
+            "Perf/total_fps": fps,
+            "Perf/iter_time": dt_iter,
+            # exact reference scalar names (on_policy_runner.py:196-197)
+            "Perf/collection time": stats["collection_time"],
+            "Perf/learning_time": stats["learning_time"],
+        }
+        n_done = max(float(stats.get("metric_n_done", 0.0)), 1.0)
+        for k, v in stats.items():
+            if k.startswith("metric_rew_") or k.startswith("metric_term_"):
+                # per-term episode reward and per-cause termination rate
+                scalars["Episode/" + k[7:]] = float(v) / n_done
+        if "metric_terrain_level" in stats:
+            # iteration mean of the per-step fleet-wide mean terrain level
+            scalars["Episode/terrain_level"] = (
+                float(stats["metric_terrain_level"])
+                / self.cfg.runner.num_steps_per_env)
+        if len(self.rewbuffer) > 0:
+            scalars["Train/mean_reward"] = float(np.mean(self.rewbuffer))
+            scalars["Train/mean_episode_length"] = float(
+                np.mean(self.lenbuffer))
+        if self.writer is not None:
+            for k, v in scalars.items():
+                self.writer.add_scalar(k, v, it)
+        print(f"it {it:6d} | fps {fps:9d} | "
+              f"rew {scalars.get('Train/mean_reward', float('nan')):8.3f} | "
+              f"len {scalars.get('Train/mean_episode_length', float('nan')):7.1f}"
+              f" | vloss {scalars['Loss/value_function']:8.4f} | "
+              f"surr {scalars['Loss/surrogate']:8.4f} | "
+              f"lr {scalars['Loss/learning_rate']:.1e}", flush=True)
+
+    # ------------------------------------------------------------------
+    def save(self, path: str, full: bool = True):
+        """Checkpoint (on_policy_runner.py:249-255): params, both optimizer
+        states, the learning rate, the iteration and the generator state;
+        with full=True (the default) also the env state, the per-env
+        params (the terrain tables are rebuilt from the seed, not saved)
+        and the episode bookkeeping."""
+        tree = dict(
+            params=self.net.state_dict(),
+            opt_state=self.ppo.optimizer.state_dict(),
+            vae_opt_state=self.ppo.vae_optimizer.state_dict(),
+            learning_rate=self.ppo.learning_rate,
+            iter=self.current_learning_iteration,
+            generator=self.generator.get_state(),
+            generator_device=self.device.type)
+        if full:
+            tree.update(env_state=self.env_state,
+                        env_params={k: v for k, v in self.env_params.items()
+                                    if k != "terrain"},
+                        log_state=self.log_state)
+        ckpt.save(path, tree)
+
+    def load(self, path: str, load_optimizer: bool = True):
+        """Restore a checkpoint.  The env state is adopted only when its
+        stored shapes match this runner's (runner/train.py:650-681 of the
+        JAX package); otherwise only the params, optimizers and generator
+        are restored, like the reference's torch.load path
+        (on_policy_runner.py:257-264)."""
+        d = ckpt.load(path, self.device)
+        self.net.load_state_dict(d["params"])
+        if load_optimizer:
+            self.ppo.optimizer.load_state_dict(d["opt_state"])
+            self.ppo.vae_optimizer.load_state_dict(d["vae_opt_state"])
+            self.ppo.learning_rate = d["learning_rate"].to(
+                self.device, torch.float32).reshape(())
+        self.current_learning_iteration = int(d["iter"])
+        if d.get("generator_device") == self.device.type:
+            self.generator.set_state(d["generator"].cpu())
+        else:
+            print(f"checkpoint generator of {d.get('generator_device')}: "
+                  f"keeping this runner's {self.device.type} generator")
+        if "env_state" not in d:
+            print("light checkpoint (no env state): keeping fresh env state")
+            return
+        params = {k: v for k, v in self.env_params.items() if k != "terrain"}
+        if (_same_layout(d["env_state"], self.env_state)
+                and _same_layout(d["env_params"], params)):
+            self.env_state = d["env_state"]
+            self.env_params = {**d["env_params"],
+                               "terrain": self.env_params["terrain"]}
+            if _same_layout(d.get("log_state"), self.log_state):
+                self.log_state = d["log_state"]
+        else:
+            print(f"checkpoint env state (envs="
+                  f"{d['env_state']['commands'].shape[0]}) does not match "
+                  f"this runner's (envs={self.env.num_envs}): keeping "
+                  "fresh env state")
+
+    # ------------------------------------------------------------------
+    def get_inference_policy(self, teacher: bool = True):
+        """act_expert analog (on_policy_runner.py:266-273): a deterministic
+        policy (obs, obs_history, privileged_obs) -> actions, through the
+        teacher's belief path or, with teacher=False, the training input
+        layout (act_deterministic)."""
+        method = (self.net.act_teacher if teacher
+                  else self.net.act_deterministic)
+
+        @torch.no_grad()
+        def policy(obs, obs_history, privileged_obs):
+            return method(obs, obs_history, privileged_obs)
+
+        return policy

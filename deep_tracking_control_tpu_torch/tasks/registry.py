@@ -32,8 +32,10 @@ def task_names():
     return sorted(_REGISTRY)
 
 
-def make_env(name: str, num_envs: int | None = None, **overrides):
-    """task_registry.make_env analog (task_registry.py:39-76)."""
+def make_env(name: str, num_envs: int | None = None, device="cuda",
+             **overrides):
+    """task_registry.make_env analog (task_registry.py:39-76); the env
+    lives on `device` (the card unless the caller asks for "cpu")."""
     from ..env.legged_env import LeggedEnv
     task_cfg, train_cfg = get_cfgs(name)
     if num_envs is not None:
@@ -41,7 +43,8 @@ def make_env(name: str, num_envs: int | None = None, **overrides):
             task_cfg, env=dataclasses.replace(task_cfg.env, num_envs=num_envs))
     for k, v in overrides.items():
         task_cfg = dataclasses.replace(task_cfg, **{k: v})
-    return LeggedEnv(task_cfg, terrain_seed=train_cfg.runner.seed), task_cfg, train_cfg
+    env = LeggedEnv(task_cfg, terrain_seed=train_cfg.runner.seed, device=device)
+    return env, task_cfg, train_cfg
 
 
 # --------------------------------------------------------------------------

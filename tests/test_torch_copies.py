@@ -1,11 +1,14 @@
 """The torch port's copies of the framework-free modules, and its hygiene.
 
 robot/model.py, robot/quadrupeds.py, terrain/generator.py (Python
-backend), env/config.py and tasks/registry.py are copied into the port
-(which must not import the JAX package); each copy must stay equal to its
-original.  The port itself imports neither jax, flax, optax nor triton.
+backend), env/config.py, tasks/registry.py and utils/cli.py are copied into
+the port (which must not import the JAX package); each copy must stay equal
+to its original.  The port itself imports neither jax, flax, optax, orbax
+nor triton, and its modules are all imported here, the training ones
+included (agent/ppo.py, ops/cuda_gather.py, runner/, scripts/train.py).
 """
 import dataclasses
+import inspect
 import pathlib
 import re
 import subprocess
@@ -20,11 +23,13 @@ from deep_tracking_control_tpu.physics import sim as jsim
 from deep_tracking_control_tpu.robot import quadrupeds as jrobots
 from deep_tracking_control_tpu.tasks import registry as jreg
 from deep_tracking_control_tpu.terrain import generator as jgen
+from deep_tracking_control_tpu.utils import cli as jcli
 from deep_tracking_control_tpu_torch.env import config as tconfig
 from deep_tracking_control_tpu_torch.physics import sim as tsim
 from deep_tracking_control_tpu_torch.robot import quadrupeds as trobots
 from deep_tracking_control_tpu_torch.tasks import registry as treg
 from deep_tracking_control_tpu_torch.terrain import generator as tgen
+from deep_tracking_control_tpu_torch.utils import cli as tcli
 
 PORT = pathlib.Path(__file__).resolve().parents[1] / "deep_tracking_control_tpu_torch"
 
@@ -74,6 +79,23 @@ def test_python_terrain_equal(seed):
     assert tgen.column_families(cfg) == jgen.column_families(jcfg)
 
 
+@pytest.mark.parametrize("argv", [[], ["--task", "lite3_dtc", "--num_envs", "16",
+                                       "--seed", "3", "--max_iterations", "2",
+                                       "--resume", "--load_run", "r1",
+                                       "--checkpoint", "50", "--run_name", "x",
+                                       "--experiment_name", "e"]])
+def test_cli_equal(argv):
+    for fn in ("get_args", "update_cfg_from_args"):
+        assert (inspect.getsource(getattr(tcli, fn))
+                == inspect.getsource(getattr(jcli, fn))), fn
+    ja, ta = jcli.get_args(argv), tcli.get_args(argv)
+    assert vars(ta) == vars(ja)
+    jt = jcli.update_cfg_from_args(*jreg.get_cfgs(ja.task), ja)
+    tt = tcli.update_cfg_from_args(*treg.get_cfgs(ta.task), ta)
+    assert [dataclasses.asdict(c) for c in tt] == [dataclasses.asdict(c)
+                                                   for c in jt]
+
+
 def test_port_imports_no_jax_or_triton():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -81,7 +103,7 @@ def test_port_imports_no_jax_or_triton():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'optax', 'triton',\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'triton',\n"
         "              'deep_tracking_control_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -91,9 +113,9 @@ def test_port_imports_no_jax_or_triton():
 
 
 def test_port_sources_import_no_jax():
-    bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|triton"
+    bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|triton"
                      r"|deep_tracking_control_tpu\b(?!_torch))|pallas.*import"
                      r"|import.*pallas", re.M)
-    for path in PORT.rglob("*.py"):
+    for path in [*PORT.rglob("*.py"), PORT.parent / "chip_smoke.py"]:
         m = bad.search(path.read_text())
         assert m is None, f"{path.name}: {m.group(0)!r}"

@@ -6,7 +6,8 @@ decision is made inside the fixture).  Run on a machine with a card:
 (--noconftest: tests/conftest.py sets up JAX, which a GPU host need not
 have; this module does not use it).
 Each kernel runs on the inputs of a real step of a small lite3_dtc env
-and is held to its plain version with the budgets of chip_smoke.py.
+and is held to its plain version with the budgets of chip_smoke.py; the
+gather kernel (a copy) on seeded fields, bit for bit.
 """
 import dataclasses
 
@@ -17,6 +18,7 @@ import torch
 from deep_tracking_control_tpu_torch import cuda_build
 from deep_tracking_control_tpu_torch.env import cuda_planner
 from deep_tracking_control_tpu_torch.env.legged_env import LeggedEnv
+from deep_tracking_control_tpu_torch.ops import cuda_gather
 from deep_tracking_control_tpu_torch.physics import cuda_substep
 from deep_tracking_control_tpu_torch.tasks.registry import get_cfgs
 from deep_tracking_control_tpu_torch.terrain import cuda_sampler
@@ -110,3 +112,40 @@ def test_wrappers_reject_bad_input(recorded):
         cuda_sampler.sample_all(src, starts.long(), origin, qx, qy)
     with pytest.raises(ValueError):
         cuda_sampler.sample_all(src, starts, origin, qx[:, :-1], qy[:, :-1])
+
+
+@pytest.mark.parametrize("G, prefix", [(16, None), (1, 50), (3, 7)])
+def test_gather_kernel_matches_plain(G, prefix):
+    """Every field in one launch, bit-exact: 16-byte chunks (G=16), 4-byte
+    words and odd byte counts (a 3-wide bf16 field at G=1 or 3)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator("cuda").manual_seed(G)
+    R = 96
+    flat = dict(
+        priv=torch.randn((R, 1389), generator=gen, device="cuda").bfloat16(),
+        obs=torch.randn((R, 53), generator=gen, device="cuda"),
+        odd=torch.randn((R, 3), generator=gen, device="cuda").bfloat16(),
+        val=torch.randn((R,), generator=gen, device="cuda"))
+    perm = torch.randperm(R // G, generator=gen, device="cuda")[:prefix]
+    perm = perm.contiguous()
+    before = cuda_gather.permute_groups.launches
+    got = cuda_gather.permute_groups(flat, perm, G)
+    want = cuda_gather.permute_groups_plain(flat, perm, G)
+    torch.cuda.synchronize()
+    assert cuda_gather.permute_groups.launches == before + 1
+    for k in flat:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_gather_wrapper_rejects_bad_input():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = {"a": torch.zeros((16, 4), device="cuda")}
+    with pytest.raises(ValueError):                       # out of range
+        cuda_gather.permute_groups(x, torch.tensor([0, 4], device="cuda"), 4)
+    with pytest.raises(ValueError):                       # not contiguous
+        cuda_gather.permute_groups({"a": x["a"].t()},
+                                   torch.arange(2, device="cuda"), 2)
+    with pytest.raises(ValueError):                       # perm on the CPU
+        cuda_gather.permute_groups(x, torch.arange(2), 4)

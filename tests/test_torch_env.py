@@ -87,7 +87,7 @@ def slice_run():
     actions = (0.3 * rng.normal(size=(2, N, 12))).astype(np.float32)
     keys = [jax.random.PRNGKey(100), jax.random.PRNGKey(101)]
 
-    tenv = TEnv(_quiet(treg))
+    tenv = TEnv(_quiet(treg), device="cpu")
     tparams, tstate = env_from_jax(_np(params), _np(state0),
                                    np.asarray(jenv.grid.height), tenv,
                                    np.asarray(jenv.terrain_origins))
@@ -203,7 +203,7 @@ def test_reset_writes_deterministic_fields(slice_run):
 
 def test_runner_collects_a_rollout():
     task, train = _tiny(treg)
-    env = TEnv(task)
+    env = TEnv(task, device="cpu")
     runner = OnPolicyRunner(env, train)
     T = train.runner.num_steps_per_env
     for _ in range(2):

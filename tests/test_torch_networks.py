@@ -142,3 +142,113 @@ def test_normal_log_prob_and_gae_match():
         torch.from_numpy(values), torch.from_numpy(last))
     np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-5, atol=1e-5)
+
+
+# ---- the training heads (the update slice) --------------------------------
+# The losses are means over many bf16 MLP outputs in float32, so the
+# reordered bf16 sums of the two frameworks average out: they agree to
+# rtol 1e-5 (measured: at most 2.3e-7 here).
+
+def _eps(seed):
+    return np.asarray(jax.random.normal(jax.random.PRNGKey(seed), (N, 16),
+                                        jnp.float32))
+
+
+@pytest.fixture(scope="module")
+def heads_inputs(nets):
+    rng = np.random.default_rng(7)
+    return dict(next_obs=rng.normal(0, 1, (N, 53)).astype(np.float32))
+
+
+def test_vae_losses_match(nets, heads_inputs):
+    jm, params, tm, x = nets
+    x = {**x, **heads_inputs}
+    key = jax.random.PRNGKey(21)
+    want = jm.apply(params, _j(x, "hist"), _j(x, "priv"), _j(x, "next_obs"),
+                    _j(x, "base_vel"), key, method=jm.vae_losses)
+    with torch.no_grad():
+        got = tm.vae_losses(_t(x, "hist"), _t(x, "priv"), _t(x, "next_obs"),
+                            _t(x, "base_vel"),
+                            torch.from_numpy(np.array(jax.random.normal(
+                                key, (N, 16), jnp.float32))))
+    for name, g, w in zip(("recons", "vel", "kld", "height"), got, want):
+        np.testing.assert_allclose(float(g), float(w), rtol=1e-5, err_msg=name)
+
+
+def test_belief_loss_matches_and_trains_memory_only(nets):
+    jm, params, tm, x = nets
+    want = jm.apply(params, _j(x, "hist"), _j(x, "priv"),
+                    method=jm.belief_loss)
+    got = tm.belief_loss(_t(x, "hist"), _t(x, "priv"))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    tm.zero_grad()
+    got.backward()
+    moved = {n.split(".")[1] for n, p in tm.named_parameters()
+             if p.grad is not None and p.grad.abs().sum() > 0}
+    tm.zero_grad()
+    assert moved == {"memory_mlp"}        # l_t is detached: input and target
+
+
+def test_joint_forward_matches(nets, heads_inputs):
+    jm, params, tm, x = nets
+    x = {**x, **heads_inputs}
+    kv, kp = jax.random.PRNGKey(31), jax.random.PRNGKey(32)
+    (wparts, wmean, wstd, wvalue) = jm.apply(
+        params, _j(x, "obs"), _j(x, "hist"), _j(x, "priv"), _j(x, "next_obs"),
+        _j(x, "base_vel"), kv, kp, method=jm.joint_forward)
+    ev = np.asarray(jax.random.normal(kv, (N, 16), jnp.float32))
+    ep = np.asarray(jax.random.normal(kp, (N, 16), jnp.float32))
+    with torch.no_grad():
+        gparts, gmean, gstd, gvalue = tm.joint_forward(
+            _t(x, "obs"), _t(x, "hist"), _t(x, "priv"), _t(x, "next_obs"),
+            _t(x, "base_vel"), torch.from_numpy(ev), torch.from_numpy(ep))
+    for g, w in zip(gparts, wparts):
+        np.testing.assert_allclose(float(g), float(w), rtol=1e-5)
+    _close_bf16(gmean, wmean, "mean")
+    _close_bf16(gvalue, wvalue, "value")
+    np.testing.assert_array_equal(gstd.detach().numpy(), np.asarray(wstd))
+
+
+@pytest.mark.parametrize("ties", [3, 1])
+def test_masked_median_gradient_matches_jax(ties):
+    """jax.grad of masked_median splits the cotangent equally among the
+    valid elements equal to the median (the gradient of a max); without
+    ties the one median element gets 1.0."""
+    rng = np.random.default_rng(ties)
+    x = rng.normal(0, 1, (6, 4)).astype(np.float32)
+    valid = np.ones((6, 4), bool)
+    valid[0, :3] = False
+    med = float(np.sort(x[valid])[(valid.sum() + 1) // 2 - 1])
+    flat = x.reshape(-1)
+    others = [i for i in range(flat.size) if valid.reshape(-1)[i]
+              and flat[i] != med]
+    flat[others[:ties - 1]] = med                 # ties of the median
+    flat[0] = med                                 # equal, but not valid
+    want = np.asarray(jax.grad(lambda a: jnet.masked_median(
+        a, jnp.asarray(valid)))(jnp.asarray(x)))
+    xt = torch.from_numpy(x.copy()).requires_grad_(True)
+    tnet.masked_median(xt, torch.from_numpy(valid)).backward()
+    np.testing.assert_allclose(xt.grad.numpy(), want, rtol=1e-6, atol=0)
+    assert np.isclose(want.sum(), 1.0)
+    assert np.count_nonzero(want) == ties and want.reshape(-1)[0] == 0.0
+
+
+def test_mean_outlier_filter_matches(nets):
+    """outlier_filter="mean": the >2-sigma entries of logvar take the mean
+    of the others; the case has outliers."""
+    _, params, _, x = nets
+    jm = jnet.ActorCriticDecoder(outlier_filter="mean")
+    tm = tnet.ActorCriticDecoder(outlier_filter="mean")
+    tm.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
+    wmu, wlv = jm.apply(params, _j(x, "hist"),
+                        method=lambda m, h: m.vae.cenet_stats(h))
+    with torch.no_grad():
+        gmu, glv = tm.vae.cenet_stats(_t(x, "hist"))
+        raw = tm.vae.latent_var(tm.vae.cenet_encoder(_t(x, "hist")))
+    replaced = (glv != raw).numpy()
+    assert replaced.any()
+    _close_bf16(gmu, wmu, "mu")
+    _close_bf16(glv, wlv, "logvar")
+    # the replaced entries all hold one value, the mean of the others
+    np.testing.assert_allclose(glv.numpy()[replaced],
+                               raw.numpy()[~replaced].mean(), rtol=1e-5)

@@ -163,7 +163,7 @@ def test_fk_aba_and_inertias_match_jax(case):
                                    link_mass_scale=jnp.asarray(scale), num_envs=N)
     ti, tm = tengine.make_inertias(tmodel, payload=torch.from_numpy(payload),
                                    link_mass_scale=torch.from_numpy(scale),
-                                   num_envs=N)
+                                   num_envs=N, device="cpu")
     np.testing.assert_allclose(ti.numpy(), np.asarray(ji), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=1e-6)
 
