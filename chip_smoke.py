@@ -97,11 +97,7 @@ def device_ms(torch, fn, repeats=REPEATS):
     ms = sum(e.self_device_time_total
              for e in prof.key_averages()) / 1e3 / repeats
     if ms <= 0.0:
-        # the profiler may see no device activity at all; then CUDA events
-        # around back-to-back calls stand in (they include host overhead
-        # where it exceeds the device work)
-        say("timing", "the profiler saw no device time: stream time instead")
-        return wall_ms(torch, fn, repeats)
+        raise AssertionError("the profiler saw no device time")
     return ms
 
 

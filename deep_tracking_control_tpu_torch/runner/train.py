@@ -30,6 +30,8 @@ from ..models.networks import ActorCriticDecoder
 from ..utils import flags
 from . import checkpoint as ckpt
 
+LOG_INTERVAL = 10        # iterations between log lines (the reference's default)
+
 
 def _same_layout(a, b) -> bool:
     """Same keys, and tensors of the same shape and dtype, all the way down."""
@@ -155,13 +157,14 @@ class OnPolicyRunner:
             torch.cuda.synchronize(self.device)
         return time.perf_counter()
 
-    def learn(self, num_learning_iterations: int, log_every: int = 10,
+    def learn(self, num_learning_iterations: int,
               init_at_random_ep_len: bool = False):
         """Training loop (OnPolicyRunner.learn, on_policy_runner.py:86-163).
 
         Returns one dict per iteration: the update's stats, the rollout's
         metric and episode sums, mean_noise_std, and the synchronized
-        seconds of the two phases, collection_time and learning_time."""
+        seconds of the two phases, collection_time and learning_time.
+        With a log_dir, every LOG_INTERVAL-th iteration is logged."""
         save_interval = self.cfg.runner.save_interval
         T = self.cfg.runner.num_steps_per_env
         N = self.env.num_envs
@@ -192,7 +195,7 @@ class OnPolicyRunner:
             if row["ep_count"] > 0:
                 self.rewbuffer.append(row["ep_rew_sum"] / row["ep_count"])
                 self.lenbuffer.append(row["ep_len_sum"] / row["ep_count"])
-            if self.log_dir is not None and it % log_every == 0:
+            if self.log_dir is not None and it % LOG_INTERVAL == 0:
                 self._log(it, row, t2 - t0)
             if self.log_dir is not None and it % save_interval == 0:
                 # periodic saves are light: the reference's save scope
@@ -270,19 +273,18 @@ class OnPolicyRunner:
                         log_state=self.log_state)
         ckpt.save(path, tree)
 
-    def load(self, path: str, load_optimizer: bool = True):
-        """Restore a checkpoint.  The env state is adopted only when its
+    def load(self, path: str):
+        """Restore a checkpoint: params, both optimizers, the learning rate,
+        the iteration and the generator.  The env state is adopted only when its
         stored shapes match this runner's (runner/train.py:650-681 of the
-        JAX package); otherwise only the params, optimizers and generator
-        are restored, like the reference's torch.load path
-        (on_policy_runner.py:257-264)."""
+        JAX package); otherwise it stays fresh, like the reference's
+        torch.load path (on_policy_runner.py:257-264)."""
         d = ckpt.load(path, self.device)
         self.net.load_state_dict(d["params"])
-        if load_optimizer:
-            self.ppo.optimizer.load_state_dict(d["opt_state"])
-            self.ppo.vae_optimizer.load_state_dict(d["vae_opt_state"])
-            self.ppo.learning_rate = d["learning_rate"].to(
-                self.device, torch.float32).reshape(())
+        self.ppo.optimizer.load_state_dict(d["opt_state"])
+        self.ppo.vae_optimizer.load_state_dict(d["vae_opt_state"])
+        self.ppo.learning_rate = d["learning_rate"].to(
+            self.device, torch.float32).reshape(())
         self.current_learning_iteration = int(d["iter"])
         if d.get("generator_device") == self.device.type:
             self.generator.set_state(d["generator"].cpu())

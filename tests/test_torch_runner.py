@@ -66,10 +66,10 @@ def _params(runner):
     return {k: v.clone() for k, v in runner.net.state_dict().items()}
 
 
-def test_learn_two_iterations(tmp_path):
+def test_learn_two_iterations(tmp_path, capsys):
     runner = _runner(log_dir=str(tmp_path))
     before = _params(runner)
-    rows = runner.learn(2, log_every=1, init_at_random_ep_len=True)
+    rows = runner.learn(2, init_at_random_ep_len=True)
     assert len(rows) == 2 and runner.current_learning_iteration == 2
     for row in rows:
         for k in STAT_NAMES + ("mean_noise_std", "ep_count",
@@ -89,6 +89,10 @@ def test_learn_two_iterations(tmp_path):
     assert "env_state" not in ckpt.load(str(tmp_path / "model_1.pt"), "cpu")
     assert "env_state" in ckpt.load(str(tmp_path / "model_2.pt"), "cpu")
     assert runner.tot_timesteps == 2 * T * N
+    # one log line every LOG_INTERVAL iterations: iteration 0 only
+    logged = [l for l in capsys.readouterr().out.splitlines()
+              if l.startswith("it ")]
+    assert len(logged) == 1 and logged[0].split("|")[0].split() == ["it", "0"]
 
 
 def test_save_load_resumes_exactly(tmp_path):
