@@ -7,12 +7,19 @@ Phases (each prints its own line; any failure ends the run non-zero):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. build of the CUDA kernels from deep_tracking_control_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version on the inputs of a real
-     lite3_dtc step at 4096 envs, with the kernel and plain times;
+     lite3_dtc step at 4096 envs, with the kernel and plain times: the
+     physics, sampler and planner kernels, the reward kernel (also on
+     random inputs that switch on all 33 terms, with and without the
+     positive clip), the obs kernel (against its plain version fed the
+     noise kernel's draws for the same seed) and the noise kernel (bit for
+     bit at (4096, 693) and (4096, 53) and at the reset's shape; moments;
+     two seeds differ; beside `uniform_` on a CUDA generator);
   4. the collection path: LeggedEnv(lite3_dtc, 4096 envs) +
      ActorCriticDecoder + OnPolicyRunner, 3 collect() iterations of 24
      steps, every launch counted; the gather kernel against its plain
      version on the last collect's batch (bit-exact); then one step of a
-     small env on the card against the same step on the CPU;
+     small env on the card against the same step on the CPU from the same
+     state and noise seed (physics, heights, rewards, sums, obs);
   5. the training path: one warm-up learn(1), then learn(3) at 4096 envs
      (collect + the 5 x 4 minibatch PPO+VAE update), every launch counted,
      with the train-iteration env-steps/s and the collect/update split;
@@ -24,7 +31,8 @@ Phases (each prints its own line; any failure ends the run non-zero):
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes (each input read once, each output written once)
 over 3.35 TB/s and its operations over 67 TFLOP/s (float32 off the
-tensor cores), both counted from this run's inputs.
+tensor cores; the noise generator's 32-bit integer operations are counted
+at that rate too), both counted from this run's inputs.
 Weights are random (seeded); nothing is downloaded.  Needs a CUDA device:
 without one it stops before printing any result.
 """
@@ -43,6 +51,11 @@ ITERS = 3
 REPEATS = 20
 PEAK_BYTES_S = 3.35e12        # H100 SXM HBM3
 PEAK_F32_OPS_S = 67e12        # H100 SXM float32, off the tensor cores
+# Philox4x32-10 per output value: 10 rounds of 2 multiply-high, 2 multiply-
+# low and 4 XORs, 9 pairs of key additions, per 4 values; then a shift, a
+# conversion, a multiply and a subtraction
+PHILOX_OPS = (10 * 8 + 9 * 2) / 4 + 4
+SPIN_CYCLES_PER_S = 2e9       # about the H100's SM clock (queued_ms)
 
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -54,6 +67,12 @@ KERNELS = {
                        "deep_tracking_control_tpu/env/pallas_planner.py:133"),
     "permute_groups": ("deep_tracking_control_tpu_torch/csrc/gather.cu",
                        "deep_tracking_control_tpu/experimental/pallas_gather.py:58"),
+    "compute_rewards": ("deep_tracking_control_tpu_torch/csrc/rewards.cu",
+                        "deep_tracking_control_tpu/experimental/pallas_rewards.py:376"),
+    "compute_observations": ("deep_tracking_control_tpu_torch/csrc/obs.cu",
+                             "deep_tracking_control_tpu/experimental/pallas_obs.py:98"),
+    "uniform_pm1": ("deep_tracking_control_tpu_torch/csrc/rng.cu",
+                    "deep_tracking_control_tpu/experimental/pallas_rng.py:49"),
 }
 
 
@@ -83,21 +102,57 @@ def wall_ms(torch, fn, repeats=REPEATS):
     return a.elapsed_time(b) / repeats
 
 
-def device_ms(torch, fn, repeats=REPEATS):
+def queued_ms(torch, fn, repeats=REPEATS):
+    """Device time per fn() call from a pair of CUDA events around it, the
+    call queued behind a spin kernel that outlasts its host time twice
+    over (so that the card finds the call's work queued and no host time
+    falls between the events), less the time of an empty pair of events
+    queued the same way."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin = int(SPIN_CYCLES_PER_S * (2.0 * host_s + 1e-3))
+
+    def pair(work):
+        torch.cuda._sleep(spin)
+        a.record()
+        work()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+    empty = min(pair(lambda: None) for _ in range(5))
+    return max(sum(pair(fn) for _ in range(repeats)) / repeats - empty, 0.0)
+
+
+def device_ms(torch, fn, repeats=REPEATS, sessions=4):
     """Mean over `repeats` calls of the device time of all the work one
     fn() call queues: one torch.profiler session (CUDA activity only)
-    around the calls, each followed by a synchronize."""
+    around the calls, each followed by a synchronize.  On the H100 host a
+    session now and then records no device activity at all, mostly right
+    after a session of thousands of kernels: it is run again after
+    a pause of 1, 2, 4 s, and after `sessions` empty sessions the time is
+    taken with queued_ms instead (and said so)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(repeats):
-            fn()
-            torch.cuda.synchronize()
-    ms = sum(e.self_device_time_total
-             for e in prof.key_averages()) / 1e3 / repeats
-    if ms <= 0.0:
-        raise AssertionError("the profiler saw no device time")
+    for attempt in range(sessions):
+        if attempt:
+            time.sleep(0.5 * 2 ** attempt)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(repeats):
+                fn()
+                torch.cuda.synchronize()
+        ms = sum(e.self_device_time_total
+                 for e in prof.key_averages()) / 1e3 / repeats
+        if ms > 0.0:
+            return ms
+    ms = queued_ms(torch, fn, repeats)
+    say("time", f"the profiler saw no device time in {sessions} sessions; "
+                f"CUDA events around each call queued behind a spin kernel: "
+                f"{ms:.4f} ms a call")
     return ms
 
 
@@ -112,29 +167,39 @@ def record_kernel_inputs(env, params, state, gen, steps=3):
     """Run `steps` env steps and keep the arguments each kernel got in the
     last one (the wrappers are wrapped, then restored)."""
     import torch
-    from deep_tracking_control_tpu_torch.env import cuda_planner
+    from deep_tracking_control_tpu_torch.env import (cuda_obs, cuda_planner,
+                                                     cuda_rewards)
+    from deep_tracking_control_tpu_torch.ops import cuda_rng
     from deep_tracking_control_tpu_torch.physics import cuda_substep
     from deep_tracking_control_tpu_torch.terrain import cuda_sampler
     calls = {}
-    originals = (cuda_substep.decimation_step, cuda_sampler.sample_all,
-                 cuda_planner.select_footholds)
+    slots = ((cuda_substep, "decimation_step", "decimation_step"),
+             (cuda_sampler, "sample_all", "sample_all"),
+             (cuda_planner, "select_footholds", "plan_footholds"),
+             (cuda_rewards, "compute_rewards_fused", "compute_rewards"),
+             (cuda_obs, "compute_observations_fused", "compute_observations"),
+             (cuda_rng, "uniform_pm1", "uniform_pm1"))
+    originals = [getattr(mod, attr) for mod, attr, _ in slots]
 
     def recorder(name, fn):
         def wrapped(*args, **kwargs):
-            calls[name] = (args, kwargs)
+            # the reward kernel adds to its last argument (the episode
+            # sums) in place: keep them as they came in
+            kept = ((*args[:-1], args[-1].clone()) if name == "compute_rewards"
+                    else args)
+            calls[name] = (kept, kwargs)
             return fn(*args, **kwargs)
         return wrapped
-    cuda_substep.decimation_step = recorder("decimation_step", originals[0])
-    cuda_sampler.sample_all = recorder("sample_all", originals[1])
-    cuda_planner.select_footholds = recorder("plan_footholds", originals[2])
+    for (mod, attr, name), fn in zip(slots, originals):
+        setattr(mod, attr, recorder(name, fn))
     try:
         for _ in range(steps):
             actions = 0.3 * torch.randn((env.num_envs, env.num_actions),
                                         generator=gen, device=env.device)
             state, _ = env.step(params, state, actions, gen)
     finally:
-        (cuda_substep.decimation_step, cuda_sampler.sample_all,
-         cuda_planner.select_footholds) = originals
+        for (mod, attr, _), fn in zip(slots, originals):
+            setattr(mod, attr, fn)
     torch.cuda.synchronize()
     return calls, state
 
@@ -243,16 +308,48 @@ def bound(nbytes, ops):
             else (by_ops, "operations"))
 
 
+def check_rewards(name, args):
+    """K6 against its plain version from the same episode sums, with the
+    budgets of the JAX package's tests/test_pallas_rewards.py: rew and sums
+    rtol 2e-5 / atol 1e-5, feet_air_time 1e-6 / 1e-7, pitch_est 1e-5 /
+    1e-6, the stumble ring exact.  Returns the max abs error of rew and
+    sums."""
+    import torch
+    from deep_tracking_control_tpu_torch.env import cuda_rewards
+    *head, sums = args
+    s_k, s_p = sums.clone(), sums.clone()
+    rew, upd = cuda_rewards.compute_rewards_fused(*head, s_k)
+    prew, pupd = cuda_rewards.rewards_plain(*head, s_p)
+    check_close(f"{name} rew", rew, prew, 1e-5, 2e-5)
+    check_close(f"{name} episode sums", s_k, s_p, 1e-5, 2e-5)
+    if set(upd) != set(pupd):
+        raise AssertionError(f"{name}: updates {sorted(upd)}, plain "
+                             f"{sorted(pupd)}")
+    budgets = dict(feet_air_time=(1e-7, 1e-6), pitch_est=(1e-6, 1e-5))
+    for k, v in upd.items():
+        if k == "stumb_buffer":
+            if v.dtype != torch.bool or not torch.equal(v, pupd[k]):
+                raise AssertionError(f"{name}: stumble ring differs")
+        else:
+            check_close(f"{name} {k}", v, pupd[k], *budgets[k])
+    return max_err([(rew, prew), (s_k, s_p)])
+
+
 def compare_kernels(calls, tables):
     """Phase 3: each kernel vs its plain version on recorded inputs, with
     its bound from the same inputs (tables: the ids of the terrain tables,
     counted by the cells the queries touch)."""
     import torch
-    from deep_tracking_control_tpu_torch.env import cuda_planner
+    from deep_tracking_control_tpu_torch.env import (cuda_obs, cuda_planner,
+                                                     cuda_rewards)
+    from deep_tracking_control_tpu_torch.env import rewards as rew_mod
+    from deep_tracking_control_tpu_torch.ops import cuda_rng
     from deep_tracking_control_tpu_torch.physics import cuda_substep
     from deep_tracking_control_tpu_torch.terrain import cuda_sampler
     results = {}
-    work = {}        # kernel -> (bytes, its plain version to count ops on)
+    # kernel -> (bytes, its plain version to count operations on, or None,
+    # and the operations counted apart: the generator's)
+    work = {}
 
     # K1: one policy step of physics.  Budget 1e-4: FMA contraction and
     # rsqrtf in the kernel round differently from the plain op chain, and
@@ -277,7 +374,8 @@ def compare_kernels(calls, tables):
     nbytes = (tensor_bytes((args, kwargs), tables)
               + tensor_bytes((phys, anchors, info)) + n * 4 * dec * 4 * 4)
     work["decimation_step"] = (
-        nbytes, lambda a=args, k=kw: cuda_substep.decimation_step_plain(*a, **k))
+        nbytes, lambda a=args, k=kw: cuda_substep.decimation_step_plain(*a, **k),
+        0)
     results["decimation_step"] = dict(max_abs_err=err, **timings(
         torch, lambda: cuda_substep.decimation_step(*args, **kwargs),
         lambda: cuda_substep.decimation_step_plain(*args, **kw), 5))
@@ -301,7 +399,7 @@ def compare_kernels(calls, tables):
     nbytes = (tensor_bytes(args, tables) + tensor_bytes((h, gx, gy))
               + n * (near * 2 + cuda_sampler.Q_BIL * 4 * 4))
     work["sample_all"] = (
-        nbytes, lambda a=args: cuda_sampler.sample_all_plain(*a))
+        nbytes, lambda a=args: cuda_sampler.sample_all_plain(*a), 0)
     results["sample_all"] = dict(max_abs_err=err, **timings(
         torch, lambda: cuda_sampler.sample_all(*args),
         lambda: cuda_sampler.sample_all_plain(*args)))
@@ -332,24 +430,137 @@ def compare_kernels(calls, tables):
     err = max_err([(got[~differ], want[~differ])]) if (~differ).any() else 0.0
     nbytes = tensor_bytes((scal, heights, stat)) + tensor_bytes(got)
     work["plan_footholds"] = (
-        nbytes, lambda: cuda_planner.plan_plain(scal, heights, stat, ny))
+        nbytes, lambda: cuda_planner.plan_plain(scal, heights, stat, ny), 0)
     results["plan_footholds"] = dict(max_abs_err=err, **timings(
         torch, lambda: cuda_planner.select_footholds(scal, heights, stat, ny),
         lambda: cuda_planner.plan_plain(scal, heights, stat, ny)))
     say(3, f"plan_footholds vs plain: {frac:.3%} of envs differ (budget 2%, "
            f"near-ties only); max abs err elsewhere {err:.3e}")
+
+    # K6: the reward stack on the real step, then on random inputs that
+    # switch on all 33 terms, with and without the positive clip
+    args, _ = calls["compute_rewards"]
+    err = check_rewards("compute_rewards", args)
+    names = list(rew_mod.REWARD_FUNCTIONS)
+    scales = {n: 0.01 * (i + 1) * (-1) ** i for i, n in enumerate(names)}
+    g = torch.Generator("cuda").manual_seed(11)
+    for only_positive in (False, True):
+        ctx = cuda_rewards.synthetic_ctx(NUM_ENVS, 3 + only_positive, "cuda")
+        sums = torch.randn((len(names) + 1, NUM_ENVS), device="cuda",
+                           generator=g)
+        e33 = check_rewards(
+            f"compute_rewards (33 terms, only_positive={only_positive})",
+            (names, scales, ctx, only_positive, -0.5, names + ["termination"],
+             sums))
+        say(3, f"compute_rewards vs plain, all 33 terms at {NUM_ENVS} envs, "
+               f"only_positive={only_positive}: max abs err {e33:.3e}")
+    *head, sums = args
+    scratch = sums.clone()            # the timed calls add to it
+    rew, upd = cuda_rewards.compute_rewards_fused(*head, scratch.clone())
+    # bytes: the step quantities (the height scan among them, read by the
+    # plane fit the wrapper queues), the sums read and written, the outputs
+    nbytes = tensor_bytes(args) + tensor_bytes((sums, rew, upd))
+    work["compute_rewards"] = (
+        nbytes, lambda: cuda_rewards.rewards_plain(*head, scratch), 0)
+    results["compute_rewards"] = dict(max_abs_err=err, **timings(
+        torch, lambda: cuda_rewards.compute_rewards_fused(*head, scratch),
+        lambda: cuda_rewards.rewards_plain(*head, scratch)))
+    say(3, f"compute_rewards vs plain on the step: {len(head[0])} terms + "
+           f"termination, max abs err {err:.3e} (budget 1e-5 + 2e-5 rel; "
+           f"feet_air_time 1e-7 + 1e-6 rel, pitch_est 1e-6 + 1e-5 rel, the "
+           f"stumble ring exact)")
+
+    # K7: against the plain version fed the noise kernel's draws for the
+    # same seed (1e-6); the plain version's own draws must be those draws
+    args, kwargs = calls["compute_observations"]
+    if any(v is not None for v in kwargs.values()):
+        raise AssertionError("the env handed noise arrays to the obs kernel")
+    seed = args[-1]
+    N, H = args[10].shape
+    num_obs = args[14].shape[0]
+    got = cuda_obs.compute_observations_fused(*args)
+    draws = dict(height_noise=cuda_rng.uniform_pm1(seed, (N, H), 0),
+                 obs_noise=cuda_rng.uniform_pm1(seed, (N, num_obs), 1))
+    fed = cuda_obs.observations_plain(*args, **draws)
+    own = cuda_obs.observations_plain(*args)
+    for name, a, b, c in zip(("obs", "privileged", "history"), got, fed, own):
+        check_close(f"compute_observations {name}", a, b, 1e-6, 1e-6)
+        if not torch.equal(b, c):
+            raise AssertionError(f"compute_observations {name}: the plain "
+                                 f"version's draws are not the noise kernel's")
+    err = max_err(list(zip(got, fed)))
+    drawn = N * H + (N * num_obs if args[0].noise.add_noise else 0)
+    nbytes = tensor_bytes(args) + tensor_bytes(got)
+    work["compute_observations"] = (
+        nbytes, lambda: cuda_obs.observations_plain(*args, **draws),
+        PHILOX_OPS * drawn)
+    results["compute_observations"] = dict(max_abs_err=err, **timings(
+        torch, lambda: cuda_obs.compute_observations_fused(*args),
+        lambda: cuda_obs.observations_plain(*args)))
+    say(3, f"compute_observations vs plain fed the noise kernel's draws: max "
+           f"abs err {err:.3e} (budget 1e-6); the plain draws equal them")
+
+    # K8: bit for bit at the obs shapes and at the reset's; moments; seeds
+    (rseed, rshape), _ = calls["uniform_pm1"]
+    g = torch.Generator("cuda").manual_seed(12)
+    seed, other = cuda_rng.draw_seed(g, "cuda"), cuda_rng.draw_seed(g, "cuda")
+    for shape, stream in (((NUM_ENVS, H), 0), ((NUM_ENVS, num_obs), 1),
+                          (tuple(rshape), 0)):
+        u = cuda_rng.uniform_pm1(seed, shape, stream)
+        if not torch.equal(u, cuda_rng.uniform_pm1_plain(seed, shape, stream)):
+            raise AssertionError(f"uniform_pm1 {shape}: differs from plain")
+    u = cuda_rng.uniform_pm1(seed, (NUM_ENVS, H)).double()
+    mean, var = float(u.mean()), float(u.var())
+    lo, hi = float(u.min()), float(u.max())
+    if not (abs(mean) < 0.01 and abs(var - 1 / 3) < 0.01 and lo >= -1.0
+            and hi < 1.0):
+        raise AssertionError(f"uniform_pm1 moments: mean {mean} var {var} "
+                             f"min {lo} max {hi}")
+    if torch.equal(cuda_rng.uniform_pm1(other, (NUM_ENVS, H)), u.float()):
+        raise AssertionError("uniform_pm1: two seeds drew the same values")
+    say(3, f"uniform_pm1 vs plain: bit-exact at {(NUM_ENVS, H)}, "
+           f"{(NUM_ENVS, num_obs)} and the reset's {tuple(rshape)}; over "
+           f"{NUM_ENVS}x{H}: mean {mean:.3e}, variance {var:.6f} (1/3 "
+           f"+- 0.01), min {lo}, max {hi}; another seed differs")
+    res = {}
+    for shape in ((NUM_ENVS, H), tuple(rshape)):
+        def library(shape=shape):
+            return torch.empty(shape, device="cuda").uniform_(-1.0, 1.0,
+                                                              generator=g)
+        res[shape] = dict(
+            max_abs_err=0.0, library_ms=device_ms(torch, library),
+            library_wall_ms=wall_ms(torch, library), **timings(
+                torch, lambda s=shape: cuda_rng.uniform_pm1(rseed, s),
+                lambda s=shape: cuda_rng.uniform_pm1_plain(rseed, s)))
+        numel = shape[0] * shape[1]
+        res[shape].update(zip(("bound_ms", "bound_by"),
+                              bound(numel * 4 + 16, PHILOX_OPS * numel)))
+        r = res[shape]
+        say(3, f"uniform_pm1 at {shape}: device time per call, mean of "
+               f"{REPEATS}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
+               f" ms, uniform_ {r['library_ms']:.4f} ms; stream time: kernel "
+               f"{r['wall_ms']:.4f} ms, plain {r['plain_wall_ms']:.4f} ms, "
+               f"uniform_ {r['library_wall_ms']:.4f} ms; bound "
+               f"{r['bound_ms']:.4f} ms by {r['bound_by']}")
+    results["uniform_pm1"] = res[tuple(rshape)]       # the main path's shape
+
     # operations are counted after all the timings: the counting mode
     # intercepts every op of the plain version
-    for k, (nbytes, plain) in work.items():
-        ops = count_ops(plain)
+    for k, (nbytes, plain, extra) in work.items():
+        ops = count_ops(plain) + extra
         results[k].update(zip(("bound_ms", "bound_by"), bound(nbytes, ops)))
-        say(3, f"{k}: {nbytes} bytes, {ops} operations")
+        say(3, f"{k}: {nbytes} bytes, {ops:.0f} operations")
     return results
 
 
 def small_reference_check(registry, LeggedEnv, device="cuda"):
     """One step of a 16-env lite3_dtc on the card against the same step on
-    the CPU (plain versions), from the same state and draws."""
+    the CPU (plain versions), from the same state, lag draw and noise seed.
+    A reset env respawns from its side's own draws and is left out; so is
+    an env whose planner picked another cell at a near-tie (its foothold
+    obs and foothold reward differ by design).  Physics 1e-4 + 1e-4 rel,
+    heights 1e-5; rewards, episode sums, obs and privileged obs carry the
+    physics' difference through scaled sums: 1e-3 + 1e-3 rel."""
     import dataclasses
     import torch
     task, _ = registry.get_cfgs("lite3_dtc")
@@ -374,9 +585,7 @@ def small_reference_check(registry, LeggedEnv, device="cuda"):
     gparams = dict(to({k: v for k, v in cparams.items() if k != "terrain"},
                       genv.device), terrain=genv.patch_src)
     draws = dict(lag=torch.tensor([2, 1, 3, 4]),
-                 height_noise=torch.rand((16, cenv.num_height_points),
-                                         generator=cgen) * 2 - 1,
-                 obs_noise=torch.rand((16, cenv.num_obs), generator=cgen) * 2 - 1)
+                 noise_seed=torch.tensor([1234567, 7654321]))
     actions = 0.3 * torch.randn((16, 12), generator=cgen)
     cs, co = cenv.step(cparams, cstate, actions, cgen, draws=draws)
     gs, go = genv.step(gparams, gstate, actions.to(genv.device),
@@ -392,10 +601,18 @@ def small_reference_check(registry, LeggedEnv, device="cuda"):
         err = max(err, float((got - want).abs().max()))
     check_close("small step measured_heights", gs["measured_heights"].cpu(),
                 cs["measured_heights"], 1e-5, 0.0)
-    # obs without the foothold block (a near-tie may pick another cell)
-    check_close("small step obs", go["obs"][keep, :45].cpu(),
-                co["obs"][keep, :45], 1e-3, 1e-3)
-    return err
+    same = keep & (gs["foothold_obs"].cpu() == cs["foothold_obs"]).all(dim=1)
+    if int(same.sum()) < 12:
+        raise AssertionError(f"small step: only {int(same.sum())} of 16 envs "
+                             f"comparable")
+    check_close("small step rew", go["rew"].cpu()[same], co["rew"][same],
+                1e-3, 1e-3)
+    check_close("small step episode_sums", gs["episode_sums"].cpu()[:, same],
+                cs["episode_sums"][:, same], 1e-3, 1e-3)
+    for k in ("obs", "privileged_obs"):
+        check_close(f"small step {k}", go[k].cpu()[same], co[k][same],
+                    1e-3, 1e-3)
+    return err, int(same.sum())
 
 
 def compare_gather(ppo, batch, gen):
@@ -642,9 +859,10 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device; this run needs a GPU")
     sys.path.insert(0, HERE)
     from deep_tracking_control_tpu_torch import cuda_build
-    from deep_tracking_control_tpu_torch.env import cuda_planner
+    from deep_tracking_control_tpu_torch.env import (cuda_obs, cuda_planner,
+                                                     cuda_rewards)
     from deep_tracking_control_tpu_torch.env.legged_env import LeggedEnv
-    from deep_tracking_control_tpu_torch.ops import cuda_gather
+    from deep_tracking_control_tpu_torch.ops import cuda_gather, cuda_rng
     from deep_tracking_control_tpu_torch.physics import cuda_substep
     from deep_tracking_control_tpu_torch.runner.train import OnPolicyRunner
     from deep_tracking_control_tpu_torch.tasks import registry
@@ -688,7 +906,10 @@ def main():
     counters = {"decimation_step": cuda_substep.decimation_step,
                 "sample_all": cuda_sampler.sample_all,
                 "plan_footholds": cuda_planner.plan_footholds_fused,
-                "permute_groups": cuda_gather.permute_groups}
+                "permute_groups": cuda_gather.permute_groups,
+                "compute_rewards": cuda_rewards.compute_rewards_fused,
+                "compute_observations": cuda_obs.compute_observations_fused,
+                "uniform_pm1": cuda_rng.uniform_pm1}
     for fn in counters.values():
         fn.launches = 0
     T = train.runner.num_steps_per_env
@@ -723,18 +944,21 @@ def main():
     results["permute_groups"] = compare_gather(runner.ppo, batch,
                                                runner.generator)
     del batch
+    library_call = dict(permute_groups="index_select over the fields",
+                        uniform_pm1="uniform_ on a CUDA generator")
     for k, r in results.items():
-        lib = ("" if "library_ms" not in r else
-               f"; index_select over the fields: device {r['library_ms']:.4f}"
+        lib = ("; no single PyTorch call computes it" if "library_ms" not in r
+               else f"; {library_call[k]}: device {r['library_ms']:.4f}"
                f" ms, stream {r['library_wall_ms']:.4f} ms")
         say(4, f"{k} at {NUM_ENVS} envs: device time per call, mean of "
                f"{REPEATS}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
                f" ms; stream time per call: kernel {r['wall_ms']:.4f} ms, "
                f"plain {r['plain_wall_ms']:.4f} ms{lib}; bound "
                f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({card})")
-    err = small_reference_check(registry, LeggedEnv)
-    say(4, f"16-env step on the card vs on the CPU: max abs err {err:.3e} "
-           f"(budget 1e-4)")
+    err, same = small_reference_check(registry, LeggedEnv)
+    say(4, f"16-env step on the card vs on the CPU: physics max abs err "
+           f"{err:.3e} (budget 1e-4); rewards, sums, obs and privileged obs "
+           f"within 1e-3 + 1e-3 rel on {same} of 16 envs")
 
     # ---- 5: the training path ------------------------------------------
     launches = train_path(runner, counters, card)

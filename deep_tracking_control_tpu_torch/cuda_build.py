@@ -153,6 +153,32 @@ def stream_ptr(device) -> Ptr:
     return Ptr(torch.cuda.current_stream(device).cuda_stream)
 
 
+def view(t, name, shape, dtype, device) -> list:
+    """[address, s0, s1, s2] of tensor t broadcast to `shape` (at most 3
+    dims), strides in elements, zero past its dims and on broadcast ones:
+    a kernel reads the tensor where it lies.  Raises unless t is a tensor
+    on `device` of this dtype whose shape broadcasts to `shape`."""
+    import torch
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"{name}: a tensor is expected, not {type(t)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if t.dim() > len(shape) or len(shape) > 3:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    try:
+        v = t.expand(shape)
+    except RuntimeError as e:
+        raise ValueError(f"{name}: shape {tuple(t.shape)} does not broadcast "
+                         f"to {tuple(shape)}") from e
+    strides = list(v.stride()) + [0] * (3 - v.dim())
+    if any(x < 0 for x in strides):
+        raise ValueError(f"{name}: negative strides")
+    return [v.data_ptr(), *strides]
+
+
 def check(t, name, shape, dtype, device):
     """Raise unless tensor t lies on `device` with this dtype, shape and a
     contiguous layout."""

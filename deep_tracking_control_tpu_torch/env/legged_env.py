@@ -4,9 +4,10 @@ Counterpart of the JAX package's env/legged_env.py along its kernel path
 (LeggedRobot.step + LeggedRobotDTC.post_physics_step, legged_robot.py:
 55-1622 and legged_robot_dtc.py:29-586): `step(params, state, actions,
 generator)` over one state dict, masked resets with `torch.where`, the
-physics decimation step, the fused terrain sampler and the foothold
-planner.  On the card those three run as CUDA kernels; on the CPU their
-plain versions run.
+physics decimation step, the fused terrain sampler, the foothold
+planner, the reward stack and the observation tail.  On the card those
+five run as CUDA kernels, and the reset's uniform draws come from the
+noise kernel; on the CPU their plain versions run.
 
 Layout as in the JAX package: the physics core is env-trailing (k, N);
 everything obs/reward-facing is env-leading (N, D).
@@ -16,6 +17,9 @@ friction and restitution, and the world — the blocked terrain tables
 (`terrain`, a PatchSource) and the tile origins (`terrain_origins`).
 Random draws come from an explicit torch.Generator on the env's device;
 `draws` can inject named draws instead (tests feed the JAX package's).
+The obs noise and the reset's uniforms are Philox streams keyed by seeds
+drawn from that generator (ops/cuda_rng.py), so the CPU and the card
+draw the same noise from the same seed.
 
 The step updates the (K, N) episode sums of the state it is given in
 place (they are the widest per-step accumulator); do not step one state
@@ -26,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import cuda_rng
 from ..ops import quat as qm
 from ..physics import cuda_substep, engine, quadruped
 from ..physics import sim as psim
@@ -35,7 +40,8 @@ from ..terrain import cuda_sampler
 from ..terrain import patch as tpatch
 from ..terrain.generator import DESCENT_FAMILIES, Terrain, column_families
 from ..terrain.grid import TerrainGrid
-from . import cuda_planner, planner, rewards as rew_mod
+from . import cuda_obs, cuda_planner, cuda_rewards, planner
+from . import rewards as rew_mod
 from .config import TaskCfg
 
 F32 = torch.float32
@@ -350,8 +356,10 @@ class LeggedEnv:
 
         Returns (new_state, out) with out = dict(obs, privileged_obs,
         obs_history, base_vel, rew, done, time_out, metrics).  `draws` may
-        inject "lag" (decimation,) int64 lag indices, "height_noise" (N,H)
-        and "obs_noise" (N, num_obs) uniforms in [-1, 1)."""
+        inject "lag" (decimation,) int64 lag indices and "noise_seed", the
+        (2,) int64 seed of the obs noise; on the CPU also the noise itself,
+        "height_noise" (N,H) and "obs_noise" (N, num_obs) uniforms in
+        [-1, 1)."""
         cfg = self.cfg
         m = self.model
         dev = self.device
@@ -582,16 +590,14 @@ class LeggedEnv:
             root_z=base_pos[:, 2],
             env_origin_z=state["env_origins"][:, 2],
             reset_buf=reset_buf, time_out_buf=time_out_buf,
-            updates={},
         )
-        rew_buf, per_term = rew_mod.compute_rewards(
-            self.reward_names, self.reward_scales_dt, ctx,
-            cfg.rewards.only_positive_rewards, self.termination_scale_dt)
         # in place: the (K, N) sums are the widest per-step accumulator
         episode_sums = state["episode_sums"]
-        episode_sums += torch.stack([per_term[n] for n in self.episode_sum_names])
+        rew_buf, upd = cuda_rewards.compute_rewards_fused(
+            self.reward_names, self.reward_scales_dt, ctx,
+            cfg.rewards.only_positive_rewards, self.termination_scale_dt,
+            self.episode_sum_names, episode_sums)
 
-        upd = ctx["updates"]
         mid_state = {**state,
                      "phys": phys,
                      "episode_length": episode_length,
@@ -628,7 +634,7 @@ class LeggedEnv:
 
         # observations (dtc.py:254-288)
         new_state, obs_out = self._compute_observations(
-            new_state, base_pos, base_lin_vel, base_ang_vel,
+            new_state, base_pos[:, 2], base_lin_vel, base_ang_vel,
             projected_gravity, measured_heights, gen, draws)
 
         # post-step bookkeeping (dtc.py:215-223)
@@ -744,9 +750,14 @@ class LeggedEnv:
                                               state["terrain_types"].long()],
                 env_origins)
 
+        # the reset's uniforms in one draw: the joint scale, the xy offset
+        # and the root velocity
+        u = cuda_rng.uniform_pm1(cuda_rng.draw_seed(gen, dev), (N, m.nq + 8))
+
         # DOF reset: default * U(0.5, 1.5), qd = 0 (legged_robot.py:632-641)
         lo, hi = cfg.domain_rand.init_joint_range
-        q_new = T["default_q"][None, :] * _uniform(gen, (N, m.nq), lo, hi, dev)
+        q_new = T["default_q"][None, :] * ((u[:, :m.nq] + 1.0) * (0.5 * (hi - lo))
+                                           + lo)
         phys = state["phys"]
 
         def masked(new, old_t):           # env-last old, env-leading new
@@ -758,14 +769,13 @@ class LeggedEnv:
         init_pos = torch.tensor(cfg.init_state.pos, dtype=F32, device=dev)
         xy_off = 0.5 if cfg.use_dtc_planner else 1.0
         pos_new = env_origins + init_pos[None, :]
-        pos_new = torch.cat([pos_new[:, :2] + _uniform(gen, (N, 2), -xy_off,
-                                                       xy_off, dev),
+        pos_new = torch.cat([pos_new[:, :2] + u[:, m.nq:m.nq + 2] * xy_off,
                              pos_new[:, 2:]], dim=1)
         pos = masked(pos_new, phys["pos"])
         quat_new = torch.tensor(cfg.init_state.rot, dtype=F32,
                                 device=dev).expand(N, 4)
         quat = masked(quat_new, phys["quat"])
-        vel6 = _uniform(gen, (N, 6), -0.5, 0.5, dev)
+        vel6 = u[:, m.nq + 2:] * 0.5
         lin_vel = masked(vel6[:, :3], phys["lin_vel"])
         ang_vel = masked(vel6[:, 3:], phys["ang_vel"])
         phys = dict(pos=pos, quat=quat, lin_vel=lin_vel, ang_vel=ang_vel,
@@ -842,52 +852,27 @@ class LeggedEnv:
                 }
 
     # ------------------------------------------------------------------
-    def _compute_observations(self, state, base_pos, base_lin_vel,
+    def _compute_observations(self, state, base_z, base_lin_vel,
                               base_ang_vel, projected_gravity,
                               measured_heights, gen, draws):
-        """Obs assembly (dtc.py:254-288).  As in the reference, observations
-        are computed after the reset from the pre-reset derived quantities
-        plus the post-reset dof state (legged_robot.py:163)."""
-        cfg = self.cfg
+        """Obs assembly (dtc.py:254-288), in env/cuda_obs.py.  As in the
+        reference, observations are computed after the reset from the
+        pre-reset derived quantities plus the post-reset dof state
+        (legged_robot.py:163)."""
         T = self._t
-        dev = self.device
-        os_ = cfg.normalization.obs_scales
-        dof_pos = state["phys"]["q"].T
-        dof_vel = state["phys"]["qd"].T
-        parts = [
-            base_ang_vel * os_.ang_vel,
-            projected_gravity,
-            state["commands"][:, :3] * T["commands_scale"],
-            (dof_pos - T["default_q"][None, :]) * os_.dof_pos,
-            dof_vel * os_.dof_vel,
-            state["actions"],
-        ]
-        if self._obs_has_foothold:            # 53-dim DTC layout (dtc.py:269)
-            parts.append(state["foothold_obs"])
-        obs = torch.cat(parts, dim=1)
-
-        heights = torch.clamp(
-            base_pos[:, 2:3] - cfg.rewards.base_height_target - measured_heights,
-            -1.0, 1.0) * os_.height_measurements                 # dtc.py:275
-        height_noise = self._draw(draws, "height_noise", lambda: _uniform(
-            gen, heights.shape, -1.0, 1.0, dev))
-        noisy_heights = (heights + height_noise * 0.1
-                         + state["height_noise_offset"][:, None])
-        privileged = torch.cat([noisy_heights, state["push_force"] * os_.force,
-                                heights], dim=1)
-        if cfg.noise.add_noise:                                  # dtc.py:284-287
-            obs_noise = self._draw(draws, "obs_noise", lambda: _uniform(
-                gen, obs.shape, -1.0, 1.0, dev))
-            obs = obs + obs_noise * T["noise_scale_vec"][None, :]
-
-        clip_obs = cfg.normalization.clip_observations
-        obs = torch.clamp(obs, -clip_obs, clip_obs)              # step :118-121
-        privileged = torch.clamp(privileged, -clip_obs, clip_obs)
-        # HistoryWrapper.step (history_wrapper.py:17-24): roll after the obs;
-        # the reference never zeroes the history on resets
-        obs_history = torch.cat([state["obs_history"][:, self.num_obs:], obs],
-                                dim=1)
-        base_vel = base_lin_vel * os_.lin_vel                    # get_base_vel
+        seed = self._draw(draws, "noise_seed", lambda: cuda_rng.draw_seed(
+            gen, self.device))
+        draws = draws or {}
+        obs, privileged, obs_history = cuda_obs.compute_observations_fused(
+            self.cfg, self._obs_has_foothold, base_ang_vel, projected_gravity,
+            state["commands"], state["phys"]["q"], state["phys"]["qd"],
+            state["actions"], state["foothold_obs"], base_z, measured_heights,
+            state["push_force"], state["height_noise_offset"],
+            state["obs_history"], T["noise_scale_vec"], T["default_q"],
+            T["commands_scale"], seed, height_noise=draws.get("height_noise"),
+            obs_noise=draws.get("obs_noise"))
+        # get_base_vel
+        base_vel = base_lin_vel * self.cfg.normalization.obs_scales.lin_vel
         new_state = {**state, "obs": obs, "privileged_obs": privileged,
                      "obs_history": obs_history, "base_vel": base_vel}
         return new_state, dict(obs=obs, privileged_obs=privileged,

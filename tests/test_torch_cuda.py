@@ -7,7 +7,10 @@ decision is made inside the fixture).  Run on a machine with a card:
 have; this module does not use it).
 Each kernel runs on the inputs of a real step of a small lite3_dtc env
 and is held to its plain version with the budgets of chip_smoke.py; the
-gather kernel (a copy) on seeded fields, bit for bit.
+gather kernel (a copy) on seeded fields, bit for bit; the reward kernel
+also on random inputs that switch on all 33 terms; the noise kernel bit
+for bit, and the obs kernel against its plain version fed that kernel's
+draws.
 """
 import dataclasses
 
@@ -16,9 +19,11 @@ import pytest
 import torch
 
 from deep_tracking_control_tpu_torch import cuda_build
-from deep_tracking_control_tpu_torch.env import cuda_planner
+from deep_tracking_control_tpu_torch.env import (cuda_obs, cuda_planner,
+                                                 cuda_rewards)
+from deep_tracking_control_tpu_torch.env import rewards as rew_mod
 from deep_tracking_control_tpu_torch.env.legged_env import LeggedEnv
-from deep_tracking_control_tpu_torch.ops import cuda_gather
+from deep_tracking_control_tpu_torch.ops import cuda_gather, cuda_rng
 from deep_tracking_control_tpu_torch.physics import cuda_substep
 from deep_tracking_control_tpu_torch.tasks.registry import get_cfgs
 from deep_tracking_control_tpu_torch.terrain import cuda_sampler
@@ -42,23 +47,30 @@ def recorded():
     params, state = env.init(gen)
     calls = {}
     originals = (cuda_substep.decimation_step, cuda_sampler.sample_all,
-                 cuda_planner.select_footholds)
+                 cuda_planner.select_footholds,
+                 cuda_rewards.compute_rewards_fused,
+                 cuda_obs.compute_observations_fused)
 
     def recorder(name, fn):
         def wrapped(*args, **kwargs):
-            calls[name] = (args, kwargs)
+            # the reward kernel adds to its last argument in place
+            calls[name] = ((*args[:-1], args[-1].clone()) if name == "k6"
+                           else args, kwargs)
             return fn(*args, **kwargs)
         return wrapped
     cuda_substep.decimation_step = recorder("k1", originals[0])
     cuda_sampler.sample_all = recorder("k2", originals[1])
     cuda_planner.select_footholds = recorder("k3", originals[2])
+    cuda_rewards.compute_rewards_fused = recorder("k6", originals[3])
+    cuda_obs.compute_observations_fused = recorder("k7", originals[4])
     try:
         for _ in range(3):
             actions = 0.3 * torch.randn((N, 12), generator=gen, device="cuda")
             state, out = env.step(params, state, actions, gen)
     finally:
         (cuda_substep.decimation_step, cuda_sampler.sample_all,
-         cuda_planner.select_footholds) = originals
+         cuda_planner.select_footholds, cuda_rewards.compute_rewards_fused,
+         cuda_obs.compute_observations_fused) = originals
     torch.cuda.synchronize()
     return calls, out
 
@@ -149,3 +161,109 @@ def test_gather_wrapper_rejects_bad_input():
                                    torch.arange(2, device="cuda"), 2)
     with pytest.raises(ValueError):                       # perm on the CPU
         cuda_gather.permute_groups(x, torch.arange(2), 4)
+
+
+def _check_rewards(args):
+    """K6 against its plain version from the same episode sums: rew and
+    sums rtol 2e-5 / atol 1e-5, feet_air_time 1e-6 / 1e-7, pitch_est
+    1e-5 / 1e-6, the stumble ring exact."""
+    *head, sums = args
+    s_k, s_p = sums.clone(), sums.clone()
+    before = cuda_rewards.compute_rewards_fused.launches
+    rew, upd = cuda_rewards.compute_rewards_fused(*head, s_k)
+    prew, pupd = cuda_rewards.rewards_plain(*head, s_p)
+    torch.cuda.synchronize()
+    assert cuda_rewards.compute_rewards_fused.launches == before + 1
+    torch.testing.assert_close(rew, prew, rtol=2e-5, atol=1e-5)
+    torch.testing.assert_close(s_k, s_p, rtol=2e-5, atol=1e-5)
+    assert set(upd) == set(pupd)
+    budgets = dict(feet_air_time=(1e-6, 1e-7), pitch_est=(1e-5, 1e-6))
+    for k, v in upd.items():
+        if k == "stumb_buffer":
+            assert v.dtype == torch.bool and torch.equal(v, pupd[k])
+        else:
+            torch.testing.assert_close(v, pupd[k], rtol=budgets[k][0],
+                                       atol=budgets[k][1])
+    return upd
+
+
+def test_rewards_kernel_matches_plain(recorded):
+    (args, _) = recorded[0]["k6"]
+    upd = _check_rewards(args)
+    assert set(upd) == {"feet_air_time", "stumb_buffer", "pitch_est"}
+
+
+@pytest.mark.parametrize("only_positive, term", [(False, -0.5), (True, -1.0),
+                                                 (False, 0.0)])
+def test_rewards_kernel_all_terms(only_positive, term):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    names = list(rew_mod.REWARD_FUNCTIONS)
+    ctx = cuda_rewards.synthetic_ctx(256, 3, "cuda")
+    scales = {n: 0.01 * (i + 1) * (-1) ** i for i, n in enumerate(names)}
+    sum_names = names + (["termination"] if term else [])
+    sums = torch.randn((len(sum_names), 256), device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(1))
+    _check_rewards((names, scales, ctx, only_positive, term, sum_names, sums))
+
+
+def test_obs_kernel_matches_plain_fed_its_draws(recorded):
+    args, kwargs = recorded[0]["k7"]
+    assert all(v is None for v in kwargs.values())      # no noise arrays
+    seed = args[-1]
+    N, H = args[10].shape
+    before = cuda_obs.compute_observations_fused.launches
+    got = cuda_obs.compute_observations_fused(*args)
+    assert cuda_obs.compute_observations_fused.launches == before + 1
+    num_obs = args[14].shape[0]
+    draws = dict(height_noise=cuda_rng.uniform_pm1(seed, (N, H), 0),
+                 obs_noise=cuda_rng.uniform_pm1(seed, (N, num_obs), 1))
+    fed = cuda_obs.observations_plain(*args, **draws)
+    own = cuda_obs.observations_plain(*args)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, fed, own):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+        assert torch.equal(b, c)
+    with pytest.raises(ValueError):
+        cuda_obs.compute_observations_fused(*args, **draws)
+
+
+@pytest.mark.parametrize("shape, stream", [((N, 693), 0), ((N, 53), 1),
+                                           ((3, 5), 7)])
+def test_uniform_kernel_bit_exact(shape, stream):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    seed = cuda_rng.draw_seed(torch.Generator("cuda").manual_seed(4), "cuda")
+    before = cuda_rng.uniform_pm1.launches
+    got = cuda_rng.uniform_pm1(seed, shape, stream)
+    want = cuda_rng.uniform_pm1_plain(seed, shape, stream)
+    torch.cuda.synchronize()
+    assert cuda_rng.uniform_pm1.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_uniform_kernel_moments():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator("cuda").manual_seed(5)
+    u = cuda_rng.uniform_pm1(cuda_rng.draw_seed(g, "cuda"), (4096, 693))
+    v = cuda_rng.uniform_pm1(cuda_rng.draw_seed(g, "cuda"), (4096, 693))
+    assert abs(float(u.mean())) < 0.01 and abs(float(u.var()) - 1 / 3) < 0.01
+    assert float(u.min()) >= -1.0 and float(u.max()) < 1.0
+    assert not torch.equal(u, v)
+
+
+def test_new_wrappers_reject_bad_input(recorded):
+    seed = torch.tensor([1, 2], device="cuda")
+    with pytest.raises(ValueError):                       # int32 seed
+        cuda_rng.uniform_pm1(seed.int(), (4, 4))
+    (head, _) = recorded[0]["k6"]
+    names, scales, ctx, *rest = head
+    bad = dict(ctx, stumb_buffer=ctx["stumb_buffer"].float())
+    with pytest.raises(ValueError):                       # a float ring
+        cuda_rewards.compute_rewards_fused(names, scales, bad, *rest[:-1],
+                                           rest[-1].clone())
+    bad = dict(ctx, dof_vel=ctx["dof_vel"][:, :6])
+    with pytest.raises(ValueError):                       # wrong shape
+        cuda_rewards.compute_rewards_fused(names, scales, bad, *rest[:-1],
+                                           rest[-1].clone())
