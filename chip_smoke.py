@@ -55,7 +55,6 @@ PEAK_F32_OPS_S = 67e12        # H100 SXM float32, off the tensor cores
 # low and 4 XORs, 9 pairs of key additions, per 4 values; then a shift, a
 # conversion, a multiply and a subtraction
 PHILOX_OPS = (10 * 8 + 9 * 2) / 4 + 4
-SPIN_CYCLES_PER_S = 2e9       # about the H100's SM clock (queued_ms)
 
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -102,45 +101,18 @@ def wall_ms(torch, fn, repeats=REPEATS):
     return a.elapsed_time(b) / repeats
 
 
-def queued_ms(torch, fn, repeats=REPEATS):
-    """Device time per fn() call from a pair of CUDA events around it, the
-    call queued behind a spin kernel that outlasts its host time twice
-    over (so that the card finds the call's work queued and no host time
-    falls between the events), less the time of an empty pair of events
-    queued the same way."""
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    spin = int(SPIN_CYCLES_PER_S * (2.0 * host_s + 1e-3))
-
-    def pair(work):
-        torch.cuda._sleep(spin)
-        a.record()
-        work()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b)
-    empty = min(pair(lambda: None) for _ in range(5))
-    return max(sum(pair(fn) for _ in range(repeats)) / repeats - empty, 0.0)
-
-
-def device_ms(torch, fn, repeats=REPEATS, sessions=4):
+def device_ms(torch, fn, repeats=REPEATS):
     """Mean over `repeats` calls of the device time of all the work one
     fn() call queues: one torch.profiler session (CUDA activity only)
     around the calls, each followed by a synchronize.  On the H100 host a
     session now and then records no device activity at all, mostly right
-    after a session of thousands of kernels: it is run again after
-    a pause of 1, 2, 4 s, and after `sessions` empty sessions the time is
-    taken with queued_ms instead (and said so)."""
+    after a session of thousands of kernels: it is run again after a pause
+    of 1, 2 and 4 s, and the run fails if the last one is empty too."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for attempt in range(sessions):
-        if attempt:
-            time.sleep(0.5 * 2 ** attempt)
+    for pause in (0, 1, 2, 4):
+        time.sleep(pause)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(repeats):
                 fn()
@@ -149,11 +121,7 @@ def device_ms(torch, fn, repeats=REPEATS, sessions=4):
                  for e in prof.key_averages()) / 1e3 / repeats
         if ms > 0.0:
             return ms
-    ms = queued_ms(torch, fn, repeats)
-    say("time", f"the profiler saw no device time in {sessions} sessions; "
-                f"CUDA events around each call queued behind a spin kernel: "
-                f"{ms:.4f} ms a call")
-    return ms
+    raise AssertionError("the profiler saw no device time in 4 sessions")
 
 
 def timings(torch, kernel, plain, plain_repeats=REPEATS):
@@ -308,6 +276,75 @@ def bound(nbytes, ops):
             else (by_ops, "operations"))
 
 
+def synthetic_ctx(N: int, seed: int, device):
+    """Random step quantities on which every branch of every term is taken
+    by some env: the inputs that hold the kernel to its plain version on
+    all 33 terms (here and in tests/test_torch_cuda.py).  The same numpy
+    draws, in the same order, as the JAX package's
+    tests/test_pallas_rewards.py `make_ctx`."""
+    import numpy as np
+    import torch
+    r = np.random.default_rng(seed)
+    B = 13
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def f(*s):
+        return t(r.normal(size=s).astype(np.float32))
+
+    def u(*s):
+        return t(r.random(s).astype(np.float32))
+    feet_contact = r.random((N, 4)) < 0.6
+    last_contacts = r.random((N, 4)) < 0.6
+    return dict(
+        dt=0.02,
+        base_lin_vel=f(N, 3), base_ang_vel=f(N, 3),
+        projected_gravity=f(N, 3),
+        dof_pos=f(N, 12), dof_vel=2.0 * f(N, 12), last_dof_vel=2.0 * f(N, 12),
+        actions=f(N, 12), last_actions=f(N, 12), last_actions_2=f(N, 12),
+        torques=20.0 * f(N, 12),
+        contact_forces=30.0 * f(N, B, 3),
+        feet_idx=t([3, 6, 9, 12], torch.int64),
+        penalised_idx=t([2, 5, 8, 11], torch.int64),
+        hip_dof_idx=t([0, 3, 6, 9], torch.int64),
+        feet_contact=t(feet_contact, torch.bool),
+        last_contacts=t(last_contacts, torch.bool),
+        contact_filt=t(feet_contact | last_contacts, torch.bool),
+        feet_air_time=0.3 * u(N, 4),
+        stumb_buffer=t(r.random((N, 5, 4)) < 0.2, torch.bool),
+        commands=f(N, 4),
+        cmd_buffer=f(N, 10, 4), lin_vel_buffer=f(N, 10, 2),
+        ang_vel_buffer=f(N, 10, 1),
+        lin_vel_x_max=t(2.5),
+        ang_vel_yaw_max=3.14,
+        tracking_sigma=0.25,
+        default_dof_pos=f(1, 12),
+        soft_dof_pos_limits=(t(np.full(12, -2.0)), t(np.full(12, 2.0))),
+        dof_vel_limit=t(np.full(12, 20.0)),
+        soft_dof_vel_limit=0.9,
+        torque_limit=t(np.full(12, 35.0)),
+        soft_torque_limit=0.85,
+        max_contact_force=100.0,
+        max_acc=300.0,
+        base_height_target=0.32,
+        robot_mass=12.0 + u(N),
+        foot_positions=f(N, 4, 3), foot_velocities=f(N, 4, 3),
+        last_foot_velocities=f(N, 4, 3),
+        measured_foot_clearance=0.4 * u(N, 4),
+        measured_heights=0.3 * f(N, 693),
+        plane_pinv=t(np.asarray(r.normal(size=(3, 693)) * 0.01, np.float32)),
+        pitch_est=0.1 * f(N),
+        terrain_levels=t(r.integers(0, 9, N), torch.int32),
+        acc_points=t(np.asarray(r.normal(size=(8, 3)), np.float32)),
+        optimal_footholds_world=f(N, 4, 3),
+        root_z=0.3 + 0.1 * u(N),
+        env_origin_z=torch.zeros((N,), device=device),
+        reset_buf=t(r.random(N) < 0.1, torch.bool),
+        time_out_buf=t(r.random(N) < 0.05, torch.bool),
+    )
+
+
 def check_rewards(name, args):
     """K6 against its plain version from the same episode sums, with the
     budgets of the JAX package's tests/test_pallas_rewards.py: rew and sums
@@ -445,7 +482,7 @@ def compare_kernels(calls, tables):
     scales = {n: 0.01 * (i + 1) * (-1) ** i for i, n in enumerate(names)}
     g = torch.Generator("cuda").manual_seed(11)
     for only_positive in (False, True):
-        ctx = cuda_rewards.synthetic_ctx(NUM_ENVS, 3 + only_positive, "cuda")
+        ctx = synthetic_ctx(NUM_ENVS, 3 + only_positive, "cuda")
         sums = torch.randn((len(names) + 1, NUM_ENVS), device="cuda",
                            generator=g)
         e33 = check_rewards(

@@ -60,72 +60,6 @@ def rewards_plain(names, scales_dt, ctx, only_positive, termination_scale_dt,
     return total, ctx["updates"]
 
 
-def synthetic_ctx(N: int, seed: int, device):
-    """Random step quantities on which every branch of every term is taken
-    by some env: the inputs that hold the kernel to its plain version on
-    all 33 terms.  The same numpy draws, in the same order, as the JAX
-    package's tests/test_pallas_rewards.py `make_ctx`."""
-    r = np.random.default_rng(seed)
-    B = 13
-
-    def t(a, dtype=torch.float32):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-
-    def f(*s):
-        return t(r.normal(size=s).astype(np.float32))
-
-    def u(*s):
-        return t(r.random(s).astype(np.float32))
-    feet_contact = r.random((N, 4)) < 0.6
-    last_contacts = r.random((N, 4)) < 0.6
-    return dict(
-        dt=0.02,
-        base_lin_vel=f(N, 3), base_ang_vel=f(N, 3),
-        projected_gravity=f(N, 3),
-        dof_pos=f(N, 12), dof_vel=2.0 * f(N, 12), last_dof_vel=2.0 * f(N, 12),
-        actions=f(N, 12), last_actions=f(N, 12), last_actions_2=f(N, 12),
-        torques=20.0 * f(N, 12),
-        contact_forces=30.0 * f(N, B, 3),
-        feet_idx=t([3, 6, 9, 12], torch.int64),
-        penalised_idx=t([2, 5, 8, 11], torch.int64),
-        hip_dof_idx=t([0, 3, 6, 9], torch.int64),
-        feet_contact=t(feet_contact, torch.bool),
-        last_contacts=t(last_contacts, torch.bool),
-        contact_filt=t(feet_contact | last_contacts, torch.bool),
-        feet_air_time=0.3 * u(N, 4),
-        stumb_buffer=t(r.random((N, 5, 4)) < 0.2, torch.bool),
-        commands=f(N, 4),
-        cmd_buffer=f(N, 10, 4), lin_vel_buffer=f(N, 10, 2),
-        ang_vel_buffer=f(N, 10, 1),
-        lin_vel_x_max=t(2.5),
-        ang_vel_yaw_max=3.14,
-        tracking_sigma=0.25,
-        default_dof_pos=f(1, 12),
-        soft_dof_pos_limits=(t(np.full(12, -2.0)), t(np.full(12, 2.0))),
-        dof_vel_limit=t(np.full(12, 20.0)),
-        soft_dof_vel_limit=0.9,
-        torque_limit=t(np.full(12, 35.0)),
-        soft_torque_limit=0.85,
-        max_contact_force=100.0,
-        max_acc=300.0,
-        base_height_target=0.32,
-        robot_mass=12.0 + u(N),
-        foot_positions=f(N, 4, 3), foot_velocities=f(N, 4, 3),
-        last_foot_velocities=f(N, 4, 3),
-        measured_foot_clearance=0.4 * u(N, 4),
-        measured_heights=0.3 * f(N, 693),
-        plane_pinv=t(np.asarray(r.normal(size=(3, 693)) * 0.01, np.float32)),
-        pitch_est=0.1 * f(N),
-        terrain_levels=t(r.integers(0, 9, N), torch.int32),
-        acc_points=t(np.asarray(r.normal(size=(8, 3)), np.float32)),
-        optimal_footholds_world=f(N, 4, 3),
-        root_z=0.3 + 0.1 * u(N),
-        env_origin_z=torch.zeros((N,), device=device),
-        reset_buf=t(r.random(N) < 0.1, torch.bool),
-        time_out_buf=t(r.random(N) < 0.05, torch.bool),
-    )
-
-
 def compute_rewards_fused(names, scales_dt, ctx, only_positive,
                           termination_scale_dt, sum_names, episode_sums):
     """Sum of scale_i * term_i over `names` (reference order), the positive

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import synthetic_ctx
 from deep_tracking_control_tpu_torch import cuda_build
 from deep_tracking_control_tpu_torch.env import (cuda_obs, cuda_planner,
                                                  cuda_rewards)
@@ -199,7 +200,7 @@ def test_rewards_kernel_all_terms(only_positive, term):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     names = list(rew_mod.REWARD_FUNCTIONS)
-    ctx = cuda_rewards.synthetic_ctx(256, 3, "cuda")
+    ctx = synthetic_ctx(256, 3, "cuda")
     scales = {n: 0.01 * (i + 1) * (-1) ** i for i, n in enumerate(names)}
     sum_names = names + (["termination"] if term else [])
     sums = torch.randn((len(sum_names), 256), device="cuda",

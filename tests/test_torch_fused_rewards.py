@@ -23,6 +23,7 @@ from deep_tracking_control_tpu.experimental.pallas_rewards import (
     compute_rewards_fused as jax_fused)
 from deep_tracking_control_tpu_torch.env import cuda_rewards
 from deep_tracking_control_tpu_torch.env import rewards as trew
+from chip_smoke import synthetic_ctx
 from tests.test_pallas_rewards import make_ctx
 
 N = 128
@@ -111,7 +112,7 @@ def test_synthetic_ctx_is_make_ctx(seed):
     """The inputs chip_smoke.py and the card tests hold the kernel to on all
     33 terms are the JAX package's make_ctx inputs."""
     want = _torch_ctx(make_ctx(N=64, seed=seed))
-    got = cuda_rewards.synthetic_ctx(64, seed, "cpu")
+    got = synthetic_ctx(64, seed, "cpu")
     assert set(got) == set(want)
     for k, v in want.items():
         g = got[k]
