@@ -27,7 +27,16 @@ Phases (each prints its own line; any failure ends the run non-zero):
      device ops, the largest items);
   6. one update of a small net on the card against the same update on the
      CPU (same batch and draws), and a save/load round trip on the card;
-  7. a JSON line of the kernels, the nvidia-smi line, and the result line.
+  7. the routes: under DTC_FUSED_WINDOW=0, DTC_PALLAS_SAMPLER=0 and
+     DTC_STRICT_PARITY=1 in turn (set for the phase, then restored), a
+     fresh 4096-env runner; the patch copy, the window copy and the
+     decimation kernel's window variant against their plain versions on
+     the route's real step (the copies bit for bit, the window variant bit
+     for bit against the fused kernel on the same state); one warm-up and
+     one timed collect with the route's launch counts; under strict parity
+     learn(2) (float32 storage, sequential update, per-row gather); and a
+     16-env step on the card against the CPU under the route;
+  8. a JSON line of the kernels, the nvidia-smi line, and the result line.
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes (each input read once, each output written once)
 over 3.35 TB/s and its operations over 67 TFLOP/s (float32 off the
@@ -36,6 +45,7 @@ at that rate too), both counted from this run's inputs.
 Weights are random (seeded); nothing is downloaded.  Needs a CUDA device:
 without one it stops before printing any result.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -59,7 +69,14 @@ PHILOX_OPS = (10 * 8 + 9 * 2) / 4 + 4
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "decimation_step": ("deep_tracking_control_tpu_torch/csrc/substep.cu",
-                        "deep_tracking_control_tpu/physics/pallas_substep.py:650"),
+                        "deep_tracking_control_tpu/physics/pallas_substep.py:755"),
+    "decimation_step_window": (
+        "deep_tracking_control_tpu_torch/csrc/substep.cu",
+        "deep_tracking_control_tpu/physics/pallas_substep.py:771"),
+    "extract_patches": ("deep_tracking_control_tpu_torch/csrc/patch.cu",
+                        "deep_tracking_control_tpu/ops/pallas_patch.py:49"),
+    "extract_windows": ("deep_tracking_control_tpu_torch/csrc/patch.cu",
+                        "deep_tracking_control_tpu/ops/pallas_patch.py:104"),
     "sample_all": ("deep_tracking_control_tpu_torch/csrc/sampler.cu",
                    "deep_tracking_control_tpu/terrain/pallas_sampler.py:150"),
     "plan_footholds": ("deep_tracking_control_tpu_torch/csrc/planner.cu",
@@ -73,6 +90,79 @@ KERNELS = {
     "uniform_pm1": ("deep_tracking_control_tpu_torch/csrc/rng.cu",
                     "deep_tracking_control_tpu/experimental/pallas_rng.py:49"),
 }
+
+
+# the kernels that each route launches once a step, beside the reward, obs
+# and noise kernels, which run on every route
+EVERY_ROUTE = ("compute_rewards", "compute_observations", "uniform_pm1")
+DEFAULT_ROUTE = ("decimation_step", "sample_all", "plan_footholds")
+ROUTES = {
+    "DTC_FUSED_WINDOW=0": ({"DTC_FUSED_WINDOW": "0"},
+                           ("extract_windows", "decimation_step_window",
+                            "sample_all", "plan_footholds")),
+    "DTC_PALLAS_SAMPLER=0": ({"DTC_PALLAS_SAMPLER": "0"},
+                             ("extract_patches", "decimation_step_window",
+                              "plan_footholds")),
+    "DTC_STRICT_PARITY=1": ({"DTC_STRICT_PARITY": "1"}, ("extract_patches",)),
+}
+SWITCHES = ("DTC_FUSED_WINDOW", "DTC_PALLAS_SAMPLER", "DTC_PALLAS_PHYSICS",
+            "DTC_PALLAS_PLANNER", "DTC_STRICT_PARITY")
+
+
+def _counters():
+    """(KERNELS name, wrapper, attribute) of every launch count."""
+    from deep_tracking_control_tpu_torch.env import (cuda_obs, cuda_planner,
+                                                     cuda_rewards)
+    from deep_tracking_control_tpu_torch.ops import (cuda_gather, cuda_patch,
+                                                     cuda_rng)
+    from deep_tracking_control_tpu_torch.physics import cuda_substep
+    from deep_tracking_control_tpu_torch.terrain import cuda_sampler
+    return [("decimation_step", cuda_substep.decimation_step, "launches"),
+            ("decimation_step_window", cuda_substep.decimation_step,
+             "window_launches"),
+            ("extract_patches", cuda_patch.extract_patches, "launches"),
+            ("extract_windows", cuda_patch.extract_windows, "launches"),
+            ("sample_all", cuda_sampler.sample_all, "launches"),
+            ("plan_footholds", cuda_planner.plan_footholds_fused, "launches"),
+            ("permute_groups", cuda_gather.permute_groups, "launches"),
+            ("compute_rewards", cuda_rewards.compute_rewards_fused,
+             "launches"),
+            ("compute_observations", cuda_obs.compute_observations_fused,
+             "launches"),
+            ("uniform_pm1", cuda_rng.uniform_pm1, "launches")]
+
+
+def zero_launches():
+    for _, fn, attr in _counters():
+        setattr(fn, attr, 0)
+
+
+def launch_counts():
+    return {name: getattr(fn, attr) for name, fn, attr in _counters()}
+
+
+def expected_launches(route_kernels, steps, updates=0):
+    """The launch counts of `steps` env steps on a route that runs
+    `route_kernels` (and EVERY_ROUTE) once a step, and of `updates`
+    updates (one gather each)."""
+    return {k: (steps if k in route_kernels + EVERY_ROUTE
+                else updates if k == "permute_groups" else 0)
+            for k in KERNELS}
+
+
+@contextlib.contextmanager
+def route_env(values):
+    """The route's DTC_* switches in os.environ (every other switch unset)
+    for a `with` block; the previous values come back after it."""
+    saved = {k: os.environ.pop(k, None) for k in SWITCHES}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
 
 
 def say(phase, msg):
@@ -131,9 +221,10 @@ def timings(torch, kernel, plain, plain_repeats=REPEATS):
                 plain_wall_ms=wall_ms(torch, plain, plain_repeats))
 
 
-def record_kernel_inputs(env, params, state, gen, steps=3):
+def record_kernel_inputs(env, params, state, gen, steps=3, slots=None):
     """Run `steps` env steps and keep the arguments each kernel got in the
-    last one (the wrappers are wrapped, then restored)."""
+    last one (the wrappers are wrapped, then restored).  slots: (module,
+    attribute, name) of the wrappers; default the default route's."""
     import torch
     from deep_tracking_control_tpu_torch.env import (cuda_obs, cuda_planner,
                                                      cuda_rewards)
@@ -141,12 +232,13 @@ def record_kernel_inputs(env, params, state, gen, steps=3):
     from deep_tracking_control_tpu_torch.physics import cuda_substep
     from deep_tracking_control_tpu_torch.terrain import cuda_sampler
     calls = {}
-    slots = ((cuda_substep, "decimation_step", "decimation_step"),
-             (cuda_sampler, "sample_all", "sample_all"),
-             (cuda_planner, "select_footholds", "plan_footholds"),
-             (cuda_rewards, "compute_rewards_fused", "compute_rewards"),
-             (cuda_obs, "compute_observations_fused", "compute_observations"),
-             (cuda_rng, "uniform_pm1", "uniform_pm1"))
+    slots = slots or (
+        (cuda_substep, "decimation_step", "decimation_step"),
+        (cuda_sampler, "sample_all", "sample_all"),
+        (cuda_planner, "select_footholds", "plan_footholds"),
+        (cuda_rewards, "compute_rewards_fused", "compute_rewards"),
+        (cuda_obs, "compute_observations_fused", "compute_observations"),
+        (cuda_rng, "uniform_pm1", "uniform_pm1"))
     originals = [getattr(mod, attr) for mod, attr, _ in slots]
 
     def recorder(name, fn):
@@ -590,6 +682,174 @@ def compare_kernels(calls, tables):
     return results
 
 
+def compare_route_kernels(calls, tables, results):
+    """Phase 7: the copies (bit for bit) and the decimation kernel's window
+    variant (bit for bit against the fused kernel on the same state, and
+    within K1's budget of its plain version) on a route's recorded step.
+    Each kernel is timed, and its bound taken, on the first route that
+    runs it; `results` collects them by KERNELS name."""
+    import torch
+    from deep_tracking_control_tpu_torch.ops import cuda_patch
+    from deep_tracking_control_tpu_torch.physics import cuda_substep
+    starts = None
+    for name, plain in (("extract_patches", cuda_patch.extract_patches_plain),
+                        ("extract_windows", cuda_patch.extract_windows_plain)):
+        if name not in calls:
+            continue
+        args, kwargs = calls[name]
+        fn = getattr(cuda_patch, name)
+        got, want = fn(*args, **kwargs), plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: differs from its plain version")
+        blocks, starts = args[0], args[1]
+        say(7, f"{name} vs plain: bit-exact, {tuple(got.shape)} from "
+               f"{starts.shape[0]} starts")
+        if name in results:
+            continue
+        # the library call: one advanced-index gather with the indices made
+        b = starts[:, 1].long()[:, None]
+        r = starts[:, 0].long()[:, None] + torch.arange(
+            got.shape[-2], device=starts.device)
+        if name == "extract_windows":
+            r = r + args[2]
+
+            def library():
+                return blocks[0, b, r]
+        else:
+            def library():
+                return blocks[:, b, r]
+        # bytes: each table cell the copies touch read once (neighbouring
+        # envs' slabs overlap), the output written once, the starts
+        T = blocks.shape[0] if name == "extract_patches" else 1
+        touched = int(torch.unique(b * blocks.shape[2] + r).numel())
+        nbytes = (T * touched * blocks.shape[3] * blocks.element_size()
+                  + tensor_bytes(got) + tensor_bytes(starts))
+        say(7, f"{name}: {T} x {touched} distinct table rows touched, "
+               f"{nbytes} bytes")
+        results[name] = dict(
+            max_abs_err=0.0, **dict(zip(("bound_ms", "bound_by"),
+                                        bound(nbytes, 0))),
+            **timings(torch, lambda: fn(*args, **kwargs),
+                      lambda: plain(*args, **kwargs)),
+            library_ms=device_ms(torch, library),
+            library_wall_ms=wall_ms(torch, library))
+
+    if "decimation_step" not in calls:
+        return
+    args, kwargs = calls["decimation_step"]
+    window = kwargs.get("window")
+    if window is None or starts is None:
+        raise AssertionError("the route's decimation step read no window")
+    got = cuda_substep.decimation_step(*args, **kwargs)
+    fused = cuda_substep.decimation_step(*args[:18], blocks, starts,
+                                         consts=kwargs["consts"])
+    kw = {k: v for k, v in kwargs.items() if k != "consts"}
+    plain = cuda_substep.decimation_step_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for (k, a), (_, f), (_, p) in zip(*(sorted(
+            {**ph, "anchors": an, **info}.items())
+            for ph, an, info in (got, fused, plain))):
+        if not torch.equal(a, f):
+            raise AssertionError(f"decimation_step_window {k}: differs from "
+                                 f"the fused kernel")
+        # contact forces come from 12 kN/m springs: 1e-6 m is 1e-2 N
+        check_close(f"decimation_step_window {k}", a, p,
+                    1e-2 if k == "contact_forces" else 1e-4, 1e-4)
+        if k != "contact_forces":
+            err = max(err, float((a - p).abs().max()))
+    say(7, f"decimation_step_window: bit-exact with the fused kernel on the "
+           f"same state; vs plain max abs err {err:.3e} (budget 1e-4 + 1e-4 "
+           f"rel; contact forces 1e-2 N)")
+    if "decimation_step_window" in results:
+        return
+    # bytes: as the fused kernel's, the window counted by the cells read
+    dec, n = args[3], args[6]["pos"].shape[-1]
+    nbytes = (tensor_bytes((args, kwargs), tables | {id(window)})
+              + tensor_bytes(got) + n * 4 * dec * 4 * 4)
+    ops = count_ops(lambda: cuda_substep.decimation_step_plain(*args, **kw))
+    results["decimation_step_window"] = dict(
+        max_abs_err=err, **dict(zip(("bound_ms", "bound_by"),
+                                    bound(nbytes, ops))),
+        **timings(torch, lambda: cuda_substep.decimation_step(*args, **kwargs),
+                  lambda: cuda_substep.decimation_step_plain(*args, **kw), 5))
+
+
+def route_collect(name, runner, kernels, card):
+    """One warm-up collect and one timed collect on a route: finite batch,
+    the route's launch counts, and under strict parity the float32
+    storage.  Returns the launch counts."""
+    import torch
+    runner.collect()
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    batch, aux = runner.collect()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    T = runner.cfg.runner.num_steps_per_env
+    for k, v in batch.items():
+        if not bool(torch.isfinite(v.float()).all()):
+            raise AssertionError(f"{name} collect: batch[{k}] not finite")
+    want = expected_launches(kernels, T)
+    if counts != want:
+        raise AssertionError(f"{name} collect: launches {counts}, expected "
+                             f"{want}")
+    strict = name == "DTC_STRICT_PARITY=1"
+    if batch["privileged_obs"].dtype != (torch.float32 if strict
+                                         else torch.bfloat16):
+        raise AssertionError(f"{name}: privileged obs stored as "
+                             f"{batch['privileged_obs'].dtype}")
+    rate = T * runner.env.num_envs / wall
+    say(7, f"{name}: collect of {T} steps x {runner.env.num_envs} envs after "
+           f"one warm-up collect: {wall:.3f} s, {rate:.1f} env-steps/s; "
+           f"launches {counts}; privileged obs stored as "
+           f"{batch['privileged_obs'].dtype} ({card})")
+    return counts
+
+
+def strict_learn(runner, card, iters=2):
+    """learn(iters) under strict parity: the reference's update (float32
+    storage, sequential VAE-then-policy steps, a per-row gather, G=1), its
+    launch counts, finite stats and moving params."""
+    import torch
+    from deep_tracking_control_tpu_torch.agent.ppo import shuffle_layout
+    alg = runner.ppo.alg
+    T, N = runner.cfg.runner.num_steps_per_env, runner.env.num_envs
+    G = shuffle_layout(alg, T, N, runner.ppo.n_env_shards)[3]
+    if (alg.fused_joint_step, alg.minibatch_perm_granule, G) != (False, 1, 1):
+        raise AssertionError(f"strict parity: fused_joint_step "
+                             f"{alg.fused_joint_step}, granule "
+                             f"{alg.minibatch_perm_granule}, G {G}")
+    before = [p.detach().clone() for p in runner.net.parameters()]
+    zero_launches()
+    t0 = time.perf_counter()
+    rows = runner.learn(iters)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    want = expected_launches(ROUTES["DTC_STRICT_PARITY=1"][1], iters * T,
+                             iters)
+    if counts != want:
+        raise AssertionError(f"strict learn({iters}): launches {counts}, "
+                             f"expected {want}")
+    for i, row in enumerate(rows):
+        bad = [k for k, v in row.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"strict learn iteration {i}: {bad} not "
+                                 f"finite")
+    if all(torch.equal(a, b) for a, b in zip(before, runner.net.parameters())):
+        raise AssertionError("strict learn: the params did not move")
+    coll = sum(r["collection_time"] for r in rows)
+    learn = sum(r["learning_time"] for r in rows)
+    say(7, f"DTC_STRICT_PARITY=1: learn({iters}) at {N} envs: "
+           f"{iters * T * N / wall:.1f} train-iteration env-steps/s "
+           f"({wall:.3f} s; update share {learn / (coll + learn):.3f}), "
+           f"G={G}, launches {counts} ({card})")
+
+
 def small_reference_check(registry, LeggedEnv, device="cuda"):
     """One step of a 16-env lite3_dtc on the card against the same step on
     the CPU (plain versions), from the same state, lag draw and noise seed.
@@ -692,7 +952,7 @@ def compare_gather(ppo, batch, gen):
     return res
 
 
-def train_path(runner, counters, card):
+def train_path(runner, card):
     """Phase 5: learn(ITERS) after a warm-up learn(1), every launch counted
     from zero; stats finite, params moved, the learning rate in its band.
     Returns the launch counts."""
@@ -701,16 +961,14 @@ def train_path(runner, counters, card):
     runner.learn(1)               # warm-up: the update's allocations
     torch.cuda.synchronize()
     before = [p.detach().clone() for p in runner.net.parameters()]
-    for fn in counters.values():
-        fn.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     rows = runner.learn(ITERS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = launch_counts()
     T = runner.cfg.runner.num_steps_per_env
-    want = {k: (ITERS if k == "permute_groups" else ITERS * T)
-            for k in counters}
+    want = expected_launches(DEFAULT_ROUTE, ITERS * T, ITERS)
     if launches != want:
         raise AssertionError(f"learn({ITERS}): launches {launches}, "
                              f"expected {want}")
@@ -896,14 +1154,11 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device; this run needs a GPU")
     sys.path.insert(0, HERE)
     from deep_tracking_control_tpu_torch import cuda_build
-    from deep_tracking_control_tpu_torch.env import (cuda_obs, cuda_planner,
-                                                     cuda_rewards)
     from deep_tracking_control_tpu_torch.env.legged_env import LeggedEnv
-    from deep_tracking_control_tpu_torch.ops import cuda_gather, cuda_rng
+    from deep_tracking_control_tpu_torch.ops import cuda_patch
     from deep_tracking_control_tpu_torch.physics import cuda_substep
     from deep_tracking_control_tpu_torch.runner.train import OnPolicyRunner
     from deep_tracking_control_tpu_torch.tasks import registry
-    from deep_tracking_control_tpu_torch.terrain import cuda_sampler
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -940,15 +1195,7 @@ def main():
     # ---- 4: the collection path -------------------------------------------
     runner.collect()              # warm-up: allocator, cuBLAS heuristics
     torch.cuda.synchronize()
-    counters = {"decimation_step": cuda_substep.decimation_step,
-                "sample_all": cuda_sampler.sample_all,
-                "plan_footholds": cuda_planner.plan_footholds_fused,
-                "permute_groups": cuda_gather.permute_groups,
-                "compute_rewards": cuda_rewards.compute_rewards_fused,
-                "compute_observations": cuda_obs.compute_observations_fused,
-                "uniform_pm1": cuda_rng.uniform_pm1}
-    for fn in counters.values():
-        fn.launches = 0
+    zero_launches()
     T = train.runner.num_steps_per_env
     iter_s = []
     for it in range(ITERS):
@@ -965,12 +1212,13 @@ def main():
         for k, v in aux.items():
             if not bool(torch.isfinite(torch.as_tensor(v)).all()):
                 raise AssertionError(f"collect {it}: {k} not finite")
-        for k, fn in counters.items():         # one launch per step
-            want = 0 if k == "permute_groups" else (it + 1) * T
-            if fn.launches != want:
-                raise AssertionError(f"{k}: {fn.launches} launches after "
-                                     f"{it + 1} collects of {T} steps")
-    collect_launches = {k: fn.launches for k, fn in counters.items()}
+        # one launch per step of each kernel of the default route; none of
+        # the copies or the window variant
+        got = launch_counts()
+        if got != expected_launches(DEFAULT_ROUTE, (it + 1) * T):
+            raise AssertionError(f"launches {got} after {it + 1} collects "
+                                 f"of {T} steps")
+    collect_launches = launch_counts()
     steps = T * NUM_ENVS
     rate = steps * ITERS / sum(iter_s)
     say(4, f"collect: {ITERS} x {T} steps x {NUM_ENVS} envs after one "
@@ -998,7 +1246,7 @@ def main():
            f"within 1e-3 + 1e-3 rel on {same} of 16 envs")
 
     # ---- 5: the training path ------------------------------------------
-    launches = train_path(runner, counters, card)
+    launches = train_path(runner, card)
     profile_phases(runner, card)
 
     # ---- 6: small update card vs CPU, save/load ---------------------------
@@ -1009,7 +1257,51 @@ def main():
     n = save_load_check(registry, LeggedEnv, OnPolicyRunner)
     say(6, f"save/load on the card: {n} tensors restored exactly")
 
-    # ---- 7: result lines ----------------------------------------------
+    # ---- 7: the routes ----------------------------------------------
+    route_slots = ((cuda_patch, "extract_patches", "extract_patches"),
+                   (cuda_patch, "extract_windows", "extract_windows"),
+                   (cuda_substep, "decimation_step", "decimation_step"))
+    del runner
+    for name, (values, kernels) in ROUTES.items():
+        with route_env(values):
+            t0 = time.perf_counter()
+            renv = LeggedEnv(task, device="cuda")
+            rrunner = OnPolicyRunner(renv, train)
+            say(7, f"{name}: {renv.num_envs} envs set up in "
+                   f"{time.perf_counter() - t0:.1f} s")
+            calls, rrunner.env_state = record_kernel_inputs(
+                renv, rrunner.env_params, rrunner.env_state,
+                rrunner.generator, steps=2, slots=route_slots)
+            compare_route_kernels(
+                calls, {id(renv.patch_src.blocks), id(renv.patch_src.blocks16)},
+                results)
+            counts = route_collect(name, rrunner, kernels, card)
+            for k in ("extract_patches", "extract_windows",
+                      "decimation_step_window"):
+                if counts[k] and not launches[k]:
+                    launches[k] = counts[k]
+            if values.get("DTC_STRICT_PARITY") == "1":
+                strict_learn(rrunner, card)
+            err, same = small_reference_check(registry, LeggedEnv)
+            say(7, f"{name}: 16-env step on the card vs on the CPU: physics "
+                   f"max abs err {err:.3e} (budget 1e-4); rewards, sums, obs "
+                   f"and privileged obs within 1e-3 + 1e-3 rel on {same} of "
+                   f"16 envs")
+            del rrunner, renv, calls
+            torch.cuda.empty_cache()
+    for k in ("extract_patches", "extract_windows", "decimation_step_window"):
+        r = results[k]
+        lib = (f"; one advanced-index gather: device {r['library_ms']:.4f} "
+               f"ms, stream {r['library_wall_ms']:.4f} ms"
+               if "library_ms" in r else "")
+        say(7, f"{k} at {NUM_ENVS} envs: device time per call, mean of "
+               f"{REPEATS}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
+               f" ms; stream time per call: kernel {r['wall_ms']:.4f} ms, "
+               f"plain {r['plain_wall_ms']:.4f} ms{lib}; bound "
+               f"{r['bound_ms']:.4f} ms by {r['bound_by']}; {launches[k]} "
+               f"launches in its route's collect ({card})")
+
+    # ---- 8: result lines ----------------------------------------------
     kernels = [dict(name=k, route="cuda", source=KERNELS[k][0],
                     replaces=KERNELS[k][1], launches=launches[k],
                     max_abs_err=results[k]["max_abs_err"],

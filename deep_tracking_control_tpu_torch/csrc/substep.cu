@@ -1,8 +1,9 @@
 // The physics decimation step: all `decimation` substeps of one policy
 // step in one launch.
 //
-// Replaces the JAX package's Pallas kernel physics/pallas_substep.py
-// (decimation_step -> _substep_kernel_fused -> _substep_body).  Each
+// Replaces the JAX package's Pallas kernels physics/pallas_substep.py
+// (decimation_step -> _substep_kernel_fused and _substep_kernel ->
+// _substep_body).  Each
 // substep: PD torque (motor strength and offset, clipped at 0.8 x effort)
 // plus the joint-limit spring; FK of the 13 bodies; world state of the
 // contact points; terrain under each point (feet: bilinear height + slope
@@ -19,7 +20,11 @@
 // live in local memory (L1/L2).  Design: one thread per env, 128 threads a
 // block; the env-trailing (k, N) arrays are read and written coalesced as
 // they come; each foot reads its four terrain cells straight from the
-// blocked raw table (the TPU kernel's window DMA has no counterpart); the
+// blocked raw table (the fused variant: the TPU kernel's window DMA has no
+// counterpart) or from a materialized (N, 40, 128) contact window read
+// through its strides (the window variant, dtc_decimation_step_window: a
+// view of the patch copy or the window copy, no transpose); the two are
+// one template, the same arithmetic on the same cells; the
 // per-robot constants come from one packed float32 table
 // (physics/cuda_substep.py pack_constants).  Divisions by a Python scalar
 // in the plain version are multiplications by its float32 reciprocal
@@ -52,6 +57,8 @@ struct Args {
     const float *restitution, *blocks;
     const int* starts;
     const float *worigin, *planes, *consts;
+    const float* window;            // the window variant's (N, 40, 128)
+    long long wsN, wsR, wsC;        // its strides, in elements
     float *q_o, *qd_o, *pos_o, *quat_o, *lin_o, *ang_o, *anchors_o;
     float *report_o, *footpos_o, *footvel_o, *thigh_o, *tau_o, *bodypts_o;
     int N, P, nrb, decimation, B, Rp;
@@ -216,6 +223,7 @@ __device__ void solve_spd6(const float* A, const float* b, float* x) {
 
 // ---- the kernel -------------------------------------------------------
 
+template <bool WINDOW>
 __global__ void __launch_bounds__(128) substep_kernel(Args a) {
     const long N = a.N;
     const long n = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -252,8 +260,19 @@ __global__ void __launch_bounds__(128) substep_kernel(Args a) {
     }
     const float fric = a.friction[n], rest = a.restitution[n];
     const float wox = a.worigin[n], woy = a.worigin[N + n];
-    const long r0 = a.starts[2 * n], blk = a.starts[2 * n + 1];
-    const float* raw = a.blocks + blk * (long)a.Rp * PC;   // table 0
+    // the foot cells: window row i, column j at win + i * rs + j * cs
+    const float* win;
+    long long rs, cs;
+    if constexpr (WINDOW) {
+        win = a.window + n * a.wsN;
+        rs = a.wsR;
+        cs = a.wsC;
+    } else {
+        const long r0 = a.starts[2 * n], blk = a.starts[2 * n + 1];
+        win = a.blocks + (blk * (long)a.Rp + r0 + WIN_R0) * PC;   // table 0
+        rs = PC;
+        cs = 1;
+    }
     float band_r[NF], band_c[NF];
 
     float R[NB][9], X[NB][3], V[NB][6], fext[NB][6];
@@ -326,9 +345,9 @@ __global__ void __launch_bounds__(128) substep_kernel(Args a) {
                 const float lfc = clampf(fc - band_c[p], 0.0f, 14.999f);
                 const float i0 = floorf(lfr), j0 = floorf(lfc);
                 const float tx = lfr - i0, ty = lfc - j0;
-                const float* cp = raw + (r0 + WIN_R0 + (long)(band_r[p] + i0)) * PC
-                                + (long)(band_c[p] + j0);
-                const float c00 = cp[0], c01 = cp[1], c10 = cp[PC], c11 = cp[PC + 1];
+                const float* cp = win + (long long)(band_r[p] + i0) * rs
+                                + (long long)(band_c[p] + j0) * cs;
+                const float c00 = cp[0], c01 = cp[cs], c10 = cp[rs], c11 = cp[rs + cs];
                 h = c00 * (1.0f - tx) * (1.0f - ty) + c10 * tx * (1.0f - ty)
                   + c01 * (1.0f - tx) * ty + c11 * tx * ty;
                 dhdx = clampf(((c10 - c00) * (1.0f - ty) + (c11 - c01) * ty) * c[S_INV_HS],
@@ -559,24 +578,20 @@ __global__ void __launch_bounds__(128) substep_kernel(Args a) {
     }
 }
 
-}  // namespace
-
-DTC_EXPORT int dtc_decimation_step(
+// The arguments common to both variants; the terrain source is set by
+// the entry point.
+Args make_args(
         const void* q, const void* qd, const void* pos, const void* quat,
         const void* lin, const void* ang, const void* anchors,
         const void* inertias, const void* goals, const void* kp,
         const void* kd, const void* strength, const void* offset,
-        const void* friction, const void* restitution, const void* blocks,
-        const void* starts, const void* worigin, const void* planes,
-        const void* consts,
+        const void* friction, const void* restitution, const void* worigin,
+        const void* planes, const void* consts,
         void* q_o, void* qd_o, void* pos_o, void* quat_o, void* lin_o,
         void* ang_o, void* anchors_o, void* report_o, void* footpos_o,
         void* footvel_o, void* thigh_o, void* tau_o, void* bodypts_o,
-        int N, int P, int nrb, int decimation, int B, int Rp, int threads,
-        void* stream) {
-    if (P > MAXP || nrb > MAXRB || P < NF || threads > 128)
-        return (int)cudaErrorInvalidValue;
-    Args a;
+        int N, int P, int nrb, int decimation) {
+    Args a = {};
     a.q = (const float*)q; a.qd = (const float*)qd; a.pos = (const float*)pos;
     a.quat = (const float*)quat; a.lin = (const float*)lin;
     a.ang = (const float*)ang; a.anchors = (const float*)anchors;
@@ -585,7 +600,6 @@ DTC_EXPORT int dtc_decimation_step(
     a.strength = (const float*)strength; a.offset = (const float*)offset;
     a.friction = (const float*)friction;
     a.restitution = (const float*)restitution;
-    a.blocks = (const float*)blocks; a.starts = (const int*)starts;
     a.worigin = (const float*)worigin; a.planes = (const float*)planes;
     a.consts = (const float*)consts;
     a.q_o = (float*)q_o; a.qd_o = (float*)qd_o; a.pos_o = (float*)pos_o;
@@ -595,10 +609,61 @@ DTC_EXPORT int dtc_decimation_step(
     a.footvel_o = (float*)footvel_o; a.thigh_o = (float*)thigh_o;
     a.tau_o = (float*)tau_o; a.bodypts_o = (float*)bodypts_o;
     a.N = N; a.P = P; a.nrb = nrb; a.decimation = decimation;
-    a.B = B; a.Rp = Rp;
-    if (N > 0) {
-        const int grid = (N + threads - 1) / threads;
-        substep_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(a);
+    return a;
+}
+
+template <bool WINDOW>
+int run(const Args& a, int threads, void* stream) {
+    if (a.P > MAXP || a.nrb > MAXRB || a.P < NF || threads > 128)
+        return (int)cudaErrorInvalidValue;
+    if (a.N > 0) {
+        const int grid = (a.N + threads - 1) / threads;
+        substep_kernel<WINDOW><<<grid, threads, 0, (cudaStream_t)stream>>>(a);
     }
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define DTC_STEP_PARAMS                                                       \
+        const void* q, const void* qd, const void* pos, const void* quat,    \
+        const void* lin, const void* ang, const void* anchors,               \
+        const void* inertias, const void* goals, const void* kp,             \
+        const void* kd, const void* strength, const void* offset,            \
+        const void* friction, const void* restitution
+#define DTC_STEP_OUTS                                                         \
+        void* q_o, void* qd_o, void* pos_o, void* quat_o, void* lin_o,       \
+        void* ang_o, void* anchors_o, void* report_o, void* footpos_o,       \
+        void* footvel_o, void* thigh_o, void* tau_o, void* bodypts_o
+#define DTC_STEP_ARGS(worigin, planes, consts)                               \
+        make_args(q, qd, pos, quat, lin, ang, anchors, inertias, goals, kp,  \
+                  kd, strength, offset, friction, restitution, worigin,      \
+                  planes, consts, q_o, qd_o, pos_o, quat_o, lin_o, ang_o,    \
+                  anchors_o, report_o, footpos_o, footvel_o, thigh_o, tau_o, \
+                  bodypts_o, N, P, nrb, decimation)
+
+// The fused variant: the feet's cells from the blocked tables (T, B, Rp,
+// 128) at each env's start (N, 2) int32.
+DTC_EXPORT int dtc_decimation_step(
+        DTC_STEP_PARAMS, const void* blocks, const void* starts,
+        const void* worigin, const void* planes, const void* consts,
+        DTC_STEP_OUTS, int N, int P, int nrb, int decimation, int B, int Rp,
+        int threads, void* stream) {
+    Args a = DTC_STEP_ARGS(worigin, planes, consts);
+    a.blocks = (const float*)blocks; a.starts = (const int*)starts;
+    a.B = B; a.Rp = Rp;
+    return run<false>(a, threads, stream);
+}
+
+// The window variant: the feet's cells from a (N, 40, 128) float32 window
+// with element strides (sN, sR, sC).
+DTC_EXPORT int dtc_decimation_step_window(
+        DTC_STEP_PARAMS, const void* window, int sN, int sR, int sC,
+        const void* worigin, const void* planes,
+        const void* consts, DTC_STEP_OUTS, int N, int P, int nrb,
+        int decimation, int threads, void* stream) {
+    Args a = DTC_STEP_ARGS(worigin, planes, consts);
+    a.window = (const float*)window;
+    a.wsN = sN; a.wsR = sR; a.wsC = sC;
+    return run<true>(a, threads, stream);
 }

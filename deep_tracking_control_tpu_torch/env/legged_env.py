@@ -1,13 +1,31 @@
 """LeggedEnv — the vectorized quadruped environment on torch tensors.
 
-Counterpart of the JAX package's env/legged_env.py along its kernel path
-(LeggedRobot.step + LeggedRobotDTC.post_physics_step, legged_robot.py:
-55-1622 and legged_robot_dtc.py:29-586): `step(params, state, actions,
-generator)` over one state dict, masked resets with `torch.where`, the
-physics decimation step, the fused terrain sampler, the foothold
-planner, the reward stack and the observation tail.  On the card those
-five run as CUDA kernels, and the reset's uniform draws come from the
-noise kernel; on the CPU their plain versions run.
+Counterpart of the JAX package's env/legged_env.py (LeggedRobot.step +
+LeggedRobotDTC.post_physics_step, legged_robot.py:55-1622 and
+legged_robot_dtc.py:29-586): `step(params, state, actions, generator)`
+over one state dict, masked resets with `torch.where`, the physics
+decimation step, the fused terrain sampler, the foothold planner, the
+reward stack and the observation tail.  On the card those five run as
+CUDA kernels, and the reset's uniform draws come from the noise kernel;
+on the CPU their plain versions run.
+
+The route through a step is the JAX package's, chosen by the same
+switches read at the same points (utils/flags.py):
+  * default: the decimation kernel reading its contact window from the
+    blocked table (K1), the fused sampler (K2), the fused planner (K3);
+  * DTC_FUSED_WINDOW=0: the window copy (K5), then the decimation
+    kernel's window variant (K1w);
+  * DTC_PALLAS_SAMPLER=0: the 3-table patch copy (K4), K1w on its raw
+    rows, and the plain samplers on the patches (heights, clearance, the
+    next step's body planes);
+  * DTC_PALLAS_PHYSICS=0 (read at init) or DTC_STRICT_PARITY=1: K4 and the
+    plain decimation loop over physics/sim.py `sim_step`, where every
+    contact point samples the terrain at every substep (the reference's
+    semantics; the kernel freezes body-point planes for a step), the
+    plain samplers, and the body planes left as they are;
+  * DTC_PALLAS_PLANNER=0, physics off, or strict parity: the plain
+    planner.
+The reward, obs and noise kernels (K6-K8) run on every route.
 
 Layout as in the JAX package: the physics core is env-trailing (k, N);
 everything obs/reward-facing is env-leading (N, D).
@@ -40,6 +58,7 @@ from ..terrain import cuda_sampler
 from ..terrain import patch as tpatch
 from ..terrain.generator import DESCENT_FAMILIES, Terrain, column_families
 from ..terrain.grid import TerrainGrid
+from ..utils.flags import kernel_flag
 from . import cuda_obs, cuda_planner, cuda_rewards, planner
 from . import rewards as rew_mod
 from .config import TaskCfg
@@ -199,10 +218,14 @@ class LeggedEnv:
             penalised_idx=t(self.penalised_idx, torch.long),
             termination_idx=t(self.termination_idx, torch.long),
             hip_dof_idx=t(self.hip_dof_idx, torch.long),
+            thigh_dyn_idx=t(self.thigh_dyn_idx, torch.long),
             win_offset=t([cuda_substep.WIN_R0, cuda_substep.WIN_C0]))
         self._consts = torch.as_tensor(cuda_substep.pack_constants(
             m, self.geom, cfg.sim, self.thigh_dyn_idx,
             cfg.terrain.horizontal_scale), device=dev)
+        # the decimation kernel, or the plain decimation loop over
+        # sim_step: DTC_PALLAS_PHYSICS=0 or DTC_STRICT_PARITY=1
+        self._kernel_physics = kernel_flag("DTC_PALLAS_PHYSICS", "1")
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -372,7 +395,19 @@ class LeggedEnv:
         src = params["terrain"]
         hs = src.horizontal_scale
 
+        use_kernel = self._kernel_physics
+        use_sampler = use_kernel and kernel_flag("DTC_PALLAS_SAMPLER", "1")
+
+        # per-env terrain starts; the 3-table patches are materialized
+        # only off the sampler route, the contact window only on
+        # DTC_FUSED_WINDOW=0 (legged_env.py:393-436 of the JAX package)
         starts, patch_origin = tpatch.patch_starts(src, phys["pos"].T[:, :2])
+        patches = window = None
+        if not use_sampler:
+            patches = tpatch.extract(src, starts)           # (3,N,64,128)
+        elif not kernel_flag("DTC_FUSED_WINDOW", "1"):
+            window = tpatch.extract_window(src, starts, cuda_substep.WIN_R0,
+                                           cuda_substep.WIN_R)
         actions_scaled = actions * cfg.control.action_scale
         # action-lag indices: one randint(1,5) shared across envs per sim
         # step (legged_robot.py:608-614)
@@ -380,28 +415,76 @@ class LeggedEnv:
             1, 5, (cfg.control.decimation,), generator=gen, device=dev))
         choices = choices.to(device=dev, dtype=torch.long)
         # PD goals per substep: the lag-buffer roll does not depend on q,
-        # so all `decimation` targets are computed before the kernel
+        # so all `decimation` targets are computed up front
         goals = []
         for s in range(cfg.control.decimation):
             lag = torch.cat([lag[:, 1:], actions_scaled[:, None, :]], dim=1)
             g = lag.index_select(1, choices[s:s + 1])[:, 0] + T["default_q"]
             g = torch.maximum(torch.minimum(g, T["pos_hi"]), T["pos_lo"])
             goals.append(g.T)
+        if not use_kernel:
+            return self._plain_physics_step(params, state, actions, lag,
+                                            goals, patches, patch_origin,
+                                            gen, draws)
         goals = torch.stack(goals).contiguous()
         kp_eff = (T["p_gains"] * state["kp_factors"]).T.contiguous()
         kd_eff = (T["d_gains"] * state["kd_factors"]).T.contiguous()
         worigin = (patch_origin + hs * T["win_offset"]).T.contiguous()
+        if patches is not None:
+            window = patches[0][:, cuda_substep.WIN_R0:
+                                cuda_substep.WIN_R0 + cuda_substep.WIN_R]
+        fused = window is None
         phys, anchors, kinfo = cuda_substep.decimation_step(
             m, self.geom, cfg.sim, cfg.control.decimation, self.thigh_dyn_idx,
             params["inertias"], phys, state["anchors"].contiguous(), goals,
             kp_eff, kd_eff, state["motor_strengths"].T.contiguous(),
             state["motor_offsets"].T.contiguous(), params["friction"],
             params["restitution"], worigin, state["planes"].contiguous(), hs,
-            src.blocks, starts, consts=self._consts)
+            src.blocks if fused else None, starts if fused else None,
+            consts=self._consts, window=window)
         state = {**state, "phys": phys, "anchors": anchors, "lag_buffer": lag,
                  "actions": actions, "torques": kinfo["torques"].T,
                  "body_pts": kinfo["body_pts"]}
-        info = dict(kinfo, patch_origin=patch_origin, starts=starts)
+        info = dict(kinfo, patch_origin=patch_origin, starts=starts,
+                    patches=patches, use_kernel=True, use_sampler=use_sampler)
+        return self._post_physics_step(params, state, info, gen, draws)
+
+    def _plain_physics_step(self, params, state, actions, lag, goals,
+                            patches, patch_origin, gen, draws):
+        """The JAX package's XLA decimation loop (legged_env.py:496-529):
+        per sim step the PD torque (motor strength and offset, clipped at
+        the torque limit) and `sim_step`, every contact point sampling the
+        raw patch; the env reads the last sim step's outputs."""
+        cfg = self.cfg
+        T = self._t
+        hs = params["terrain"].horizontal_scale
+
+        def terrain_fn(x, y):
+            # physics layout (K, N) -> sampler layout (N, K), and back
+            h, dx, dy, hmx = tpatch.sample_bilinear_slope(
+                patches[0], patch_origin, hs, x.T, y.T)
+            return h.T, dx.T, dy.T, hmx.T
+
+        phys, anchors = state["phys"], state["anchors"]
+        kp = T["p_gains"] * state["kp_factors"]
+        kd = T["d_gains"] * state["kd_factors"]
+        tl = T["torque_limits"]
+        for goal in goals:
+            q_t, qd_t = phys["q"].T, phys["qd"].T
+            tau = kp * (goal.T - q_t + state["motor_offsets"]) - kd * qd_t
+            tau = tau * state["motor_strengths"]
+            tau = torch.minimum(torch.maximum(tau, -tl), tl)
+            phys, anchors, sinfo = psim.sim_step(
+                self.model, self.geom, cfg.sim, params["inertias"], phys,
+                anchors, tau.T, terrain_fn, params["friction"],
+                params["restitution"])
+        info = dict(contact_forces=sinfo["contact_forces"],
+                    foot_pos=sinfo["foot_pos"], foot_vel=sinfo["foot_vel"],
+                    thigh_pos=sinfo["kin"]["x"][T["thigh_dyn_idx"]],
+                    patches=patches, patch_origin=patch_origin,
+                    use_kernel=False, use_sampler=False)
+        state = {**state, "phys": phys, "anchors": anchors, "lag_buffer": lag,
+                 "actions": actions, "torques": tau}
         return self._post_physics_step(params, state, info, gen, draws)
 
     # ------------------------------------------------------------------
@@ -451,8 +534,8 @@ class LeggedEnv:
         cmd_buffer = torch.cat([state["cmd_buffer"][:, 1:], commands[:, None, :]],
                                dim=1)
 
-        # every terrain query of the step in one fused sampler call: the
-        # min3 height scan, max10 foot clearance, next-step body planes
+        # the terrain queries of the step: the min3 height scan, the max10
+        # foot clearance and the next step's body planes
         hp = T["height_points"]
         cy, sy = qm.yaw_rot2d(base_quat)
         scan = (cy[:, None] * hp[None, :, 0] - sy[:, None] * hp[None, :, 1]
@@ -461,24 +544,43 @@ class LeggedEnv:
                 + base_pos[:, 1:2])
         bp = state["body_pts"]                                   # (Pb,3,N)
         nb, nf, nh = bp.shape[0], foot_positions.shape[1], self.num_height_points
+        hs = params["terrain"].horizontal_scale
+        if info["use_sampler"]:
+            # every query of the step in one fused sampler call
+            def packq(c):
+                fill = base_pos[:, c:c + 1]
+                return torch.cat([
+                    scan[c], fill.expand(N, cuda_sampler.Q_MIN3 - nh),
+                    foot_positions[..., c],
+                    fill.expand(N, cuda_sampler.Q_MAX10 - nf),
+                    bp[:, c].T, fill.expand(N, cuda_sampler.Q_BIL - nb)], dim=1)
 
-        def packq(c):
-            fill = base_pos[:, c:c + 1]
-            return torch.cat([
-                scan[c], fill.expand(N, cuda_sampler.Q_MIN3 - nh),
-                foot_positions[..., c],
-                fill.expand(N, cuda_sampler.Q_MAX10 - nf),
-                bp[:, c].T, fill.expand(N, cuda_sampler.Q_BIL - nb)], dim=1)
-
-        h_all, gxs, gys = cuda_sampler.sample_all(
-            params["terrain"], info["starts"], info["patch_origin"],
-            packq(0), packq(1))
-        measured_heights = h_all[:, :nh]
-        h10 = h_all[:, cuda_sampler.Q_MIN3:cuda_sampler.Q_MIN3 + nf]
-        off = cuda_sampler.Q_MIN3 + cuda_sampler.Q_MAX10
-        planes_next = torch.stack(
-            [h_all[:, off:off + nb].T, gxs[:, :nb].T, gys[:, :nb].T,
-             bp[:, 0], bp[:, 1]], dim=1)                         # (Pb,5,N)
+            h_all, gxs, gys = cuda_sampler.sample_all(
+                params["terrain"], info["starts"], info["patch_origin"],
+                packq(0), packq(1))
+            measured_heights = h_all[:, :nh]
+            h10 = h_all[:, cuda_sampler.Q_MIN3:cuda_sampler.Q_MIN3 + nf]
+            off = cuda_sampler.Q_MIN3 + cuda_sampler.Q_MAX10
+            planes_next = torch.stack(
+                [h_all[:, off:off + nb].T, gxs[:, :nb].T, gys[:, :nb].T,
+                 bp[:, 0], bp[:, 1]], dim=1)                     # (Pb,5,N)
+        else:
+            # the plain samplers on the materialized patches
+            # (legged_env.py:626-650, 666-675 of the JAX package)
+            patches, origin = info["patches"], info["patch_origin"]
+            measured_heights = tpatch.sample_nearest(patches[1], origin, hs,
+                                                     scan[0], scan[1])
+            h10 = tpatch.sample_nearest(patches[2], origin, hs,
+                                        foot_positions[..., 0],
+                                        foot_positions[..., 1])
+            planes_next = None
+            if info["use_kernel"]:
+                # the kernel's next-step body planes; the plain loop
+                # samples every point each substep and keeps none
+                h0, gx0, gy0, _ = tpatch.sample_bilinear_slope(
+                    patches[0], origin, hs, bp[:, 0].T, bp[:, 1].T)
+                planes_next = torch.stack(
+                    [h0.T, gx0.T, gy0.T, bp[:, 0], bp[:, 1]], dim=1)
 
         # random pushes (legged_robot.py:546-556, 673-678)
         push_force = state["push_force"]
@@ -511,11 +613,14 @@ class LeggedEnv:
         contact_filt = feet_contact | state["last_contacts"]
         last_contacts = feet_contact
 
-        # DTC foothold planner (dtc.py:100-204); debug viz needs the score
-        # tensor, which only the plain planner returns
+        # DTC foothold planner (dtc.py:100-204): the fused planner on the
+        # kernel route; debug viz needs the score tensor, which only the
+        # plain planner returns
         hips = info["thigh_pos"].permute(2, 0, 1)
-        plan_fn = (planner.plan_footholds if cfg.env.debug_viz
-                   else cuda_planner.plan_footholds_fused)
+        use_planner_kernel = (info["use_kernel"] and not cfg.env.debug_viz
+                              and kernel_flag("DTC_PALLAS_PLANNER", "1"))
+        plan_fn = (cuda_planner.plan_footholds_fused if use_planner_kernel
+                   else planner.plan_footholds)
         plan = plan_fn(cfg, base_pos, base_quat, base_lin_vel, commands, hips,
                        measured_heights, self.height_points,
                        cfg.terrain.measured_points_x,
@@ -622,7 +727,8 @@ class LeggedEnv:
                      "rew_buf": rew_buf,
                      "foothold_obs": foothold_obs,
                      "optimal_footholds_world": optimal_footholds_world,
-                     "planes": planes_next}
+                     "planes": (state["planes"] if planes_next is None
+                                else planes_next)}
         metrics = self._reset_metrics(mid_state, reset_buf)
         # per-cause termination tally (causes overlap)
         metrics["term_contact"] = term_contact.float().sum()

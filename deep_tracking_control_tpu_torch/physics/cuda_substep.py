@@ -22,9 +22,20 @@ On the H100 the kernel is bound by latency and local memory: one thread
 runs one env's whole serial program (13-body recursions, data-dependent
 terrain reads), and the ABA's articulated 6x6 inertias do not fit in
 registers.  The design runs one thread per env, 128 threads per block,
-reads the env-trailing (k, N) arrays coalesced as they are, reads its
-feet's terrain cells straight from the blocked table (no window copy),
-and takes every per-robot constant from one packed float32 table.
+reads the env-trailing (k, N) arrays coalesced as they are, and takes
+every per-robot constant from one packed float32 table.
+
+Two variants, as in the JAX package, one kernel template in csrc:
+  * fused (`blocks` + `starts`; `_substep_kernel_fused`, the Pallas call
+    at pallas_substep.py:755): each foot reads its cells straight from the
+    blocked raw table, no window copy;
+  * window (`window`; `_substep_kernel`, the Pallas call at :771): the
+    feet read a materialized (N, 40, 128) contact window through its
+    strides, so that a view of the patch copy (`patches[0][:, 16:56]`) and
+    the window copy (ops/cuda_patch.py) go in without a copy.  The window
+    holds the rows the fused variant reads, so the two agree bit for bit.
+The window variant counts its launches apart, on
+`decimation_step.window_launches`.
 """
 from __future__ import annotations
 
@@ -92,21 +103,22 @@ def pack_constants(model: RobotModel, geom: ContactGeometry, sim: SimParams,
     return c.astype(np.float32)
 
 
-def _band_bilinear(raw, starts, fr, fc, band_r, band_c, hs):
+def _band_bilinear(window_cells, fr, fc, band_r, band_c, hs):
     """Bilinear height + slope + max corner of each foot from its band
     (pallas_substep.py:150-187).  fr/fc (nf,N) window cell coords; band_r/
-    band_c (nf,N) the band's first window row/col (multiples of 8)."""
+    band_c (nf,N) the band's first window row/col (multiples of 8);
+    window_cells(rows, cols) the (N, nf) values at (N, nf) window cells."""
     lfr = torch.clamp(fr - band_r, 0.0, _BAND_MAX)
     lfc = torch.clamp(fc - band_c, 0.0, _BAND_MAX)
     i0 = torch.floor(lfr)
     j0 = torch.floor(lfc)
     tx = lfr - i0
     ty = lfc - j0
-    rows = (WIN_R0 + band_r + i0).long().T          # (N, nf) patch rows
-    cols = (WIN_C0 + band_c + j0).long().T
+    rows = (band_r + i0).long().T                   # (N, nf) window rows
+    cols = (band_c + j0).long().T
 
     def cell(di, dj):
-        return gather_cells(raw, starts, rows + di, cols + dj).T
+        return window_cells(rows + di, cols + dj).T
     c00, c10, c01, c11 = cell(0, 0), cell(1, 0), cell(0, 1), cell(1, 1)
     hgt = (c00 * (1.0 - tx) * (1.0 - ty) + c10 * tx * (1.0 - ty)
            + c01 * (1.0 - tx) * ty + c11 * tx * ty)
@@ -141,7 +153,8 @@ def decimation_step_plain(model: RobotModel, geom: ContactGeometry,
                           sim: SimParams, decimation: int, thigh_dyn_idx,
                           inertias, phys, anchors, goals, kp_eff, kd_eff,
                           strengths, offsets, friction, restitution,
-                          win_origin, planes, hs, blocks, starts):
+                          win_origin, planes, hs, blocks=None, starts=None,
+                          window=None):
     """Plain PyTorch version of the kernel (same arguments and results as
     `decimation_step`)."""
     layout = quadruped.quad_layout(model)
@@ -156,7 +169,16 @@ def decimation_step_plain(model: RobotModel, geom: ContactGeometry,
     tau_lim, vel_lim = col(0.8 * model.effort_limit), col(model.vel_limit)
     radius = torch.as_tensor(geom.radius, dtype=f32, device=dev)
     eff_mass = torch.as_tensor(geom.eff_mass, dtype=f32, device=dev)
-    raw = blocks[0]
+    if window is None:
+        raw = blocks[0]
+
+        def window_cells(rows, cols):
+            return gather_cells(raw, starts, WIN_R0 + rows, WIN_C0 + cols)
+    else:
+        envs = torch.arange(window.shape[0], device=dev)[:, None]
+
+        def window_cells(rows, cols):
+            return window[envs, rows, cols]
 
     q, qd = phys["q"], phys["qd"]
     pos, quat = phys["pos"], phys["quat"]
@@ -183,7 +205,7 @@ def decimation_step_plain(model: RobotModel, geom: ContactGeometry,
                                  (WIN_R - BAND) // 8) * 8.0
             band_c = torch.clamp(torch.floor((fc - 2.0) / 8.0), 0,
                                  (WIN_C - BAND) // 8) * 8.0
-        hf, gxf, gyf, hmf = _band_bilinear(raw, starts, fr, fc, band_r,
+        hf, gxf, gyf, hmf = _band_bilinear(window_cells, fr, fc, band_r,
                                            band_c, hs)
         # body points: the frozen planes (h0, gx, gy, x0, y0)
         xb, yb = pts_pos[nf:, 0], pts_pos[nf:, 1]
@@ -236,8 +258,8 @@ def decimation_step_plain(model: RobotModel, geom: ContactGeometry,
 def decimation_step(model: RobotModel, geom: ContactGeometry, sim: SimParams,
                     decimation: int, thigh_dyn_idx, inertias, phys, anchors,
                     goals, kp_eff, kd_eff, strengths, offsets, friction,
-                    restitution, win_origin, planes, hs, blocks, starts,
-                    consts=None):
+                    restitution, win_origin, planes, hs, blocks=None,
+                    starts=None, consts=None, window=None):
     """Run `decimation` physics substeps in one launch.
 
     All array args are env-LAST:
@@ -248,16 +270,20 @@ def decimation_step(model: RobotModel, geom: ContactGeometry, sim: SimParams,
       win_origin (2, N) world xy of contact-window cell (0,0)
       planes (P-nf, 5, N) frozen local planes for body points
       blocks (T, B, R_pad, 128) the blocked terrain tables (raw = [0]) and
-      starts (N, 2) int32 (terrain/patch.py patch_starts)
+      starts (N, 2) int32 (terrain/patch.py patch_starts): the fused
+      variant; OR window (N, 40, 128) float32 raw-table rows [r0+16,
+      r0+56) of each env's column block, any strides: the window variant
       consts: the packed constant table on the card (pack_constants);
       built when None
     Returns (phys', anchors', info) with info = contact_forces (nrb,3,N),
     foot_pos / foot_vel (nf,3,N), thigh_pos (4,3,N), torques (nq,N) and
     body_pts (P-nf,3,N), all of the last substep.  CPU tensors take the
     plain version; CUDA tensors launch the kernel."""
+    if (window is None) == (blocks is None or starts is None):
+        raise ValueError("give either blocks and starts, or window")
     args = (model, geom, sim, decimation, thigh_dyn_idx, inertias, phys,
             anchors, goals, kp_eff, kd_eff, strengths, offsets, friction,
-            restitution, win_origin, planes, hs, blocks, starts)
+            restitution, win_origin, planes, hs, blocks, starts, window)
     dev = phys["pos"].device
     if dev.type == "cpu":
         return decimation_step_plain(*args)
@@ -277,7 +303,6 @@ def decimation_step(model: RobotModel, geom: ContactGeometry, sim: SimParams,
         consts = torch.as_tensor(pack_constants(model, geom, sim,
                                                 thigh_dyn_idx, hs),
                                  device=dev)
-    T, B, Rp, C = blocks.shape
     f32 = torch.float32
     chk = cuda_build.check
     for k in ("q", "qd"):
@@ -296,8 +321,21 @@ def decimation_step(model: RobotModel, geom: ContactGeometry, sim: SimParams,
     chk(restitution, "restitution", (N,), f32, dev)
     chk(win_origin, "win_origin", (2, N), f32, dev)
     chk(planes, "planes", (P - nf, 5, N), f32, dev)
-    chk(blocks, "blocks", (T, B, Rp, WIN_C), f32, dev)
-    chk(starts, "starts", (N, 2), torch.int32, dev)
+    if window is None:
+        T, B, Rp, _ = blocks.shape
+        chk(blocks, "blocks", (T, B, Rp, WIN_C), f32, dev)
+        chk(starts, "starts", (N, 2), torch.int32, dev)
+        terrain = ("dtc_decimation_step", cuda_build.ptr(blocks),
+                   cuda_build.ptr(starts))
+        tail = (B, Rp)
+    else:
+        wv = cuda_build.view(window, "window", (N, WIN_R, WIN_C), f32, dev)
+        if tuple(window.shape) != (N, WIN_R, WIN_C):
+            raise ValueError(f"window: shape {tuple(window.shape)}, expected "
+                             f"{(N, WIN_R, WIN_C)}")
+        terrain = ("dtc_decimation_step_window", cuda_build.Ptr(wv[0]),
+                   *wv[1:])
+        tail = ()
     chk(consts, "consts", (C_PTS + 7 * P,), f32, dev)
 
     def out(*shape):
@@ -308,17 +346,20 @@ def decimation_step(model: RobotModel, geom: ContactGeometry, sim: SimParams,
              tau=out(nq), body_pts=out(P - nf, 3))
     p = cuda_build.ptr
     cuda_build.launch(
-        "dtc_decimation_step",
+        terrain[0],
         p(phys["q"]), p(phys["qd"]), p(phys["pos"]), p(phys["quat"]),
         p(phys["lin_vel"]), p(phys["ang_vel"]), p(anchors), p(inertias),
         p(goals), p(kp_eff), p(kd_eff), p(strengths), p(offsets),
-        p(friction), p(restitution), p(blocks), p(starts), p(win_origin),
+        p(friction), p(restitution), *terrain[1:], p(win_origin),
         p(planes), p(consts),
         p(o["q"]), p(o["qd"]), p(o["pos"]), p(o["quat"]), p(o["lin_vel"]),
         p(o["ang_vel"]), p(o["anchors"]), p(o["report"]), p(o["foot_pos"]),
         p(o["foot_vel"]), p(o["thigh"]), p(o["tau"]), p(o["body_pts"]),
-        N, P, nrb, decimation, B, Rp, THREADS, cuda_build.stream_ptr(dev))
-    _counter.launches += 1
+        N, P, nrb, decimation, *tail, THREADS, cuda_build.stream_ptr(dev))
+    if window is None:
+        _counter.launches += 1
+    else:
+        _counter.window_launches += 1
     phys_n = {k: o[k] for k in ("pos", "quat", "lin_vel", "ang_vel", "q", "qd")}
     info = dict(contact_forces=o["report"], foot_pos=o["foot_pos"],
                 foot_vel=o["foot_vel"], thigh_pos=o["thigh"],
@@ -326,7 +367,9 @@ def decimation_step(model: RobotModel, geom: ContactGeometry, sim: SimParams,
     return phys_n, o["anchors"], info
 
 
-# the launch count: a plain integer on the public wrapper, counted through
-# this fixed reference (a caller may wrap the module attribute)
+# the launch counts, fused and window variant: plain integers on the public
+# wrapper, counted through this fixed reference (a caller may wrap the
+# module attribute)
 decimation_step.launches = 0
+decimation_step.window_launches = 0
 _counter = decimation_step

@@ -2,10 +2,11 @@
 
 Counterpart of the JAX package's physics/engine.py for the quadruped
 path: per-env spatial inertias with domain randomization, the world state
-of contact points, the anchored penalty contact and the per-body force
-sums.  The semi-implicit integration lives in the decimation step
-(physics/cuda_substep.py), in the association of the TPU kernel.
-Layout: component axes lead, the env batch axis trails (ops/spatial.py).
+of contact points, the anchored penalty contact, the per-body force sums
+and the semi-implicit integration of the plain decimation loop
+(`integrate`, for physics/sim.py sim_step; the decimation step,
+physics/cuda_substep.py, integrates in the association of the TPU
+kernel).  Layout: component axes lead, the env batch axis trails (ops/spatial.py).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from ..env.config import SimParams  # noqa: F401  (re-exported)
+from ..ops import quat as qm
 from ..ops import spatial as sp
 from ..robot.model import RobotModel
 
@@ -154,3 +156,30 @@ def accumulate_body_forces(nb, point_dyn_idx: np.ndarray, kin,
             acc = acc + torch.cat([sp.cross3(arm, f), f])
         out.append(acc)
     return torch.stack(out)
+
+
+def integrate(model: RobotModel, state: dict, kin, qdd, a0, sim: SimParams,
+              dt):
+    """Semi-implicit Euler step (the JAX package's engine.integrate): base
+    twist from the apparent acceleration plus gravity, velocity clamps,
+    joint rates clipped at the velocity limits, exponential-map
+    orientation update."""
+    R0 = kin["R"][0]
+    pos = state["pos"]
+    zero = torch.zeros_like(pos[0])
+    g_b = sp.rtmul(R0, torch.stack([zero, zero,
+                                    torch.full_like(zero, sim.gravity)]))
+    a0_true = a0 + torch.cat([torch.zeros_like(g_b), g_b])
+    v0 = kin["v"][0] + dt * a0_true
+    w_w = torch.clamp(sp.rmul(R0, v0[:3]), -50.0, 50.0)
+    v_w = torch.clamp(sp.rmul(R0, v0[3:]), -100.0, 100.0)
+
+    qd = state["qd"] + dt * qdd
+    vel_lim = torch.as_tensor(np.asarray(model.vel_limit), dtype=torch.float32,
+                              device=qd.device)[:, None]
+    qd = torch.maximum(torch.minimum(qd, vel_lim), -vel_lim)
+    q = state["q"] + dt * qd
+    pos = pos + dt * v_w
+    quat_n = qm.quat_integrate(state["quat"].movedim(0, -1),
+                               w_w.movedim(0, -1), dt)
+    return make_state(pos, quat_n.movedim(-1, 0), v_w, w_w, q, qd)

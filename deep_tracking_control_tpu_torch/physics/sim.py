@@ -1,9 +1,13 @@
-"""Contact geometry of a robot and its stiction anchors.
+"""Contact geometry of a robot, its stiction anchors, and one plain
+physics step.
 
 Counterpart of the JAX package's physics/sim.py (ContactGeometry,
-default_contact_geometry, init_anchors).  Its XLA decimation path,
-sim_step, has no counterpart here: the rollout steps physics through the
-decimation kernel (physics/cuda_substep.py).
+default_contact_geometry, init_anchors, sim_step).  `sim_step` is the
+physics of the reference route (DTC_PALLAS_PHYSICS=0 or
+DTC_STRICT_PARITY=1): every contact point, body points included, samples
+the terrain at every substep.  It is plain PyTorch on every device, as the
+JAX package's XLA route has no Pallas kernel.  The default route steps
+physics through the decimation kernel (physics/cuda_substep.py).
 """
 from __future__ import annotations
 
@@ -13,6 +17,8 @@ import numpy as np
 import torch
 
 from ..robot.model import RobotModel
+from . import engine, quadruped
+from .engine import SimParams
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,3 +86,69 @@ def init_anchors(geom: ContactGeometry, num_envs: int, device="cuda"):
     """Fresh stiction anchors (reset together with the physics state)."""
     return torch.zeros((len(geom.dyn_idx), 2, num_envs), dtype=torch.float32,
                        device=device)
+
+
+def sim_step(model: RobotModel, geom: ContactGeometry, sim: SimParams,
+             inertias, state: dict, anchors, tau, terrain_fn, friction,
+             restitution):
+    """Advance physics by sim.dt in sim.substeps substeps (the JAX
+    package's sim.sim_step).
+
+    tau (nq,N) joint torques held over the substeps; terrain_fn(x, y) maps
+    (P,N) world coordinates to (height, dh/dx, dh/dy, h_max) (P,N) each.
+    (The JAX package's optional base push force has no caller: pushes set
+    the base velocity.)
+    Returns (new_state, new_anchors, info): contact_forces (num_bodies,3,N)
+    averaged over the substeps, foot_pos / foot_vel (nf,3,N) and the kin of
+    the last substep."""
+    nf = len(model.foot_body_index)
+    dt = sim.dt / sim.substeps
+    dev = state["q"].device
+
+    def col(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=dev)[:, None]
+    lim_lo, lim_hi = col(model.pos_limit[:, 0]), col(model.pos_limit[:, 1])
+    radius = torch.as_tensor(geom.radius, dtype=torch.float32, device=dev)
+    eff_mass = torch.as_tensor(geom.eff_mass, dtype=torch.float32, device=dev)
+    layout = quadruped.quad_layout(model)
+    if layout is None:
+        raise NotImplementedError("sim_step needs the quadruped layout (the "
+                                  "generic FK/ABA is not ported yet)")
+    contact_rep = None
+    for _ in range(sim.substeps):
+        q = state["q"]
+        # joint-limit enforcement (PhysX enforces URDF limits natively)
+        tau_lim = (sim.limit_stiffness * (torch.clamp(lim_lo - q, min=0.0)
+                                          - torch.clamp(q - lim_hi, min=0.0))
+                   - sim.limit_damping * state["qd"]
+                   * ((q < lim_lo) | (q > lim_hi)))
+        kin = quadruped.fk(model, layout, state)
+        pts_pos, pts_vel = engine.body_point_state(kin, geom.dyn_idx,
+                                                   geom.offset)
+        terrain = terrain_fn(pts_pos[:, 0], pts_pos[:, 1])
+        forces, anchors = engine.heightfield_contact(
+            pts_pos, pts_vel, radius, eff_mass, anchors, terrain, friction,
+            restitution, sim, dt)
+        f_ext = engine.accumulate_body_forces(model.nb, geom.dyn_idx, kin,
+                                              pts_pos, forces)
+        qdd, a0 = quadruped.aba(model, layout, inertias, kin, state["qd"],
+                                tau + tau_lim, f_ext, sim)
+        state = engine.integrate(model, state, kin, qdd, a0, sim, dt)
+
+        # reporting-body contact force sums, as static per-body adds
+        zero = torch.zeros_like(forces[0])
+        rep = []
+        for b in range(model.num_bodies):
+            acc = zero
+            for p in range(len(geom.report_idx)):
+                if geom.report_idx[p] == b:
+                    acc = acc + forces[p]
+            rep.append(acc)
+        rep = torch.stack(rep)
+        contact_rep = rep if contact_rep is None else contact_rep + rep
+        foot_pos, foot_vel = pts_pos[:nf], pts_vel[:nf]
+
+    info = dict(contact_forces=contact_rep / sim.substeps, foot_pos=foot_pos,
+                foot_vel=foot_vel, kin=kin)
+    return state, anchors, info

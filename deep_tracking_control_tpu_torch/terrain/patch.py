@@ -15,6 +15,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from ..ops import cuda_patch
 from .grid import TerrainGrid
 
 PATCH_R = 64        # rows per patch
@@ -96,12 +97,19 @@ def patch_starts(src: PatchSource, base_xy):
 
 
 def extract(src: PatchSource, starts):
-    """Patch extraction -> (T, N, PATCH_R, PATCH_C) (tests and tools; the
-    rollout path never materializes patches)."""
-    r = starts[:, 0].long()[:, None] + torch.arange(PATCH_R,
-                                                    device=starts.device)
-    b = starts[:, 1].long()[:, None]
-    return src.blocks[:, b, r]          # (T, N, PATCH_R, PATCH_C)
+    """Patch extraction -> (T, N, PATCH_R, PATCH_C), table-major: the patch
+    copy kernel (ops/cuda_patch.py, K4) on the card, the advanced-index
+    gather on the CPU.  The default route never materializes patches; the
+    sampler-off and physics-off routes do, once a step."""
+    return cuda_patch.extract_patches(src.blocks, starts)
+
+
+def extract_window(src: PatchSource, starts, win_r0: int = 16,
+                   win_r: int = 40):
+    """Physics contact window: raw-table rows [r0+win_r0, r0+win_r0+win_r)
+    -> (N, win_r, PATCH_C): the window copy kernel (ops/cuda_patch.py, K5)
+    on the card, the slice-gather on the CPU."""
+    return cuda_patch.extract_windows(src.blocks, starts, win_r0, win_r)
 
 
 def gather_cells(table, starts, rows, cols):

@@ -1,7 +1,8 @@
 """The torch port's copies of the framework-free modules, and its hygiene.
 
 robot/model.py, robot/quadrupeds.py, terrain/generator.py (Python
-backend), env/config.py, tasks/registry.py and utils/cli.py are copied into
+backend), env/config.py, tasks/registry.py, utils/cli.py and the switch
+reader of utils/flags.py are copied into
 the port (which must not import the JAX package); each copy must stay equal
 to its original.  The port itself imports neither jax, flax, optax, orbax
 nor triton, and its modules are all imported here, the training ones
@@ -24,12 +25,14 @@ from deep_tracking_control_tpu.robot import quadrupeds as jrobots
 from deep_tracking_control_tpu.tasks import registry as jreg
 from deep_tracking_control_tpu.terrain import generator as jgen
 from deep_tracking_control_tpu.utils import cli as jcli
+from deep_tracking_control_tpu.utils import flags as jflags
 from deep_tracking_control_tpu_torch.env import config as tconfig
 from deep_tracking_control_tpu_torch.physics import sim as tsim
 from deep_tracking_control_tpu_torch.robot import quadrupeds as trobots
 from deep_tracking_control_tpu_torch.tasks import registry as treg
 from deep_tracking_control_tpu_torch.terrain import generator as tgen
 from deep_tracking_control_tpu_torch.utils import cli as tcli
+from deep_tracking_control_tpu_torch.utils import flags as tflags
 
 PORT = pathlib.Path(__file__).resolve().parents[1] / "deep_tracking_control_tpu_torch"
 
@@ -119,3 +122,19 @@ def test_port_sources_import_no_jax():
     for path in [*PORT.rglob("*.py"), PORT.parent / "chip_smoke.py"]:
         m = bad.search(path.read_text())
         assert m is None, f"{path.name}: {m.group(0)!r}"
+
+
+@pytest.mark.parametrize("strict", ["0", "1", None])
+@pytest.mark.parametrize("value", [None, "0", "1", "yes"])
+def test_kernel_flag_equal(monkeypatch, strict, value):
+    for name, v in (("DTC_STRICT_PARITY", strict), ("DTC_FUSED_WINDOW", value)):
+        if v is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, v)
+    assert tflags.strict_parity() == jflags.strict_parity()
+    for default in ("0", "1"):
+        assert (tflags.kernel_flag("DTC_FUSED_WINDOW", default)
+                == jflags.kernel_flag("DTC_FUSED_WINDOW", default))
+    assert (inspect.getsource(tflags.kernel_flag)
+            == inspect.getsource(jflags.kernel_flag))

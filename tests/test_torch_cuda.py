@@ -10,7 +10,8 @@ and is held to its plain version with the budgets of chip_smoke.py; the
 gather kernel (a copy) on seeded fields, bit for bit; the reward kernel
 also on random inputs that switch on all 33 terms; the noise kernel bit
 for bit, and the obs kernel against its plain version fed that kernel's
-draws.
+draws; the patch and window copies bit for bit, and the decimation
+kernel's window variant bit for bit against its fused variant.
 """
 import dataclasses
 
@@ -24,7 +25,7 @@ from deep_tracking_control_tpu_torch.env import (cuda_obs, cuda_planner,
                                                  cuda_rewards)
 from deep_tracking_control_tpu_torch.env import rewards as rew_mod
 from deep_tracking_control_tpu_torch.env.legged_env import LeggedEnv
-from deep_tracking_control_tpu_torch.ops import cuda_gather, cuda_rng
+from deep_tracking_control_tpu_torch.ops import cuda_gather, cuda_patch, cuda_rng
 from deep_tracking_control_tpu_torch.physics import cuda_substep
 from deep_tracking_control_tpu_torch.tasks.registry import get_cfgs
 from deep_tracking_control_tpu_torch.terrain import cuda_sampler
@@ -116,6 +117,63 @@ def test_planner_kernel_matches_plain(recorded):
     assert differ.float().mean().item() <= 0.02
     np.testing.assert_array_equal(got[~differ].cpu().numpy(),
                                   want[~differ].cpu().numpy())
+
+
+def _odd_starts(args):
+    """13 of the step's starts (not a multiple of anything), the first
+    clipped at the last table row in the last column block."""
+    blocks, starts = args[18], args[19]
+    s = starts[:13].clone()
+    s[0] = torch.tensor([blocks.shape[2] - 81, blocks.shape[1] - 1])
+    return blocks, s
+
+
+def test_patch_and_window_copies_match_plain(recorded):
+    blocks, starts = _odd_starts(recorded[0]["k1"][0])
+    before = (cuda_patch.extract_patches.launches,
+              cuda_patch.extract_windows.launches)
+    got = cuda_patch.extract_patches(blocks, starts)
+    win = cuda_patch.extract_windows(blocks, starts)
+    torch.cuda.synchronize()
+    assert got.shape == (3, 13, 64, 128) and win.shape == (13, 40, 128)
+    assert torch.equal(got, cuda_patch.extract_patches_plain(blocks, starts))
+    assert torch.equal(win, cuda_patch.extract_windows_plain(blocks, starts))
+    assert (cuda_patch.extract_patches.launches,
+            cuda_patch.extract_windows.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    with pytest.raises(ValueError):
+        cuda_patch.extract_patches(blocks, starts.long())
+    with pytest.raises(ValueError):
+        cuda_patch.extract_windows(blocks[:, :, :, :64], starts)
+
+
+def test_window_variant_matches_fused(recorded):
+    """K1w on the window copy and on a view of the patch copy: bit for bit
+    the fused kernel's result, and within K1's budget of its plain
+    version."""
+    args, kwargs = recorded[0]["k1"]
+    blocks, starts = args[18], args[19]
+    fused = cuda_substep.decimation_step(*args, **kwargs)
+    before = cuda_substep.decimation_step.window_launches
+    for window in (cuda_patch.extract_windows(blocks, starts),
+                   cuda_patch.extract_patches(blocks, starts)[0][:, 16:56]):
+        got = cuda_substep.decimation_step(*args[:18], None, None,
+                                           consts=kwargs["consts"],
+                                           window=window)
+        plain = cuda_substep.decimation_step_plain(*args[:18], window=window)
+        torch.cuda.synchronize()
+        for (name, a), (_, b), (_, c) in zip(_leaves(got), _leaves(fused),
+                                             _leaves(plain)):
+            assert torch.equal(a, b), name
+            # contact forces come from 12 kN/m springs: 1e-6 m is 1e-2 N
+            atol = 1e-2 if name == "contact_forces" else 1e-4
+            torch.testing.assert_close(a, c, atol=atol, rtol=1e-4)
+    assert cuda_substep.decimation_step.window_launches == before + 2
+
+
+def _leaves(step):
+    phys, anchors, info = step
+    return sorted({**phys, "anchors": anchors, **info}.items())
 
 
 def test_wrappers_reject_bad_input(recorded):

@@ -6,7 +6,8 @@ iteration of collect + the 5 x 4 minibatch update takes a few seconds.
 The update's numbers are held against the JAX package in
 tests/test_torch_update.py; here the loop around it is checked: stats,
 the learning-rate band, save -> load -> resume, the checkpoint helpers,
-the strict-parity override and `python -m ...scripts.train --device cpu`.
+the strict-parity override, a learn iteration under each route switch and
+`python -m ...scripts.train --device cpu`.
 """
 import dataclasses
 import math
@@ -176,6 +177,21 @@ def test_strict_parity_selects_the_reference_update(monkeypatch):
             alg.shuffle_strata) == (False, 1, 1)
     batch, _ = runner.collect()
     assert batch["privileged_obs"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("switch", ["DTC_FUSED_WINDOW", "DTC_PALLAS_SAMPLER",
+                                    "DTC_PALLAS_PHYSICS", "DTC_PALLAS_PLANNER",
+                                    "DTC_STRICT_PARITY"])
+def test_learn_on_each_route(monkeypatch, switch):
+    """collect + update under each route switch (routes: tests/
+    test_torch_routes.py): finite stats, the params move."""
+    monkeypatch.setenv(switch, "1" if switch == "DTC_STRICT_PARITY" else "0")
+    runner = _runner()
+    before = [p.detach().clone() for p in runner.net.parameters()]
+    (row,) = runner.learn(1)
+    assert all(math.isfinite(v) for v in row.values()), row
+    assert not all(torch.equal(a, b) for a, b in
+                   zip(before, runner.net.parameters()))
 
 
 def test_train_script_on_the_cpu(tmp_path, monkeypatch):

@@ -8,6 +8,15 @@ rtol 1e-5 (tests/test_pallas_substep.py:71-87).  Inputs are made with
 numpy from a seed: 4 robots standing on a 2x2-tile terrain, decimation 2,
 with body-point planes high enough that some body points touch.  The
 leg-batched FK/ABA and the inertias are compared on their own as well.
+
+The window variant (K1w: the same step reading a materialized (N, 40, 128)
+contact window) must equal the fused variant bit for bit, fed the window
+copy or a view of the patch copy, and match the JAX package's window
+variant (`_substep_kernel`, interpret mode) at the same budget.  The plain
+physics step of the reference route, `sim_step`, must match the JAX
+package's sim.sim_step for one decimation over extracted patches at that
+budget, from a standing state and from one where thigh and shank points
+touch the terrain.
 """
 import dataclasses
 
@@ -28,11 +37,13 @@ from deep_tracking_control_tpu.terrain import patch as jpatch
 from deep_tracking_control_tpu.terrain.generator import Terrain
 from deep_tracking_control_tpu.terrain.grid import TerrainGrid
 from deep_tracking_control_tpu_torch.env import config as tconfig
+from deep_tracking_control_tpu_torch.ops import cuda_patch
 from deep_tracking_control_tpu_torch.physics import cuda_substep as tsub
 from deep_tracking_control_tpu_torch.physics import engine as tengine
 from deep_tracking_control_tpu_torch.physics import quadruped as tquad
 from deep_tracking_control_tpu_torch.physics import sim as tsim
 from deep_tracking_control_tpu_torch.robot import quadrupeds as tquadrupeds
+from deep_tracking_control_tpu_torch.terrain import patch as tpatch
 
 N, DECIM = 4, 2
 TIGHT = dict(atol=2e-5, rtol=1e-5)
@@ -93,7 +104,8 @@ def case():
         friction=rng.uniform(0.5, 1.25, N).astype(f32),
         restitution=rng.uniform(0.0, 1.0, N).astype(f32),
         win_origin=np.asarray(worigin), planes=planes,
-        blocks=np.asarray(src.blocks), starts=np.asarray(starts))
+        blocks=np.asarray(src.blocks), starts=np.asarray(starts),
+        window=np.asarray(jpatch.extract_window(src, starts)))
     thigh = np.array([model.body_dyn_index[i] for i, n in
                       enumerate(model.body_names) if "THIGH" in n], np.int32)
     common = (DECIM, thigh)
@@ -103,33 +115,65 @@ def case():
         a["phys"] = {k: jnp.asarray(v) for k, v in phys.items()}
         return a
 
-    def run(a):
+    def run(a, window=None):
+        fused = window is None
         return jsub.decimation_step(
             model, geom, task.sim, *common, a["inertias"], a["phys"],
             a["anchors"], a["goals"], a["kp_eff"], a["kd_eff"],
             a["strengths"], a["offsets"], a["friction"], a["restitution"],
-            None, a["win_origin"], a["planes"], hs, interpret=True,
-            blocks=a["blocks"], starts=a["starts"])
+            window, a["win_origin"], a["planes"], hs, interpret=True,
+            blocks=a["blocks"] if fused else None,
+            starts=a["starts"] if fused else None)
     want = run(jax_args())
-    return model, geom, task, arrays, common, hs, want
+    return model, geom, task, arrays, common, hs, want, run, jax_args
 
 
-def _port_step(case, fn):
-    model, geom, task, arrays, common, hs, _ = case
+@pytest.fixture(scope="module")
+def window_want(case):
+    """The JAX package's window variant on the case, in interpret mode (its
+    window (40, 128, N), as legged_env.py:462-468 transposes it)."""
+    *_, run, jax_args = case
+    a = jax_args()
+    return run(a, jnp.transpose(a["window"], (1, 2, 0)))
+
+
+def _port_step(case, fn, terrain=None):
+    """The port's step on the case: the fused variant's blocks and starts,
+    or `terrain` = dict(window=...) for the window variant."""
+    model, geom, task, arrays, common, hs, *_ = case
     tmodel = tquadrupeds.get_robot("lite3")
     tgeom = tsim.default_contact_geometry(tmodel)
     sim = tconfig.SimParams(**dataclasses.asdict(task.sim))
     t = {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()
          if k != "phys"}
     phys = {k: torch.from_numpy(v.copy()) for k, v in arrays["phys"].items()}
+    if terrain is None:
+        terrain = dict(blocks=t["blocks"], starts=t["starts"])
     return fn(tmodel, tgeom, sim, *common, t["inertias"], phys, t["anchors"],
               t["goals"], t["kp_eff"], t["kd_eff"], t["strengths"],
               t["offsets"], t["friction"], t["restitution"], t["win_origin"],
-              t["planes"], hs, t["blocks"], t["starts"])
+              t["planes"], hs, **terrain)
+
+
+def _assert_step_matches(got, want):
+    phys, anchors, info = got
+    want_phys, want_anchors, want_info = want
+    for k in ("pos", "quat", "lin_vel", "ang_vel", "q", "qd"):
+        np.testing.assert_allclose(phys[k].numpy(), np.asarray(want_phys[k]),
+                                   **TIGHT, err_msg=k)
+    np.testing.assert_allclose(anchors.numpy(), np.asarray(want_anchors),
+                               **TIGHT)
+    for k in ("foot_pos", "foot_vel", "thigh_pos", "torques", "body_pts"):
+        np.testing.assert_allclose(info[k].numpy(), np.asarray(want_info[k]),
+                                   **TIGHT, err_msg=k)
+    # contact forces are stiff springs (12 kN/m) on these positions
+    np.testing.assert_allclose(info["contact_forces"].numpy(),
+                               np.asarray(want_info["contact_forces"]),
+                               atol=1e-3, rtol=1e-5)
 
 
 def test_plain_decimation_step_matches_pallas_kernel(case):
-    want_phys, want_anchors, want_info = case[-1]
+    want_phys, want_anchors, want_info = case[6]
     phys, anchors, info = _port_step(case, tsub.decimation_step)
     for k in ("pos", "quat", "lin_vel", "ang_vel", "q", "qd"):
         np.testing.assert_allclose(phys[k].numpy(), np.asarray(want_phys[k]),
@@ -150,7 +194,7 @@ def test_plain_decimation_step_matches_pallas_kernel(case):
 
 
 def test_fk_aba_and_inertias_match_jax(case):
-    model, geom, task, arrays, common, hs, _ = case
+    model, geom, task, arrays, common, hs, *_ = case
     tmodel = tquadrupeds.get_robot("lite3")
     sim = tconfig.SimParams(**dataclasses.asdict(task.sim))
     jl, tl = jquad.quad_layout(model), tquad.quad_layout(tmodel)
@@ -183,3 +227,127 @@ def test_fk_aba_and_inertias_match_jax(case):
                        torch.from_numpy(f_ext), sim)
     np.testing.assert_allclose(tq.numpy(), np.asarray(jq), rtol=1e-4, atol=1e-3)
     np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-4, atol=1e-4)
+
+
+def _window_terrains(case):
+    """The window variant's inputs: the window copy, and rows 16..56 of the
+    patch copy's table 0 (a strided view)."""
+    arrays = case[3]
+    blocks = torch.from_numpy(np.array(arrays["blocks"]))
+    starts = torch.from_numpy(np.array(arrays["starts"]))
+    return {"window copy": cuda_patch.extract_windows_plain(blocks, starts),
+            "patch view": cuda_patch.extract_patches_plain(
+                blocks, starts)[0][:, 16:56]}
+
+
+@pytest.mark.parametrize("source", ["window copy", "patch view"])
+def test_window_variant_equals_fused_bitwise(case, source):
+    window = _window_terrains(case)[source]
+    fused = _port_step(case, tsub.decimation_step_plain)
+    got = _port_step(case, tsub.decimation_step, dict(window=window))
+    for a, b in zip(_torch_leaves(got), _torch_leaves(fused)):
+        np.testing.assert_array_equal(a, b)
+
+
+def _torch_leaves(step):
+    phys, anchors, info = step
+    return ([phys[k].numpy() for k in sorted(phys)] + [anchors.numpy()]
+            + [info[k].numpy() for k in sorted(info)])
+
+
+def test_window_variant_matches_pallas_kernel(case, window_want):
+    window = _window_terrains(case)["window copy"]
+    _assert_step_matches(
+        _port_step(case, tsub.decimation_step_plain, dict(window=window)),
+        window_want)
+    # the JAX package's two variants agree bit for bit as well
+    for a, b in zip(_jax_leaves(window_want), _jax_leaves(case[6])):
+        np.testing.assert_array_equal(a, b)
+
+
+def _jax_leaves(step):
+    phys, anchors, info = step
+    return ([np.asarray(phys[k]) for k in sorted(phys)] + [np.asarray(anchors)]
+            + [np.asarray(info[k]) for k in sorted(info)])
+
+
+@pytest.fixture(scope="module", params=["standing", "body contact"])
+def sim_case(request, case):
+    """One decimation of sim_step in both packages from the case's state,
+    every point sampling the raw patch through terrain_fn.  "body contact"
+    lowers each base 0.2 m and rolls it, so that thigh and shank points
+    touch the terrain."""
+    model, geom, task, arrays, common, hs, *_ = case
+    phys = {k: v.copy() for k, v in arrays["phys"].items()}
+    if request.param == "body contact":
+        phys["pos"][2] -= 0.2
+        roll = np.float32(0.35)
+        q = np.zeros_like(phys["quat"])
+        q[0], q[3] = np.sin(roll / 2), np.cos(roll / 2)
+        phys["quat"] = q
+    rng = np.random.default_rng(7)
+    taus = rng.normal(0, 5.0, (DECIM, 12, N)).astype(np.float32)
+    blocks, starts = arrays["blocks"], arrays["starts"]
+    jsrc = jpatch.PatchSource(blocks=jnp.asarray(blocks), blocks16=None,
+                              n_blocks=blocks.shape[1],
+                              n_rows=blocks.shape[2] - 80,
+                              horizontal_scale=hs, border_size=4.0)
+    jpatches = jpatch.extract(jsrc, jnp.asarray(starts))
+    worigin = arrays["win_origin"]
+    origin = (worigin.T - hs * np.float32([jsub.WIN_R0, jsub.WIN_C0])).astype(
+        np.float32)
+
+    def jterrain(x, y):
+        h, dx, dy, hm = jpatch.sample_bilinear_slope(
+            jpatches[0], jnp.asarray(origin), hs, x.T, y.T)
+        return h.T, dx.T, dy.T, hm.T
+    jstate = {k: jnp.asarray(v) for k, v in phys.items()}
+    janchors = jnp.asarray(arrays["anchors"])
+    for tau in taus:
+        jstate, janchors, jinfo = jsim.sim_step(
+            model, geom, task.sim, jnp.asarray(arrays["inertias"]), jstate,
+            janchors, jnp.asarray(tau), jterrain,
+            jnp.asarray(arrays["friction"]), jnp.asarray(arrays["restitution"]))
+
+    tmodel = tquadrupeds.get_robot("lite3")
+    tgeom = tsim.default_contact_geometry(tmodel)
+    sim = tconfig.SimParams(**dataclasses.asdict(task.sim))
+    tpatches = cuda_patch.extract_patches_plain(
+        torch.from_numpy(np.array(blocks)), torch.from_numpy(np.array(starts)))
+    torigin = torch.from_numpy(origin)
+
+    def tterrain(x, y):
+        h, dx, dy, hm = tpatch.sample_bilinear_slope(tpatches[0], torigin, hs,
+                                                     x.T, y.T)
+        return h.T, dx.T, dy.T, hm.T
+    tstate = {k: torch.from_numpy(v.copy()) for k, v in phys.items()}
+    t = {k: torch.from_numpy(np.array(arrays[k])) for k in
+         ("anchors", "inertias", "friction", "restitution")}
+    tanchors = t["anchors"]
+    for tau in taus:
+        tstate, tanchors, tinfo = tsim.sim_step(
+            tmodel, tgeom, sim, t["inertias"], tstate, tanchors,
+            torch.from_numpy(tau), tterrain, t["friction"], t["restitution"])
+    return request.param, (jstate, janchors, jinfo), (tstate, tanchors, tinfo)
+
+
+def test_sim_step_matches_jax(sim_case):
+    name, (jstate, janchors, jinfo), (tstate, tanchors, tinfo) = sim_case
+    for k in ("pos", "quat", "lin_vel", "ang_vel", "q", "qd"):
+        np.testing.assert_allclose(tstate[k].numpy(), np.asarray(jstate[k]),
+                                   **TIGHT, err_msg=k)
+    np.testing.assert_allclose(tanchors.numpy(), np.asarray(janchors), **TIGHT)
+    for k in ("foot_pos", "foot_vel"):
+        np.testing.assert_allclose(tinfo[k].numpy(), np.asarray(jinfo[k]),
+                                   **TIGHT, err_msg=k)
+    for k in ("R", "x", "v"):
+        np.testing.assert_allclose(tinfo["kin"][k].numpy(),
+                                   np.asarray(jinfo["kin"][k]), **TIGHT,
+                                   err_msg=k)
+    cf = np.asarray(jinfo["contact_forces"])
+    np.testing.assert_allclose(tinfo["contact_forces"].numpy(), cf,
+                               atol=1e-3, rtol=1e-5)
+    # the feet carry load; with the base lowered, thigh/shank bodies too
+    assert np.abs(cf[[4, 8, 12, 16]]).max() > 1.0
+    legs = np.abs(cf[[2, 3, 6, 7, 10, 11, 14, 15]]).max()
+    assert (legs > 1.0) == (name == "body contact"), legs
