@@ -8,7 +8,8 @@ Phases (each prints its own line; any failure ends the run non-zero):
   2. build of the CUDA kernels from deep_tracking_control_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version on the inputs of a real
      lite3_dtc step at 4096 envs, with the kernel and plain times: the
-     physics, sampler and planner kernels, the reward kernel (also on
+     physics, sampler and planner kernels (the physics and planner kernels
+     with their launch shapes), the reward kernel (also on
      random inputs that switch on all 33 terms, with and without the
      positive clip), the obs kernel (against its plain version fed the
      noise kernel's draws for the same seed) and the noise kernel (bit for
@@ -464,6 +465,39 @@ def check_rewards(name, args):
     return max_err([(rew, prew), (s_k, s_p)])
 
 
+def shape_text(shape):
+    blocks, threads, envs = shape
+    return (f"launch shape {blocks} blocks x {threads} threads, {envs} envs "
+            f"a block")
+
+
+def check_planner(got, want, scal, heights, stat, ny, max_frac=0.02):
+    """K3's selections (N, 20) against its plain version's: at most
+    `max_frac` of the envs may differ, and only where the kernel's pick
+    ties the best total within 1e-4 or either pick's score lies within
+    1e-5 of the 0.1 gate (the two sums are taken in another order).
+    Returns the (N,) mask of envs that differ."""
+    from deep_tracking_control_tpu_torch.env import cuda_planner
+    total, raw, hwx, hwy = cuda_planner.plan_objective(scal, heights, stat, ny)
+    differ = (got != want).any(dim=1)
+    frac = float(differ.float().mean())
+    if frac > max_frac:
+        raise AssertionError(f"plan_footholds: {frac:.2%} of envs differ")
+    for n in differ.nonzero().flatten().tolist():
+        for leg in range(4):
+            picks = []
+            for out in (got, want):
+                d = ((hwx[n] - out[n, 8 + leg]).abs()
+                     + (hwy[n] - out[n, 12 + leg]).abs())
+                picks.append(int(d.argmin()))
+            near_tie = total[n, leg, picks[0]] <= total[n, leg].min() + 1e-4
+            on_gate = any(abs(float(raw[n, k]) - 0.1) < 1e-5 for k in picks)
+            if not (near_tie or on_gate):
+                raise AssertionError(f"plan_footholds: env {n} leg {leg} "
+                                     f"differs without a near-tie")
+    return differ
+
+
 def compare_kernels(calls, tables):
     """Phase 3: each kernel vs its plain version on recorded inputs, with
     its bound from the same inputs (tables: the ids of the terrain tables,
@@ -509,7 +543,9 @@ def compare_kernels(calls, tables):
         torch, lambda: cuda_substep.decimation_step(*args, **kwargs),
         lambda: cuda_substep.decimation_step_plain(*args, **kw), 5))
     say(3, f"decimation_step vs plain: max abs err {err:.3e} "
-           f"(budget 1e-4 + 1e-4 rel; contact forces 1e-2 N)")
+           f"(budget 1e-4 + 1e-4 rel; contact forces 1e-2 N); "
+           f"{shape_text(cuda_substep.launch_shape(n))}, device "
+           f"{results['decimation_step']['ms']:.4f} ms a call")
 
     # K2: nearest samples are bf16 cells (exact); bilinear 1e-5, slope 1e-4
     args, _ = calls["sample_all"]
@@ -539,23 +575,8 @@ def compare_kernels(calls, tables):
     (scal, heights, stat, ny), _ = calls["plan_footholds"]
     got = cuda_planner.select_footholds(scal, heights, stat, ny)
     want = cuda_planner.plan_plain(scal, heights, stat, ny)
-    total, raw, hwx, hwy = cuda_planner.plan_objective(scal, heights, stat, ny)
-    differ = (got != want).any(dim=1)
+    differ = check_planner(got, want, scal, heights, stat, ny)
     frac = float(differ.float().mean())
-    if frac > 0.02:
-        raise AssertionError(f"plan_footholds: {frac:.2%} of envs differ")
-    for n in differ.nonzero().flatten().tolist():
-        for leg in range(4):
-            picks = []
-            for out in (got, want):
-                d = ((hwx[n] - out[n, 8 + leg]).abs()
-                     + (hwy[n] - out[n, 12 + leg]).abs())
-                picks.append(int(d.argmin()))
-            near_tie = total[n, leg, picks[0]] <= total[n, leg].min() + 1e-4
-            on_gate = any(abs(float(raw[n, k]) - 0.1) < 1e-5 for k in picks)
-            if not (near_tie or on_gate):
-                raise AssertionError(f"plan_footholds: env {n} leg {leg} "
-                                     f"differs without a near-tie")
     err = max_err([(got[~differ], want[~differ])]) if (~differ).any() else 0.0
     nbytes = tensor_bytes((scal, heights, stat)) + tensor_bytes(got)
     work["plan_footholds"] = (
@@ -564,7 +585,9 @@ def compare_kernels(calls, tables):
         torch, lambda: cuda_planner.select_footholds(scal, heights, stat, ny),
         lambda: cuda_planner.plan_plain(scal, heights, stat, ny)))
     say(3, f"plan_footholds vs plain: {frac:.3%} of envs differ (budget 2%, "
-           f"near-ties only); max abs err elsewhere {err:.3e}")
+           f"near-ties only); max abs err elsewhere {err:.3e}; "
+           f"{shape_text(cuda_planner.launch_shape(got.shape[0]))}, device "
+           f"{results['plan_footholds']['ms']:.4f} ms a call")
 
     # K6: the reward stack on the real step, then on random inputs that
     # switch on all 33 terms, with and without the positive clip
@@ -769,11 +792,13 @@ def compare_route_kernels(calls, tables, results):
     nbytes = (tensor_bytes((args, kwargs), tables | {id(window)})
               + tensor_bytes(got) + n * 4 * dec * 4 * 4)
     ops = count_ops(lambda: cuda_substep.decimation_step_plain(*args, **kw))
-    results["decimation_step_window"] = dict(
+    results["decimation_step_window"] = r = dict(
         max_abs_err=err, **dict(zip(("bound_ms", "bound_by"),
                                     bound(nbytes, ops))),
         **timings(torch, lambda: cuda_substep.decimation_step(*args, **kwargs),
                   lambda: cuda_substep.decimation_step_plain(*args, **kw), 5))
+    say(7, f"decimation_step_window: {shape_text(cuda_substep.launch_shape(n))}"
+           f", device {r['ms']:.4f} ms a call")
 
 
 def route_collect(name, runner, kernels, card):

@@ -9,11 +9,19 @@
 // (>= 0.16 -> 10), total = 0.2 score + 0.8 dist, the first-occurrence
 // argmin per leg, and the reference's tiled-table decode.
 //
-// Bound on the H100: latency of the per-env reductions (about 3 KB of
-// heights in, 80 B out per env).  Design: one block per env; the scan,
-// its world coordinates and the scores live in shared memory; the mean,
-// the mean square and the four argmins are block reductions (warp
-// shuffles, then one value per warp).  Elementwise steps use the _rn
+// Bound on the H100: the latency of the per-env reductions over a little
+// work (about 3 KB of heights in, 80 B out per env; ~60 operations a
+// point).  Design: one warp per env, several envs a block (8 from
+// env/cuda_planner.py: 512 blocks of 256 threads at 4096 envs, held to 64
+// registers a thread so that 4 blocks fit an SM and all run in one wave).  The block loads the scan's
+// env-independent tables (the base-frame scan x/y and the two decode rows)
+// into shared memory once for its envs.  Each lane keeps its points (every
+// 32nd) in registers; the clipped heights the stencils need from
+// neighbouring points go in the warp's own slice of shared memory.  The
+// mean, the mean square and the four first-occurrence argmins are warp
+// shuffles, ordered by __syncwarp() alone: no barrier of the block after
+// the table load.  A lane walks its points' rows and columns by a fixed
+// step instead of dividing each index.  Elementwise steps use the _rn
 // intrinsics so that no multiply-add is contracted: the scores near the
 // 0.1 threshold then differ from the plain version only through the order
 // of the two sums.  Divisions by the grid spacing are multiplications by
@@ -25,9 +33,10 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 constexpr int OUT_W = 20;   // 4 tx | 4 ty | 4 world x | 4 world y | 4 world z
+constexpr int MAXM = 24;    // points a lane: H <= 32 * MAXM
+constexpr int MAX_ENVS = 8;  // warps a block
+constexpr int MAX_SMEM = 48 * 1024;
 
 __device__ __forceinline__ float warp_sum(float v) {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -41,93 +50,144 @@ __device__ __forceinline__ void argmin_merge(float& v, int& i, float v2, int i2)
     }
 }
 
-__global__ void plan_kernel(const float* __restrict__ scal,     // (N, 16)
-                            const float* __restrict__ heights,  // (N, H)
-                            const float* __restrict__ stat,     // (4, H)
-                            float* __restrict__ out,            // (N, 20)
-                            int H, int ny, float inv_s, float inv_2s) {
-    extern __shared__ float sm[];
-    float* g = sm;              // clipped relative heights
-    float* hwx = sm + H;        // world x of the scan points
-    float* hwy = sm + 2 * H;    // world y
-    float* bsc = sm + 3 * H;    // 0.2 * score, or -1 where excluded
-    __shared__ float red[2][WARPS];
-    __shared__ float rv[4][WARPS];
-    __shared__ int ri[4][WARPS];
+__device__ __forceinline__ float world_x(float cy, float sy, float bx,
+                                         float hpx, float hpy) {
+    return __fadd_rn(__fsub_rn(__fmul_rn(cy, hpx), __fmul_rn(sy, hpy)), bx);
+}
 
-    const int n = blockIdx.x;
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const float* sc = scal + (long)n * 16;
+__device__ __forceinline__ float world_y(float cy, float sy, float by,
+                                         float hpx, float hpy) {
+    return __fadd_rn(__fadd_rn(__fmul_rn(sy, hpx), __fmul_rn(cy, hpy)), by);
+}
+
+// at most 64 registers a thread: 4 blocks an SM, 512 blocks in one wave
+__global__ void __launch_bounds__(32 * MAX_ENVS, 4)
+plan_kernel(const float* __restrict__ scal,     // (N, 16)
+            const float* __restrict__ heights,  // (N, H)
+            const float* __restrict__ stat,     // (4, H)
+            float* __restrict__ out,            // (N, 20)
+            int N, int H, int ny, float inv_s, float inv_2s) {
+    extern __shared__ float4 sm4[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    float* tab = reinterpret_cast<float*>(sm4);   // (4, H): scan x, y,
+                                                  // decode x, y
+    float* g = tab + (4 + warp) * H;       // this env's clipped heights
+    const float4* stat4 = reinterpret_cast<const float4*>(stat);
+    for (int k = threadIdx.x; k < H; k += blockDim.x) sm4[k] = stat4[k];
+    __syncthreads();
+    const long n = (long)blockIdx.x * (blockDim.x >> 5) + warp;
+    if (n >= N) return;
+    const float* sc = scal + n * 16;
     const float bx = sc[0], by = sc[1], bz = sc[2], cy = sc[3], sy = sc[4];
-    const float* h = heights + (long)n * H;
+    const float* h = heights + n * H;
     const int nx = H / ny;
 
     // ---- clipped heights and the two sums -----------------------------
+    float gr[MAXM];
+    unsigned excluded = 0u;
     float s1 = 0.0f, s2 = 0.0f;
-    for (int k = tid; k < H; k += THREADS) {
-        const float gk = clampf(__fsub_rn(h[k], bz), -0.5f, 0.5f);
+    float hv[MAXM];
+#pragma unroll
+    for (int m = 0; m < MAXM; ++m)      // all loads in flight at once
+        hv[m] = h[min(lane + 32 * m, H - 1)];
+#pragma unroll
+    for (int m = 0; m < MAXM; ++m) {
+        const int k = lane + 32 * m;
+        if (k >= H) break;
+        const float rel = __fsub_rn(hv[m], bz);
+        const float gk = clampf(rel, -0.5f, 0.5f);
+        gr[m] = gk;
         g[k] = gk;
         s1 = __fadd_rn(s1, gk);
         s2 = __fadd_rn(s2, __fmul_rn(gk, gk));
+        excluded |= ((rel > 1.0f) || (rel < -1.0f)) ? 1u << m : 0u;
     }
     s1 = warp_sum(s1);
     s2 = warp_sum(s2);
-    if (lane == 0) {
-        red[0][warp] = s1;
-        red[1][warp] = s2;
-    }
-    __syncthreads();
-    float t1 = 0.0f, t2 = 0.0f;
-    for (int w = 0; w < WARPS; ++w) {
-        t1 += red[0][w];
-        t2 += red[1][w];
-    }
-    const float mean = t1 / (float)H;
-    const float var = __fsub_rn(t2 / (float)H, __fmul_rn(mean, mean));
+    __syncwarp();
+    const float mean = s1 / (float)H;
+    const float var = __fsub_rn(s2 / (float)H, __fmul_rn(mean, mean));
     const float edge = clampf(sqrtf(fmaxf(var, 0.0f)), 0.0f, 0.3f);
+    const float edge_term = __fmul_rn(0.2f, edge);
 
-    // ---- per-point score and world coordinates ------------------------
-    for (int k = tid; k < H; k += THREADS) {
-        const int i = k / ny, j = k - i * ny;
-        const float gk = g[k];
-        float dx, dy;
-        if (i == 0) dx = __fmul_rn(__fsub_rn(g[k + ny], gk), inv_s);
-        else if (i == nx - 1) dx = __fmul_rn(__fsub_rn(gk, g[k - ny]), inv_s);
-        else dx = __fmul_rn(__fsub_rn(g[k + ny], g[k - ny]), inv_2s);
-        if (j == 0) dy = __fmul_rn(__fsub_rn(g[k + 1], gk), inv_s);
-        else if (j == ny - 1) dy = __fmul_rn(__fsub_rn(gk, g[k - 1]), inv_s);
-        else dy = __fmul_rn(__fsub_rn(g[k + 1], g[k - 1]), inv_2s);
-        const float slope = sqrtf(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)));
-        const float rough = fabsf(__fsub_rn(gk, mean));
-        float score = __fadd_rn(__fadd_rn(__fmul_rn(0.2f, edge), slope),
-                                __fmul_rn(0.3f, rough));
-        score = score < 0.1f ? score : 10.0f;
-        const float rel = __fsub_rn(h[k], bz);
-        const bool excluded = (rel > 1.0f) || (rel < -1.0f);
-        bsc[k] = excluded ? -1.0f : __fmul_rn(score, 0.2f);
-        const float hpx = stat[k], hpy = stat[H + k];
-        hwx[k] = __fadd_rn(__fsub_rn(__fmul_rn(cy, hpx), __fmul_rn(sy, hpy)), bx);
-        hwy[k] = __fadd_rn(__fadd_rn(__fmul_rn(sy, hpx), __fmul_rn(cy, hpy)), by);
-    }
-    __syncthreads();
-
-    // ---- per-leg first-occurrence argmin --------------------------------
-    float bv[4];
-    int bi[4];
+    // ---- per point: score, world position, the first argmins -----------
+    // A leg's total is 0.2 score + 0.8 dis (dis = 10 where the point lies
+    // 0.16 or more from the leg's nominal foothold), or 10 where the point
+    // is excluded.  A point within 0.16 and not excluded totals under
+    // 2.13, every other point 8 or more; so a leg with such a point takes
+    // the first argmin over those points, and a leg without one the first
+    // argmin of the far total (0.2 score + 8, or 10), the same for every
+    // leg.
+    float px[4], py[4], bv[4], fv = FLT_MAX;
+    int bi[4], fi = H;
     for (int l = 0; l < 4; ++l) {
+        px[l] = sc[5 + l];
+        py[l] = sc[9 + l];
         bv[l] = FLT_MAX;
         bi[l] = H;
     }
-    for (int k = tid; k < H; k += THREADS) {
-        const float b = bsc[k];
-        for (int l = 0; l < 4; ++l) {
-            const float ddx = __fsub_rn(sc[5 + l], hwx[k]);
-            const float ddy = __fsub_rn(sc[9 + l], hwy[k]);
-            float dis = sqrtf(__fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy)));
-            dis = dis < 0.16f ? dis : 10.0f;
-            const float total = b < 0.0f ? 10.0f : __fadd_rn(b, __fmul_rn(dis, 0.8f));
-            argmin_merge(bv[l], bi[l], total, k);
+    const int di = 32 / ny, dj = 32 - di * ny;   // a lane's step, rows/cols
+    int i = lane / ny, j = lane - i * ny;
+#pragma unroll
+    for (int m = 0; m < MAXM; ++m) {
+        const int k = lane + 32 * m;
+        if (k >= H) break;
+        const float gk = gr[m];
+        // one-sided stencils at the edges, central inside, without
+        // branches (a warp's lanes lie on different columns)
+        const int up = i < nx - 1 ? k + ny : k, dn = i > 0 ? k - ny : k;
+        const int rt = j < ny - 1 ? k + 1 : k, lt = j > 0 ? k - 1 : k;
+        const float dx = __fmul_rn(__fsub_rn(g[up], g[dn]),
+                                   i == 0 || i == nx - 1 ? inv_s : inv_2s);
+        const float dy = __fmul_rn(__fsub_rn(g[rt], g[lt]),
+                                   j == 0 || j == ny - 1 ? inv_s : inv_2s);
+        // the score passes its 0.1 gate only if the slope does (the other
+        // terms are >= 0): past slope^2 = 0.0101 the square root is not
+        // needed, and the result is the same
+        const float sl2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+        float score = 10.0f;
+        if (sl2 < 0.0101f) {
+            const float rough = fabsf(__fsub_rn(gk, mean));
+            // (flat ground: sqrtf's slow path would take every zero)
+            const float slope = sl2 > 0.0f ? sqrtf(sl2) : 0.0f;
+            const float raw = __fadd_rn(__fadd_rn(edge_term, slope),
+                                        __fmul_rn(0.3f, rough));
+            if (raw < 0.1f) score = raw;
         }
+        const bool excl = (excluded >> m) & 1u;
+        const float b = __fmul_rn(score, 0.2f);
+        const float hwx = world_x(cy, sy, bx, tab[k], tab[H + k]);
+        const float hwy = world_y(cy, sy, by, tab[k], tab[H + k]);
+        const float far = excl ? 10.0f : __fadd_rn(b, __fmul_rn(10.0f, 0.8f));
+        if (far < fv) {             // a lane's points come in index order
+            fv = far;
+            fi = k;
+        }
+        for (int l = 0; l < 4; ++l) {
+            const float ddx = __fsub_rn(px[l], hwx);
+            const float ddy = __fsub_rn(py[l], hwy);
+            const float d2 = __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy));
+            // the 0.16 gate likewise: sqrt(0.0257) > 0.16
+            if (d2 < 0.0257f && !excl) {
+                const float r = sqrtf(d2);
+                const float total = __fadd_rn(b, __fmul_rn(r, 0.8f));
+                if (r < 0.16f && total < bv[l]) {
+                    bv[l] = total;
+                    bi[l] = k;
+                }
+            }
+        }
+        j += dj;
+        i += di;
+        if (j >= ny) {
+            j -= ny;
+            ++i;
+        }
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+        const float v2 = __shfl_xor_sync(0xffffffffu, fv, o);
+        const int i2 = __shfl_xor_sync(0xffffffffu, fi, o);
+        argmin_merge(fv, fi, v2, i2);
     }
     for (int l = 0; l < 4; ++l) {
         for (int o = 16; o > 0; o >>= 1) {
@@ -135,37 +195,36 @@ __global__ void plan_kernel(const float* __restrict__ scal,     // (N, 16)
             const int i2 = __shfl_xor_sync(0xffffffffu, bi[l], o);
             argmin_merge(bv[l], bi[l], v2, i2);
         }
-        if (lane == 0) {
-            rv[l][warp] = bv[l];
-            ri[l][warp] = bi[l];
-        }
+        if (bi[l] == H) bi[l] = fi;         // no point within 0.16
     }
-    __syncthreads();
-    if (tid < 4) {
-        const int l = tid;
-        float v = rv[l][0];
-        int idx = ri[l][0];
-        for (int w = 1; w < WARPS; ++w) argmin_merge(v, idx, rv[l][w], ri[l][w]);
-        float* o = out + (long)n * OUT_W;
-        o[l] = stat[2 * H + idx];
-        o[4 + l] = stat[3 * H + idx];
-        o[8 + l] = hwx[idx];
-        o[12 + l] = hwy[idx];
+    if (lane < 4) {
+        const int l = lane;
+        const int idx = l == 0 ? bi[0] : l == 1 ? bi[1] : l == 2 ? bi[2] : bi[3];
+        const float hpx = tab[idx], hpy = tab[H + idx];
+        float* o = out + n * OUT_W;
+        o[l] = tab[2 * H + idx];
+        o[4 + l] = tab[3 * H + idx];
+        o[8 + l] = world_x(cy, sy, bx, hpx, hpy);
+        o[12 + l] = world_y(cy, sy, by, hpx, hpy);
         o[16 + l] = h[idx];
     }
 }
 
 }  // namespace
 
+// `envs` envs a block, one warp each.
 DTC_EXPORT int dtc_plan_footholds(const void* scal, const void* heights,
                                   const void* stat, void* out, int N, int H,
-                                  int ny, float inv_s, float inv_2s,
+                                  int ny, float inv_s, float inv_2s, int envs,
                                   void* stream) {
+    const size_t smem = (4 + (size_t)envs) * H * sizeof(float);
+    if (H > 32 * MAXM || envs < 1 || envs > MAX_ENVS || smem > MAX_SMEM)
+        return (int)cudaErrorInvalidValue;
     if (N > 0) {
-        const size_t smem = 4 * (size_t)H * sizeof(float);
-        plan_kernel<<<N, THREADS, smem, (cudaStream_t)stream>>>(
+        plan_kernel<<<(N + envs - 1) / envs, 32 * envs, smem,
+                      (cudaStream_t)stream>>>(
             (const float*)scal, (const float*)heights, (const float*)stat,
-            (float*)out, H, ny, inv_s, inv_2s);
+            (float*)out, N, H, ny, inv_s, inv_2s);
     }
     return (int)cudaGetLastError();
 }

@@ -14,34 +14,50 @@
 // articulated-body algorithm with the 6x6 LDL^T base solve; semi-implicit
 // integration with the exponential-map quaternion update.
 //
-// Bound on the H100: latency and local memory.  Every env is a long serial
-// program; the 13 bodies' kinematics and the ABA's 6x6 articulated
-// inertias take about 4 KB a thread, far beyond the register file, so they
-// live in local memory (L1/L2).  Design: one thread per env, 128 threads a
-// block; the env-trailing (k, N) arrays are read and written coalesced as
-// they come; each foot reads its four terrain cells straight from the
-// blocked raw table (the fused variant: the TPU kernel's window DMA has no
-// counterpart) or from a materialized (N, 40, 128) contact window read
-// through its strides (the window variant, dtc_decimation_step_window: a
-// view of the patch copy or the window copy, no transpose); the two are
-// one template, the same arithmetic on the same cells; the
-// per-robot constants come from one packed float32 table
-// (physics/cuda_substep.py pack_constants).  Divisions by a Python scalar
-// in the plain version are multiplications by its float32 reciprocal
-// here, as PyTorch computes them on the card.
+// Bound on the H100: the latency of a long serial program per env.  At
+// 4096 envs there is little parallelism to hide it (a few warps an SM at
+// most), so what counts is how many SMs work and how long each thread's
+// chain is.  Design: a team of four lanes steps one env, one lane per leg:
+// lane `leg` owns its three joints (PD torque, limit spring, integration),
+// its leg's FK chain, the contact points on its leg (per the owner table
+// packed after the points; its foot among them), the leg's ABA backward
+// pass and, after the base solve, its forward pass.  Every lane computes
+// the base itself (rotation, body velocity, the base's articulated
+// inertia plus the four legs' in leg order, exchanged by warp shuffles,
+// the 6x6 LDL^T solve, the base integration), so the team's base values
+// are bit for bit the same and no lane waits on shared memory.  The torso
+// points are spread over the team; their forces are exchanged and summed
+// in point order, so every per-body sum keeps the plain version's order.
+// 32 envs a 128-thread block: 128 blocks at 4096 envs, one an SM.  A lane
+// holds 4 bodies' kinematics where one thread held 13.  The env-trailing
+// (k, N) arrays are read and written as they come; each foot reads its
+// four terrain cells straight from the blocked raw table (the fused
+// variant: the TPU kernel's window DMA has no counterpart) or from a
+// materialized (N, 40, 128) contact window read through its strides (the
+// window variant, dtc_decimation_step_window: a view of the patch copy or
+// the window copy, no transpose); the two are one template, the same
+// arithmetic on the same cells; the per-robot constants come from one
+// packed float32 table (physics/cuda_substep.py pack_constants).
+// Divisions by a Python scalar in the plain version are multiplications
+// by its float32 reciprocal here, as PyTorch computes them on the card.
 #include "common.cuh"
 
 namespace {
 
 constexpr int NQ = 12;
-constexpr int NB = 13;
 constexpr int NF = 4;
 constexpr int PC = 128;      // table columns
 constexpr int WIN_R0 = 16;   // contact window rows [r0+16, r0+56)
 constexpr int MAXP = 32;
 constexpr int MAXRB = 32;
+constexpr int LANES = 4;         // a team: one lane per leg
+constexpr int MAX_THREADS = 128;
+constexpr int MAXLP = 3;         // contact points on one leg
+constexpr int MAXTS = 2;         // torso points a lane
 
-// packed constant table: scalars, then per-joint rows, layout, points
+// packed constant table: scalars, then per-joint rows, layout, points;
+// after the points' rows, each point's owner: leg + LANES * (depth + 1)
+// for a point on a leg body, its lane (torso points in turn) for the torso
 enum {
     S_DT, S_G, S_K, S_CD, S_FMAX, S_ARM, S_JF, S_LK, S_LD, S_KT, S_CT,
     S_NCAP, S_CLIFF, S_CDEPTH, S_HS, S_INV_HS, S_KDT, S_KTDT, S_INV_KT,
@@ -221,30 +237,165 @@ __device__ void solve_spd6(const float* A, const float* b, float* x) {
     }
 }
 
+// ---- one contact point ---------------------------------------------------
+
+// World state of point p on a body (Rb, Xb, Vb), the terrain under it, the
+// anchored penalty contact (physics/engine.py heightfield_contact) and the
+// spatial force it puts on its body (tq, f: world-aligned at the body's
+// origin).  A foot (p < NF) samples its band of the contact window, the
+// band placed at substep 0; a body point its frozen plane.
+template <bool MAYBE_FOOT>
+__device__ __forceinline__ void point_contact(
+        const Args& a, const float* c, int p, int s, long N, long n,
+        const float* Rb, const float* Xb, const float* Vb, float& anc_x,
+        float& anc_y, float& band_r, float& band_c, const float* win,
+        long long rs, long long cs, float wox, float woy, float fric,
+        float rest, float* f, float* tq, float* pp, float* pv) {
+    const int P = a.P;
+    const float dt = c[S_DT];
+    const float* o3 = c + C_PTS + 2 * P + 3 * p;
+    float t[3], vb[3];
+    rmul(Rb, o3, t);
+    for (int i = 0; i < 3; ++i) pp[i] = Xb[i] + t[i];
+    cross(Vb, o3, t);
+    for (int i = 0; i < 3; ++i) vb[i] = Vb[3 + i] + t[i];
+    rmul(Rb, vb, pv);
+
+    float h, dhdx, dhdy, hmax;
+    if (MAYBE_FOOT && p < NF) {
+        const float fr = (pp[0] - wox) * c[S_INV_HS];
+        const float fc = (pp[1] - woy) * c[S_INV_HS];
+        if (s == 0) {
+            band_r = clampf(floorf((fr - 2.0f) * 0.125f), 0.0f, 3.0f) * 8.0f;
+            band_c = clampf(floorf((fc - 2.0f) * 0.125f), 0.0f, 14.0f) * 8.0f;
+        }
+        const float lfr = clampf(fr - band_r, 0.0f, 14.999f);
+        const float lfc = clampf(fc - band_c, 0.0f, 14.999f);
+        const float i0 = floorf(lfr), j0 = floorf(lfc);
+        const float tx = lfr - i0, ty = lfc - j0;
+        const float* cp = win + (long long)(band_r + i0) * rs
+                        + (long long)(band_c + j0) * cs;
+        const float c00 = cp[0], c01 = cp[cs], c10 = cp[rs], c11 = cp[rs + cs];
+        h = c00 * (1.0f - tx) * (1.0f - ty) + c10 * tx * (1.0f - ty)
+          + c01 * (1.0f - tx) * ty + c11 * tx * ty;
+        dhdx = clampf(((c10 - c00) * (1.0f - ty) + (c11 - c01) * ty) * c[S_INV_HS],
+                      -3.0f, 3.0f);
+        dhdy = clampf(((c01 - c00) * (1.0f - tx) + (c11 - c10) * tx) * c[S_INV_HS],
+                      -3.0f, 3.0f);
+        hmax = fmaxf(fmaxf(c00, c10), fmaxf(c01, c11));
+    } else {
+        const float* pl = a.planes + (long)(p - NF) * 5 * N + n;
+        h = pl[0] + pl[N] * (pp[0] - pl[3 * N]) + pl[2 * N] * (pp[1] - pl[4 * N]);
+        dhdx = pl[N];
+        dhdy = pl[2 * N];
+        hmax = h;
+    }
+
+    const float zr = pp[2] - c[C_PTS + p];
+    const bool cliff = fabsf(dhdx) >= c[S_CLIFF] || fabsf(dhdy) >= c[S_CLIFF];
+    const bool sup = cliff && (hmax - zr) < c[S_CDEPTH];
+    const float h_eff = sup ? hmax : h;
+    const float ncap = c[S_NCAP];
+    const float gx = sup ? 0.0f : (cliff ? dhdx : clampf(dhdx, -ncap, ncap));
+    const float gy = sup ? 0.0f : (cliff ? dhdy : clampf(dhdy, -ncap, ncap));
+    float nx = -gx, ny = -gy;
+    const float inv_norm = rsqrtf(nx * nx + ny * ny + 1.0f);
+    nx = nx * inv_norm;
+    ny = ny * inv_norm;
+    const float nz = inv_norm;
+    const float pen = h_eff - zr;
+    const float vn = pv[0] * nx + pv[1] * ny + pv[2] * nz;
+    const float active = (pen > 0.0f && pen < 0.5f) ? 1.0f : 0.0f;
+    const float m = c[C_PTS + P + p];
+    const float damp = vn < 0.0f ? c[S_CD] : c[S_CD] * (1.0f - rest);
+    const float denom = 1.0f + (c[S_KDT] + damp) * dt / m;
+    float fn = (c[S_K] * pen - (c[S_KDT] + damp) * vn) / denom;
+    fn = clampf(fn, 0.0f, c[S_FMAX]) * active;
+    const float inv_t = 1.0f / (1.0f + c[S_KTDT] / m);
+    const float disp_x = pp[0] - anc_x, disp_y = pp[1] - anc_y;
+    float ftx = -(c[S_KT] * disp_x + c[S_CT] * pv[0]) * inv_t;
+    float fty = -(c[S_KT] * disp_y + c[S_CT] * pv[1]) * inv_t;
+    const float ft_mag = sqrtf(ftx * ftx + fty * fty + 1e-12f);
+    const float scale = fminf(1.0f, fric * fn / ft_mag);
+    ftx = ftx * scale * active;
+    fty = fty * scale * active;
+    const bool is_active = active > 0.0f;
+    const bool slip = scale < 1.0f && is_active;
+    if (slip) {
+        anc_x = pp[0] + ftx * c[S_INV_KT];
+        anc_y = pp[1] + fty * c[S_INV_KT];
+    } else if (!is_active) {
+        anc_x = pp[0];
+        anc_y = pp[1];
+    }
+    f[0] = nx * fn + ftx;
+    f[1] = ny * fn + fty;
+    f[2] = nz * fn;
+    float arm[3];
+    for (int i = 0; i < 3; ++i) arm[i] = pp[i] - Xb[i];
+    cross(arm, f, tq);
+}
+
 // ---- the kernel -------------------------------------------------------
 
+// A team of LANES threads steps one env: lane `leg` owns that leg's joints,
+// bodies and contact points; every lane computes the base.  The teams of a
+// warp are consecutive envs.  A team past the last env steps env N-1 again
+// (every shuffle takes the whole warp) and writes nothing.
 template <bool WINDOW>
-__global__ void __launch_bounds__(128) substep_kernel(Args a) {
+__global__ void __launch_bounds__(MAX_THREADS) substep_kernel(Args a) {
+    __shared__ float s_force[MAX_THREADS / LANES][MAXP * 3];   // last substep
+    const unsigned FULL = 0xffffffffu;
     const long N = a.N;
-    const long n = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (n >= N) return;
+    const int leg = threadIdx.x & (LANES - 1);
+    const int team = threadIdx.x / LANES;
+    long n = (long)blockIdx.x * (blockDim.x / LANES) + team;
+    const bool valid = n < N;
+    if (!valid) n = N - 1;
     const float* c = a.consts;
     const int P = a.P;
     const float dt = c[S_DT];
-    const float* c_rad = c + C_PTS;
-    const float* c_effm = c + C_PTS + P;
-    const float* c_off = c + C_PTS + 2 * P;
-    const float* c_dyn = c + C_PTS + 5 * P;
     const float* c_rep = c + C_PTS + 6 * P;
+    const float* c_own = c + C_PTS + 7 * P;
 
-    float q[NQ], qd[NQ], kp[NQ], kd[NQ], st[NQ], off[NQ], tau[NQ], tau_eff[NQ];
-    for (int j = 0; j < NQ; ++j) {
-        q[j] = a.q[j * N + n];
-        qd[j] = a.qd[j * N + n];
-        kp[j] = a.kp[j * N + n];
-        kd[j] = a.kd[j * N + n];
-        st[j] = a.strength[j * N + n];
-        off[j] = a.offset[j * N + n];
+    // this lane's points, in point order: on its leg (body depth from the
+    // owner table) and on the torso (every LANES-th torso point)
+    int lp[MAXLP], ld[MAXLP], tp[MAXTS];
+    int n_torso = 0;
+    {
+        unsigned legm = 0u, torm = 0u;
+        for (int p = 0; p < P; ++p) {
+            const int code = (int)c_own[p];
+            n_torso += code < LANES;
+            if ((code & (LANES - 1)) == leg)
+                (code < LANES ? torm : legm) |= 1u << p;
+        }
+#pragma unroll
+        for (int k = 0; k < MAXLP; ++k) {
+            lp[k] = legm ? __ffs(legm) - 1 : -1;
+            ld[k] = legm ? (int)c_own[lp[k]] / LANES - 1 : 0;
+            legm &= legm - 1u;
+        }
+#pragma unroll
+        for (int k = 0; k < MAXTS; ++k) {
+            tp[k] = torm ? __ffs(torm) - 1 : -1;
+            torm &= torm - 1u;
+        }
+    }
+
+    // the lane's three joints, base to foot
+    int jn[3];
+    float q[3], qd[3], kp[3], kd[3], st[3], off[3], tau[3], tau_eff[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+        const int j = (int)c[C_JOINT + 4 * d + leg];
+        jn[d] = j;
+        q[d] = a.q[j * N + n];
+        qd[d] = a.qd[j * N + n];
+        kp[d] = a.kp[j * N + n];
+        kd[d] = a.kd[j * N + n];
+        st[d] = a.strength[j * N + n];
+        off[d] = a.offset[j * N + n];
     }
     float pos[3], quat[4], lin[3], ang[3];
     for (int i = 0; i < 3; ++i) {
@@ -253,10 +404,19 @@ __global__ void __launch_bounds__(128) substep_kernel(Args a) {
         ang[i] = a.ang[i * N + n];
     }
     for (int i = 0; i < 4; ++i) quat[i] = a.quat[i * N + n];
-    float anc[MAXP][2];
-    for (int p = 0; p < P; ++p) {
-        anc[p][0] = a.anchors[(2 * p) * N + n];
-        anc[p][1] = a.anchors[(2 * p + 1) * N + n];
+    float anc[MAXLP][2], band[MAXLP][2], tanc[MAXTS][2];
+#pragma unroll
+    for (int k = 0; k < MAXLP; ++k) {
+        const int p = lp[k] < 0 ? 0 : lp[k];
+        anc[k][0] = a.anchors[(2 * p) * N + n];
+        anc[k][1] = a.anchors[(2 * p + 1) * N + n];
+        band[k][0] = band[k][1] = 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < MAXTS; ++k) {
+        const int p = tp[k] < 0 ? 0 : tp[k];
+        tanc[k][0] = a.anchors[(2 * p) * N + n];
+        tanc[k][1] = a.anchors[(2 * p + 1) * N + n];
     }
     const float fric = a.friction[n], rest = a.restitution[n];
     const float wox = a.worigin[n], woy = a.worigin[N + n];
@@ -273,251 +433,238 @@ __global__ void __launch_bounds__(128) substep_kernel(Args a) {
         rs = PC;
         cs = 1;
     }
-    float band_r[NF], band_c[NF];
-
-    float R[NB][9], X[NB][3], V[NB][6], fext[NB][6];
-    float Ust[NQ][6], cst[NQ][6], dinv[NQ], ust[NQ];
 
     for (int s = 0; s < a.decimation; ++s) {
         const bool last = (s == a.decimation - 1);
-        // ---- PD torques + joint-limit spring ---------------------------
-        for (int j = 0; j < NQ; ++j) {
+        // ---- PD torques + joint-limit spring (the lane's joints) --------
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+            const int j = jn[d];
             const float goal = a.goals[((long)s * NQ + j) * N + n];
             const float tlim = c[C_TLIM + j], lo = c[C_LO + j], hi = c[C_HI + j];
-            float t = kp[j] * (goal - q[j] + off[j]) - kd[j] * qd[j];
-            t = fmaxf(fminf(t * st[j], tlim), -tlim);
-            tau[j] = t;
-            const float beyond = (q[j] < lo || q[j] > hi) ? 1.0f : 0.0f;
-            const float tl = c[S_LK] * (fmaxf(lo - q[j], 0.0f) - fmaxf(q[j] - hi, 0.0f))
-                           - c[S_LD] * qd[j] * beyond;
-            tau_eff[j] = t + tl;
+            float t = kp[d] * (goal - q[d] + off[d]) - kd[d] * qd[d];
+            t = fmaxf(fminf(t * st[d], tlim), -tlim);
+            tau[d] = t;
+            const float beyond = (q[d] < lo || q[d] > hi) ? 1.0f : 0.0f;
+            const float tl = c[S_LK] * (fmaxf(lo - q[d], 0.0f) - fmaxf(q[d] - hi, 0.0f))
+                           - c[S_LD] * qd[d] * beyond;
+            tau_eff[d] = t + tl;
         }
 
-        // ---- FK ---------------------------------------------------------
-        quat_to_rotmat(quat, R[0]);
-        for (int i = 0; i < 3; ++i) X[0][i] = pos[i];
-        rtmul(R[0], ang, V[0]);
-        rtmul(R[0], lin, V[0] + 3);
-        for (int leg = 0; leg < 4; ++leg) {
-            int par = 0;
-            for (int d = 0; d < 3; ++d) {
-                const int b = (int)c[C_BODY + 4 * d + leg];
-                const int j = (int)c[C_JOINT + 4 * d + leg];
-                const float* ax = c + C_AXIS + 3 * d;
-                const float* r = c + C_R + 3 * (4 * d + leg);
-                float Rj[9], E[9], t[3];
-                axis_rotation(ax, q[j], Rj);
-                transpose3(Rj, E);
-                xm_apply(E, r, V[par], V[b]);
-                for (int i = 0; i < 3; ++i) V[b][i] = V[b][i] + ax[i] * qd[j];
-                mmul3(R[par], Rj, R[b]);
-                rmul(R[par], r, t);
-                for (int i = 0; i < 3; ++i) X[b][i] = X[par][i] + t[i];
-                par = b;
-            }
+        // ---- FK: the base (every lane), then the lane's leg -------------
+        float R0[9], V0[6];
+        quat_to_rotmat(quat, R0);
+        rtmul(R0, ang, V0);
+        rtmul(R0, lin, V0 + 3);
+        float R[3][9], X[3][3], V[3][6], E[3][9];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+            const float* ax = c + C_AXIS + 3 * d;
+            const float* r = c + C_R + 3 * (4 * d + leg);
+            const float* Rp = d == 0 ? R0 : R[d - 1];
+            const float* Xp = d == 0 ? pos : X[d - 1];
+            const float* Vp = d == 0 ? V0 : V[d - 1];
+            float Rj[9], t[3];
+            axis_rotation(ax, q[d], Rj);
+            transpose3(Rj, E[d]);
+            xm_apply(E[d], r, Vp, V[d]);
+            for (int i = 0; i < 3; ++i) V[d][i] = V[d][i] + ax[i] * qd[d];
+            mmul3(Rp, Rj, R[d]);
+            rmul(Rp, r, t);
+            for (int i = 0; i < 3; ++i) X[d][i] = Xp[i] + t[i];
         }
 
-        // ---- contact points: state, terrain, contact, force sums --------
-        for (int b = 0; b < NB; ++b)
-            for (int i = 0; i < 6; ++i) fext[b][i] = 0.0f;
-        float rep[MAXRB][3];
-        if (last)
-            for (int b = 0; b < a.nrb; ++b) rep[b][0] = rep[b][1] = rep[b][2] = 0.0f;
-        for (int p = 0; p < P; ++p) {
-            const int b = (int)c_dyn[p];
-            const float* o3 = c_off + 3 * p;
-            float t[3], pp[3], pv[3], vb[3];
-            rmul(R[b], o3, t);
-            for (int i = 0; i < 3; ++i) pp[i] = X[b][i] + t[i];
-            cross(V[b], o3, t);
-            for (int i = 0; i < 3; ++i) vb[i] = V[b][3 + i] + t[i];
-            rmul(R[b], vb, pv);
-
-            float h, dhdx, dhdy, hmax;
-            if (p < NF) {
-                const float fr = (pp[0] - wox) * c[S_INV_HS];
-                const float fc = (pp[1] - woy) * c[S_INV_HS];
-                if (s == 0) {
-                    band_r[p] = clampf(floorf((fr - 2.0f) * 0.125f), 0.0f, 3.0f) * 8.0f;
-                    band_c[p] = clampf(floorf((fc - 2.0f) * 0.125f), 0.0f, 14.0f) * 8.0f;
-                }
-                const float lfr = clampf(fr - band_r[p], 0.0f, 14.999f);
-                const float lfc = clampf(fc - band_c[p], 0.0f, 14.999f);
-                const float i0 = floorf(lfr), j0 = floorf(lfc);
-                const float tx = lfr - i0, ty = lfc - j0;
-                const float* cp = win + (long long)(band_r[p] + i0) * rs
-                                + (long long)(band_c[p] + j0) * cs;
-                const float c00 = cp[0], c01 = cp[cs], c10 = cp[rs], c11 = cp[rs + cs];
-                h = c00 * (1.0f - tx) * (1.0f - ty) + c10 * tx * (1.0f - ty)
-                  + c01 * (1.0f - tx) * ty + c11 * tx * ty;
-                dhdx = clampf(((c10 - c00) * (1.0f - ty) + (c11 - c01) * ty) * c[S_INV_HS],
-                              -3.0f, 3.0f);
-                dhdy = clampf(((c01 - c00) * (1.0f - tx) + (c11 - c10) * tx) * c[S_INV_HS],
-                              -3.0f, 3.0f);
-                hmax = fmaxf(fmaxf(c00, c10), fmaxf(c01, c11));
-            } else {
-                const float* pl = a.planes + (long)(p - NF) * 5 * N + n;
-                h = pl[0] + pl[N] * (pp[0] - pl[3 * N]) + pl[2 * N] * (pp[1] - pl[4 * N]);
-                dhdx = pl[N];
-                dhdy = pl[2 * N];
-                hmax = h;
-            }
-
-            // anchored penalty contact (physics/engine.py heightfield_contact)
-            const float zr = pp[2] - c_rad[p];
-            const bool cliff = fabsf(dhdx) >= c[S_CLIFF] || fabsf(dhdy) >= c[S_CLIFF];
-            const bool sup = cliff && (hmax - zr) < c[S_CDEPTH];
-            const float h_eff = sup ? hmax : h;
-            const float ncap = c[S_NCAP];
-            const float gx = sup ? 0.0f : (cliff ? dhdx : clampf(dhdx, -ncap, ncap));
-            const float gy = sup ? 0.0f : (cliff ? dhdy : clampf(dhdy, -ncap, ncap));
-            float nx = -gx, ny = -gy;
-            const float inv_norm = rsqrtf(nx * nx + ny * ny + 1.0f);
-            nx = nx * inv_norm;
-            ny = ny * inv_norm;
-            const float nz = inv_norm;
-            const float pen = h_eff - zr;
-            const float vn = pv[0] * nx + pv[1] * ny + pv[2] * nz;
-            const float active = (pen > 0.0f && pen < 0.5f) ? 1.0f : 0.0f;
-            const float m = c_effm[p];
-            const float damp = vn < 0.0f ? c[S_CD] : c[S_CD] * (1.0f - rest);
-            const float denom = 1.0f + (c[S_KDT] + damp) * dt / m;
-            float fn = (c[S_K] * pen - (c[S_KDT] + damp) * vn) / denom;
-            fn = clampf(fn, 0.0f, c[S_FMAX]) * active;
-            const float inv_t = 1.0f / (1.0f + c[S_KTDT] / m);
-            const float disp_x = pp[0] - anc[p][0], disp_y = pp[1] - anc[p][1];
-            float ftx = -(c[S_KT] * disp_x + c[S_CT] * pv[0]) * inv_t;
-            float fty = -(c[S_KT] * disp_y + c[S_CT] * pv[1]) * inv_t;
-            const float ft_mag = sqrtf(ftx * ftx + fty * fty + 1e-12f);
-            const float scale = fminf(1.0f, fric * fn / ft_mag);
-            ftx = ftx * scale * active;
-            fty = fty * scale * active;
-            const bool is_active = active > 0.0f;
-            const bool slip = scale < 1.0f && is_active;
-            if (slip) {
-                anc[p][0] = pp[0] + ftx * c[S_INV_KT];
-                anc[p][1] = pp[1] + fty * c[S_INV_KT];
-            } else if (!is_active) {
-                anc[p][0] = pp[0];
-                anc[p][1] = pp[1];
-            }
-            const float f[3] = {nx * fn + ftx, ny * fn + fty, nz * fn};
-
-            // spatial force on the body, world-aligned at its origin
-            float arm[3], tq[3];
-            for (int i = 0; i < 3; ++i) arm[i] = pp[i] - X[b][i];
-            cross(arm, f, tq);
-            for (int i = 0; i < 3; ++i) {
-                fext[b][i] = fext[b][i] + tq[i];
-                fext[b][3 + i] = fext[b][3 + i] + f[i];
-            }
-            if (last) {
-                const int rb = (int)c_rep[p];
-                for (int i = 0; i < 3; ++i) rep[rb][i] = rep[rb][i] + f[i];
-                if (p < NF) {
+        // ---- contact points and the per-body force sums ------------------
+        float fext[3][6], fext0[6];
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+            fext0[i] = 0.0f;
+            fext[0][i] = fext[1][i] = fext[2][i] = 0.0f;
+        }
+        float* my_force = s_force[team];
+#pragma unroll
+        for (int k = 0; k < MAXLP; ++k) {
+            const int p = lp[k];
+            if (p < 0) break;
+            const int d = ld[k];
+            float Rb[9], Xb[3], Vb[6];
+            for (int i = 0; i < 9; ++i)
+                Rb[i] = d == 0 ? R[0][i] : (d == 1 ? R[1][i] : R[2][i]);
+            for (int i = 0; i < 3; ++i)
+                Xb[i] = d == 0 ? X[0][i] : (d == 1 ? X[1][i] : X[2][i]);
+            for (int i = 0; i < 6; ++i)
+                Vb[i] = d == 0 ? V[0][i] : (d == 1 ? V[1][i] : V[2][i]);
+            float f[3], tq[3], pp[3], pv[3];
+            point_contact<true>(a, c, p, s, N, n, Rb, Xb, Vb, anc[k][0],
+                                anc[k][1], band[k][0], band[k][1], win, rs, cs,
+                                wox, woy, fric, rest, f, tq, pp, pv);
+#pragma unroll
+            for (int dd = 0; dd < 3; ++dd)
+                if (d == dd)
                     for (int i = 0; i < 3; ++i) {
-                        a.footpos_o[(3 * p + i) * N + n] = pp[i];
-                        a.footvel_o[(3 * p + i) * N + n] = pv[i];
+                        fext[dd][i] = fext[dd][i] + tq[i];
+                        fext[dd][3 + i] = fext[dd][3 + i] + f[i];
                     }
-                } else {
-                    for (int i = 0; i < 3; ++i)
-                        a.bodypts_o[(3 * (p - NF) + i) * N + n] = pp[i];
+            if (last) {
+                for (int i = 0; i < 3; ++i) my_force[3 * p + i] = f[i];
+                if (valid) {
+                    if (p < NF) {
+                        for (int i = 0; i < 3; ++i) {
+                            a.footpos_o[(3 * p + i) * N + n] = pp[i];
+                            a.footvel_o[(3 * p + i) * N + n] = pv[i];
+                        }
+                    } else {
+                        for (int i = 0; i < 3; ++i)
+                            a.bodypts_o[(3 * (p - NF) + i) * N + n] = pp[i];
+                    }
                 }
+            }
+        }
+        // torso points: LANES at a time, one a lane; their forces go to
+        // every lane and into fext[0] in point order
+#pragma unroll
+        for (int k = 0; k < MAXTS; ++k) {
+            if (LANES * k >= n_torso) break;
+            float w[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+            const int p = tp[k];
+            if (p >= 0) {
+                float f[3], tq[3], pp[3], pv[3], unused_r, unused_c;
+                point_contact<false>(a, c, p, s, N, n, R0, pos, V0, tanc[k][0],
+                                     tanc[k][1], unused_r, unused_c, win, rs,
+                                     cs, wox, woy, fric, rest, f, tq, pp, pv);
+                for (int i = 0; i < 3; ++i) {
+                    w[i] = tq[i];
+                    w[3 + i] = f[i];
+                }
+                if (last) {
+                    for (int i = 0; i < 3; ++i) my_force[3 * p + i] = f[i];
+                    if (valid)
+                        for (int i = 0; i < 3; ++i)
+                            a.bodypts_o[(3 * (p - NF) + i) * N + n] = pp[i];
+                }
+            }
+#pragma unroll
+            for (int src = 0; src < LANES; ++src) {
+                float v[6];
+                for (int i = 0; i < 6; ++i) v[i] = __shfl_sync(FULL, w[i], src, LANES);
+                if (LANES * k + src < n_torso)
+                    for (int i = 0; i < 6; ++i) fext0[i] = fext0[i] + v[i];
             }
         }
         if (last) {
-            for (int b = 0; b < a.nrb; ++b)
-                for (int i = 0; i < 3; ++i) a.report_o[(3 * b + i) * N + n] = rep[b][i];
-            for (int k = 0; k < 4; ++k) {
-                const int b = (int)c[C_THIGH + k];
-                for (int i = 0; i < 3; ++i) a.thigh_o[(3 * k + i) * N + n] = X[b][i];
+            __syncwarp();
+            // report sums in point order, every LANES-th body a lane
+            for (int b = leg; b < a.nrb; b += LANES) {
+                float acc[3] = {0.0f, 0.0f, 0.0f};
+                for (int p = 0; p < P; ++p)
+                    if ((int)c_rep[p] == b)
+                        for (int i = 0; i < 3; ++i) acc[i] = acc[i] + my_force[3 * p + i];
+                if (valid)
+                    for (int i = 0; i < 3; ++i) a.report_o[(3 * b + i) * N + n] = acc[i];
             }
-            for (int j = 0; j < NQ; ++j) a.tau_o[j * N + n] = tau[j];
+            if (valid) {
+                for (int k = 0; k < 4; ++k) {
+                    const int b = (int)c[C_THIGH + k];
+#pragma unroll
+                    for (int d = 0; d < 3; ++d)
+                        if ((int)c[C_BODY + 4 * d + leg] == b)
+                            for (int i = 0; i < 3; ++i)
+                                a.thigh_o[(3 * k + i) * N + n] = X[d][i];
+                    if (b == 0 && leg == 0)
+                        for (int i = 0; i < 3; ++i) a.thigh_o[(3 * k + i) * N + n] = pos[i];
+                }
+#pragma unroll
+                for (int d = 0; d < 3; ++d) a.tau_o[jn[d] * N + n] = tau[d];
+            }
         }
 
         // ---- articulated-body algorithm (physics/quadruped.py aba) -------
-        float IA0[36], pA0[6], IAsum[36], pAsum[6], tmp6[6], f6[6];
-        for (int i = 0; i < 36; ++i) {
-            IA0[i] = a.inertias[(long)i * N + n];
-            IAsum[i] = 0.0f;
-        }
-        imul(IA0, V[0], tmp6);
-        crf(V[0], tmp6, pA0);
-        rtmul(R[0], fext[0], f6);
-        rtmul(R[0], fext[0] + 3, f6 + 3);
-        for (int i = 0; i < 6; ++i) {
-            pA0[i] = pA0[i] - f6[i];
-            pAsum[i] = 0.0f;
-        }
-        for (int leg = 0; leg < 4; ++leg) {
-            float IAc[36], pAc[6];
-            for (int d = 2; d >= 0; --d) {
-                const int b = (int)c[C_BODY + 4 * d + leg];
-                const int j = (int)c[C_JOINT + 4 * d + leg];
-                const float* ax = c + C_AXIS + 3 * d;
-                const float* r = c + C_R + 3 * (4 * d + leg);
-                float IA[36], pA[6], Rj[9], E[9];
-                for (int i = 0; i < 36; ++i) IA[i] = a.inertias[((long)b * 36 + i) * N + n];
-                imul(IA, V[b], tmp6);
-                crf(V[b], tmp6, pA);
-                rtmul(R[b], fext[b], f6);
-                rtmul(R[b], fext[b] + 3, f6 + 3);
-                for (int i = 0; i < 6; ++i) pA[i] = pA[i] - f6[i];
-                if (d < 2) {
-                    for (int i = 0; i < 36; ++i) IA[i] = IA[i] + IAc[i];
-                    for (int i = 0; i < 6; ++i) pA[i] = pA[i] + pAc[i];
-                }
-                const float sq[6] = {ax[0] * qd[j], ax[1] * qd[j], ax[2] * qd[j],
-                                     0.0f, 0.0f, 0.0f};
-                crm(V[b], sq, cst[j]);
-                float* U = Ust[j];
-                for (int i = 0; i < 6; ++i)
-                    U[i] = IA[6 * i] * ax[0] + IA[6 * i + 1] * ax[1] + IA[6 * i + 2] * ax[2];
-                const float D = ax[0] * U[0] + ax[1] * U[1] + ax[2] * U[2] + c[S_ARM];
-                const float u = tau_eff[j] - c[S_JF] * qd[j]
-                              - (ax[0] * pA[0] + ax[1] * pA[1] + ax[2] * pA[2]);
-                dinv[j] = 1.0f / D;
-                ust[j] = u;
-                float Ia[36], pa[6], Iac[6];
-                for (int i = 0; i < 6; ++i)
-                    for (int k = 0; k < 6; ++k)
-                        Ia[6 * i + k] = IA[6 * i + k] - U[i] * U[k] * dinv[j];
-                imul(Ia, cst[j], Iac);
-                const float uD = u / D;
-                for (int i = 0; i < 6; ++i) pa[i] = pA[i] + Iac[i] + U[i] * uD;
-                axis_rotation(ax, q[j], Rj);
-                transpose3(Rj, E);
-                inertia_to_parent(E, r, Ia, IAc);
-                xf_inv_apply(E, r, pa, pAc);
-                if (d == 0) {
-                    for (int i = 0; i < 36; ++i) IAsum[i] = IAsum[i] + IAc[i];
-                    for (int i = 0; i < 6; ++i) pAsum[i] = pAsum[i] + pAc[i];
-                }
+        // the lane's leg, foot to hip; then the base from the four legs'
+        // articulated inertias, added in leg order as the plain version does
+        float Ust[3][6], cst[3][6], dinv[3], ust[3];
+        float IAc[36], pAc[6], tmp6[6], f6[6];
+#pragma unroll
+        for (int d = 2; d >= 0; --d) {
+            const int b = (int)c[C_BODY + 4 * d + leg];
+            const float* ax = c + C_AXIS + 3 * d;
+            const float* r = c + C_R + 3 * (4 * d + leg);
+            float IA[36], pA[6];
+            for (int i = 0; i < 36; ++i) IA[i] = a.inertias[((long)b * 36 + i) * N + n];
+            imul(IA, V[d], tmp6);
+            crf(V[d], tmp6, pA);
+            rtmul(R[d], fext[d], f6);
+            rtmul(R[d], fext[d] + 3, f6 + 3);
+            for (int i = 0; i < 6; ++i) pA[i] = pA[i] - f6[i];
+            if (d < 2) {
+                for (int i = 0; i < 36; ++i) IA[i] = IA[i] + IAc[i];
+                for (int i = 0; i < 6; ++i) pA[i] = pA[i] + pAc[i];
             }
+            const float sq[6] = {ax[0] * qd[d], ax[1] * qd[d], ax[2] * qd[d],
+                                 0.0f, 0.0f, 0.0f};
+            crm(V[d], sq, cst[d]);
+            float* U = Ust[d];
+            for (int i = 0; i < 6; ++i)
+                U[i] = IA[6 * i] * ax[0] + IA[6 * i + 1] * ax[1] + IA[6 * i + 2] * ax[2];
+            const float D = ax[0] * U[0] + ax[1] * U[1] + ax[2] * U[2] + c[S_ARM];
+            const float u = tau_eff[d] - c[S_JF] * qd[d]
+                          - (ax[0] * pA[0] + ax[1] * pA[1] + ax[2] * pA[2]);
+            dinv[d] = 1.0f / D;
+            ust[d] = u;
+            float Ia[36], pa[6], Iac[6];
+            for (int i = 0; i < 6; ++i)
+                for (int k = 0; k < 6; ++k)
+                    Ia[6 * i + k] = IA[6 * i + k] - U[i] * U[k] * dinv[d];
+            imul(Ia, cst[d], Iac);
+            const float uD = u / D;
+            for (int i = 0; i < 6; ++i) pa[i] = pA[i] + Iac[i] + U[i] * uD;
+            inertia_to_parent(E[d], r, Ia, IAc);
+            xf_inv_apply(E[d], r, pa, pAc);
         }
-        for (int i = 0; i < 36; ++i) IA0[i] = IA0[i] + IAsum[i];
-        for (int i = 0; i < 6; ++i) pA0[i] = pA0[i] + pAsum[i];
+        float IA0[36], pA0[6];
+        for (int i = 0; i < 36; ++i) IA0[i] = a.inertias[(long)i * N + n];
+        imul(IA0, V0, tmp6);
+        crf(V0, tmp6, pA0);
+        rtmul(R0, fext0, f6);
+        rtmul(R0, fext0 + 3, f6 + 3);
+        for (int i = 0; i < 6; ++i) pA0[i] = pA0[i] - f6[i];
+        // the base solve reads the lower triangle only
+#pragma unroll
+        for (int i = 0; i < 6; ++i)
+#pragma unroll
+            for (int k = 0; k <= i; ++k) {
+                float sum = 0.0f;
+#pragma unroll
+                for (int src = 0; src < LANES; ++src)
+                    sum = sum + __shfl_sync(FULL, IAc[6 * i + k], src, LANES);
+                IA0[6 * i + k] = IA0[6 * i + k] + sum;
+            }
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+            float sum = 0.0f;
+#pragma unroll
+            for (int src = 0; src < LANES; ++src)
+                sum = sum + __shfl_sync(FULL, pAc[i], src, LANES);
+            pA0[i] = pA0[i] + sum;
+        }
         float a0[6];
         solve_spd6(IA0, pA0, a0);
         for (int i = 0; i < 6; ++i) a0[i] = -a0[i];
 
-        float qdd[NQ];
-        for (int leg = 0; leg < 4; ++leg) {
+        float qdd[3];
+        {
             float a_par[6];
             for (int i = 0; i < 6; ++i) a_par[i] = a0[i];
+#pragma unroll
             for (int d = 0; d < 3; ++d) {
-                const int j = (int)c[C_JOINT + 4 * d + leg];
                 const float* ax = c + C_AXIS + 3 * d;
                 const float* r = c + C_R + 3 * (4 * d + leg);
-                float Rj[9], E[9], ap[6];
-                axis_rotation(ax, q[j], Rj);
-                transpose3(Rj, E);
-                xm_apply(E, r, a_par, ap);
-                for (int i = 0; i < 6; ++i) ap[i] = ap[i] + cst[j][i];
-                float ua = Ust[j][0] * ap[0];
-                for (int i = 1; i < 6; ++i) ua = ua + Ust[j][i] * ap[i];
-                qdd[j] = (ust[j] - ua) * dinv[j];
-                for (int i = 0; i < 3; ++i) ap[i] = ap[i] + ax[i] * qdd[j];
+                float ap[6];
+                xm_apply(E[d], r, a_par, ap);
+                for (int i = 0; i < 6; ++i) ap[i] = ap[i] + cst[d][i];
+                float ua = Ust[d][0] * ap[0];
+                for (int i = 1; i < 6; ++i) ua = ua + Ust[d][i] * ap[i];
+                qdd[d] = (ust[d] - ua) * dinv[d];
+                for (int i = 0; i < 3; ++i) ap[i] = ap[i] + ax[i] * qdd[d];
                 for (int i = 0; i < 6; ++i) a_par[i] = ap[i];
             }
         }
@@ -525,21 +672,22 @@ __global__ void __launch_bounds__(128) substep_kernel(Args a) {
         // ---- semi-implicit integration ----------------------------------
         const float gw[3] = {0.0f, 0.0f, c[S_G]};
         float gb[3], v0n[6], ww[3], vw[3];
-        rtmul(R[0], gw, gb);
+        rtmul(R0, gw, gb);
         for (int i = 0; i < 3; ++i) {
-            v0n[i] = V[0][i] + dt * a0[i];
-            v0n[3 + i] = V[0][3 + i] + dt * (a0[3 + i] + gb[i]);
+            v0n[i] = V0[i] + dt * a0[i];
+            v0n[3 + i] = V0[3 + i] + dt * (a0[3 + i] + gb[i]);
         }
-        rmul(R[0], v0n, ww);
-        rmul(R[0], v0n + 3, vw);
+        rmul(R0, v0n, ww);
+        rmul(R0, v0n + 3, vw);
         for (int i = 0; i < 3; ++i) {
             ww[i] = clampf(ww[i], -50.0f, 50.0f);
             vw[i] = clampf(vw[i], -100.0f, 100.0f);
         }
-        for (int j = 0; j < NQ; ++j) {
-            const float vl = c[C_VLIM + j];
-            qd[j] = fmaxf(fminf(qd[j] + dt * qdd[j], vl), -vl);
-            q[j] = q[j] + dt * qd[j];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+            const float vl = c[C_VLIM + jn[d]];
+            qd[d] = fmaxf(fminf(qd[d] + dt * qdd[d], vl), -vl);
+            q[d] = q[d] + dt * qd[d];
         }
         for (int i = 0; i < 3; ++i) {
             pos[i] = pos[i] + dt * vw[i];
@@ -562,20 +710,32 @@ __global__ void __launch_bounds__(128) substep_kernel(Args a) {
         for (int i = 0; i < 4; ++i) quat[i] = qn[i] / nrm;
     }
 
-    for (int j = 0; j < NQ; ++j) {
-        a.q_o[j * N + n] = q[j];
-        a.qd_o[j * N + n] = qd[j];
+    if (!valid) return;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+        a.q_o[jn[d] * N + n] = q[d];
+        a.qd_o[jn[d] * N + n] = qd[d];
     }
-    for (int i = 0; i < 3; ++i) {
-        a.pos_o[i * N + n] = pos[i];
-        a.lin_o[i * N + n] = lin[i];
-        a.ang_o[i * N + n] = ang[i];
+    if (leg == 0) {
+        for (int i = 0; i < 3; ++i) {
+            a.pos_o[i * N + n] = pos[i];
+            a.lin_o[i * N + n] = lin[i];
+            a.ang_o[i * N + n] = ang[i];
+        }
+        for (int i = 0; i < 4; ++i) a.quat_o[i * N + n] = quat[i];
     }
-    for (int i = 0; i < 4; ++i) a.quat_o[i * N + n] = quat[i];
-    for (int p = 0; p < P; ++p) {
-        a.anchors_o[(2 * p) * N + n] = anc[p][0];
-        a.anchors_o[(2 * p + 1) * N + n] = anc[p][1];
-    }
+#pragma unroll
+    for (int k = 0; k < MAXLP; ++k)
+        if (lp[k] >= 0) {
+            a.anchors_o[(2 * lp[k]) * N + n] = anc[k][0];
+            a.anchors_o[(2 * lp[k] + 1) * N + n] = anc[k][1];
+        }
+#pragma unroll
+    for (int k = 0; k < MAXTS; ++k)
+        if (tp[k] >= 0) {
+            a.anchors_o[(2 * tp[k]) * N + n] = tanc[k][0];
+            a.anchors_o[(2 * tp[k] + 1) * N + n] = tanc[k][1];
+        }
 }
 
 // The arguments common to both variants; the terrain source is set by
@@ -614,10 +774,12 @@ Args make_args(
 
 template <bool WINDOW>
 int run(const Args& a, int threads, void* stream) {
-    if (a.P > MAXP || a.nrb > MAXRB || a.P < NF || threads > 128)
+    if (a.P > MAXP || a.nrb > MAXRB || a.P < NF || threads % 32 != 0
+            || threads < 32 || threads > MAX_THREADS)
         return (int)cudaErrorInvalidValue;
     if (a.N > 0) {
-        const int grid = (a.N + threads - 1) / threads;
+        const int envs = threads / LANES;
+        const int grid = (a.N + envs - 1) / envs;
         substep_kernel<WINDOW><<<grid, threads, 0, (cudaStream_t)stream>>>(a);
     }
     return (int)cudaGetLastError();

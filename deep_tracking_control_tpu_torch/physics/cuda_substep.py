@@ -18,12 +18,18 @@ Terrain inside the step, as in the TPU kernel:
   * each BODY point uses the plane (h0, dh/dx, dh/dy at x0, y0) sampled at
     the end of the previous step, frozen through the step (:534-541).
 
-On the H100 the kernel is bound by latency and local memory: one thread
-runs one env's whole serial program (13-body recursions, data-dependent
-terrain reads), and the ABA's articulated 6x6 inertias do not fit in
-registers.  The design runs one thread per env, 128 threads per block,
-reads the env-trailing (k, N) arrays coalesced as they are, and takes
-every per-robot constant from one packed float32 table.
+On the H100 the kernel is bound by the latency of one env's long serial
+program (13-body recursions, data-dependent terrain reads, the ABA's 6x6
+articulated inertias), with little parallelism at 4096 envs to hide it.
+The design splits each env over a team of four lanes, one a leg: a lane
+runs its leg's joints, FK chain, contact points (the owner table of
+`pack_constants`), ABA backward and forward passes; every lane computes
+the base, with the legs' articulated inertias and the torso points'
+forces exchanged by warp shuffles and summed in the plain version's order.
+32 envs a 128-thread block fill 128 of the 132 SMs at 4096 envs
+(`launch_shape`).  The env-trailing (k, N) arrays are read coalesced as
+they are, and every per-robot constant comes from one packed float32
+table.
 
 Two variants, as in the JAX package, one kernel template in csrc:
   * fused (`blocks` + `starts`; `_substep_kernel_fused`, the Pallas call
@@ -54,15 +60,51 @@ WIN_R0, WIN_R = 16, 40     # contact window rows within the 64-row patch
 WIN_C0, WIN_C = 0, 128
 BAND = 16                  # per-foot band: 16x16 cells
 _BAND_MAX = BAND - 1.001
-THREADS = 128
+THREADS = 128              # threads a block, a multiple of 32
+LANES = 4                  # threads an env: one a leg
 
 # packed constant table (float32), shared with csrc/substep.cu
 C_LO, C_HI, C_TLIM, C_VLIM = 24, 36, 48, 60      # per joint (12 each)
 C_AXIS, C_R, C_BODY, C_JOINT, C_THIGH = 72, 81, 117, 129, 141
 C_PTS = 145                # then radius, eff_mass (P each), offset (3P),
-                           # dyn_idx, report_idx (P each)
+                           # dyn_idx, report_idx, owner (P each)
 MAX_POINTS, MAX_REPORT = 32, 32
+MAX_LEG_POINTS, MAX_TORSO_POINTS = 3, 2 * LANES   # csrc MAXLP, LANES * MAXTS
 _quad_models: dict = {}       # models whose quadruped layout was checked
+
+
+def launch_shape(n: int) -> tuple:
+    """(blocks, threads a block, envs a block) of the kernel at n envs."""
+    envs = THREADS // LANES
+    return (n + envs - 1) // envs, THREADS, envs
+
+
+def point_owners(layout, geom: ContactGeometry) -> np.ndarray:
+    """Each contact point's lane and body: leg + LANES * (depth + 1) for a
+    point on body `depth` of a leg, and for the torso's points the lanes in
+    turn (the k-th torso point to lane k % LANES).  Raises unless every
+    point lies on the torso or a leg, no foot on the torso, a lane holds at
+    most MAX_LEG_POINTS points of its leg and the torso at most
+    MAX_TORSO_POINTS."""
+    body_depth = {int(layout.body_idx[d, leg]): (leg, d)
+                  for d in range(3) for leg in range(4)}
+    owner = np.zeros(len(geom.dyn_idx), dtype=np.int64)
+    torso = 0
+    for p, b in enumerate(geom.dyn_idx):
+        if b == 0 and p >= 4:           # the 4 feet come first
+            owner[p] = torso % LANES
+            torso += 1
+        elif int(b) in body_depth:
+            leg, d = body_depth[int(b)]
+            owner[p] = leg + LANES * (d + 1)
+        else:
+            raise ValueError(f"contact point {p} on body {b}: neither the "
+                             f"torso nor a leg (a foot on the torso?)")
+    per_leg = np.bincount(owner[owner >= LANES] % LANES, minlength=LANES)
+    if per_leg.max() > MAX_LEG_POINTS or torso > MAX_TORSO_POINTS:
+        raise ValueError(f"unsupported contact geometry: {per_leg.max()} "
+                         f"points on a leg, {torso} on the torso")
+    return owner
 
 
 def pack_constants(model: RobotModel, geom: ContactGeometry, sim: SimParams,
@@ -71,7 +113,7 @@ def pack_constants(model: RobotModel, geom: ContactGeometry, sim: SimParams,
     layout = quadruped.quad_layout(model)
     P = len(geom.dyn_idx)
     dt = sim.dt / sim.substeps
-    c = np.zeros(C_PTS + 7 * P, dtype=np.float64)
+    c = np.zeros(C_PTS + 8 * P, dtype=np.float64)
     # scalars; products of Python floats are taken in double and rounded
     # once, as the plain version's scalar arithmetic does
     c[:20] = [dt, sim.gravity, sim.contact_stiffness, sim.contact_damping,
@@ -100,6 +142,7 @@ def pack_constants(model: RobotModel, geom: ContactGeometry, sim: SimParams,
     c[o + 2 * P:o + 5 * P] = np.asarray(geom.offset).reshape(-1)
     c[o + 5 * P:o + 6 * P] = geom.dyn_idx
     c[o + 6 * P:o + 7 * P] = geom.report_idx
+    c[o + 7 * P:o + 8 * P] = point_owners(layout, geom)
     return c.astype(np.float32)
 
 
@@ -336,7 +379,7 @@ def decimation_step(model: RobotModel, geom: ContactGeometry, sim: SimParams,
         terrain = ("dtc_decimation_step_window", cuda_build.Ptr(wv[0]),
                    *wv[1:])
         tail = ()
-    chk(consts, "consts", (C_PTS + 7 * P,), f32, dev)
+    chk(consts, "consts", (C_PTS + 8 * P,), f32, dev)
 
     def out(*shape):
         return torch.empty(shape + (N,), dtype=f32, device=dev)

@@ -11,7 +11,9 @@ gather kernel (a copy) on seeded fields, bit for bit; the reward kernel
 also on random inputs that switch on all 33 terms; the noise kernel bit
 for bit, and the obs kernel against its plain version fed that kernel's
 draws; the patch and window copies bit for bit, and the decimation
-kernel's window variant bit for bit against its fused variant.
+kernel's window variant bit for bit against its fused variant.  The
+physics and planner kernels also run on the first n envs of that step for
+ragged n: a single env, a partial warp, a partial last block.
 """
 import dataclasses
 
@@ -19,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import synthetic_ctx
+from chip_smoke import check_planner, synthetic_ctx
 from deep_tracking_control_tpu_torch import cuda_build
 from deep_tracking_control_tpu_torch.env import (cuda_obs, cuda_planner,
                                                  cuda_rewards)
@@ -117,6 +119,78 @@ def test_planner_kernel_matches_plain(recorded):
     assert differ.float().mean().item() <= 0.02
     np.testing.assert_array_equal(got[~differ].cpu().numpy(),
                                   want[~differ].cpu().numpy())
+
+
+def _first_envs(args, n):
+    """The decimation kernel's positional arguments cut to the first n envs
+    (every env-trailing array, and the starts)."""
+    def cut(x):
+        if isinstance(x, dict):
+            return {k: cut(v) for k, v in x.items()}
+        return x[..., :n].contiguous()
+    out = list(args)
+    for i in range(5, 17):
+        out[i] = cut(args[i])
+    out[19] = args[19][:n].contiguous()
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 3, 37, 45])
+def test_decimation_kernel_ragged_envs(recorded, n):
+    """K1 and K1w on the first n envs of the step (45: a partial warp in a
+    partial last block): within K1's budget of the plain version, and K1w
+    bit for bit K1."""
+    args, kwargs = recorded[0]["k1"]
+    args = _first_envs(args, n)
+    blocks, starts = args[18], args[19]
+    fused = cuda_substep.decimation_step(*args, consts=kwargs["consts"])
+    window = cuda_patch.extract_windows(blocks, starts)
+    win = cuda_substep.decimation_step(*args[:18], None, None,
+                                       consts=kwargs["consts"], window=window)
+    plain = cuda_substep.decimation_step_plain(*args)
+    torch.cuda.synchronize()
+    for (name, a), (_, w), (_, p) in zip(_leaves(fused), _leaves(win),
+                                         _leaves(plain)):
+        assert a.shape[-1] == n, name
+        assert torch.equal(a, w), name
+        # contact forces come from 12 kN/m springs: 1e-6 m is 1e-2 N
+        atol = 1e-2 if name == "contact_forces" else 1e-4
+        torch.testing.assert_close(a, p, atol=atol, rtol=1e-4)
+
+
+@pytest.mark.parametrize("n", [1, 5, 37])
+def test_planner_kernel_ragged_envs(recorded, n):
+    """K3 on the first n envs of the step (a partial last block of 8):
+    differences only at near-ties, as chip_smoke.py allows (with so few
+    envs one near-tie is more than 2% of them, so no share is capped)."""
+    (scal, heights, stat, ny), _ = recorded[0]["k3"]
+    scal, heights = scal[:n].contiguous(), heights[:n].contiguous()
+    got = cuda_planner.select_footholds(scal, heights, stat, ny)
+    want = cuda_planner.plan_plain(scal, heights, stat, ny)
+    torch.cuda.synchronize()
+    assert got.shape == (n, 20)
+    differ = check_planner(got, want, scal, heights, stat, ny,
+                           max_frac=1.0)
+    np.testing.assert_array_equal(got[~differ].cpu().numpy(),
+                                  want[~differ].cpu().numpy())
+
+
+def test_planner_kernel_far_footholds_and_excluded_points(recorded):
+    """K3 where every other env's nominal footholds lie 5 m away (no scan
+    point within 0.16: each leg takes the first argmin of the far total)
+    and every third env has excluded points (|rel| > 1)."""
+    (scal, heights, stat, ny), _ = recorded[0]["k3"]
+    scal, heights = scal.clone(), heights.clone()
+    scal[::2, 5:13] += 5.0
+    heights[::3, ::7] += 3.0
+    got = cuda_planner.select_footholds(scal, heights, stat, ny)
+    want = cuda_planner.plan_plain(scal, heights, stat, ny)
+    torch.cuda.synchronize()
+    differ = check_planner(got, want, scal, heights, stat, ny)
+    np.testing.assert_array_equal(got[~differ].cpu().numpy(),
+                                  want[~differ].cpu().numpy())
+    far = got[::2]
+    assert (far[:, 8:12] == far[:, 8:9]).all()      # one pick for all legs
 
 
 def _odd_starts(args):

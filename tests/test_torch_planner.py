@@ -120,3 +120,9 @@ def test_plain_planner_matches_jax_planner():
     assert close.mean() > 0.999
     _check_selections({k: v.numpy() for k, v in got.items()},
                       {k: np.asarray(v) for k, v in want.items()}, want, a, N)
+
+
+def test_launch_shape():
+    """A warp an env, 8 envs a block: 512 blocks at 4096 envs."""
+    assert tpplan.launch_shape(4096) == (512, 256, 8)
+    assert tpplan.launch_shape(37) == (5, 256, 8)

@@ -351,3 +351,41 @@ def test_sim_step_matches_jax(sim_case):
     assert np.abs(cf[[4, 8, 12, 16]]).max() > 1.0
     legs = np.abs(cf[[2, 3, 6, 7, 10, 11, 14, 15]]).max()
     assert (legs > 1.0) == (name == "body contact"), legs
+
+
+@pytest.mark.parametrize("robot", ["lite3", "x30"])
+def test_point_owners_follow_the_legs(robot):
+    """The decimation kernel's owner table: a point on a leg goes to that
+    leg's lane with its body's depth in the chain (the JAX package's
+    contact geometry says which body), the torso's points go to the lanes
+    in turn, the feet are leg points; a foot on the torso is refused."""
+    jgeom = jsim.default_contact_geometry(quadrupeds.get_robot(robot))
+    model = tquadrupeds.get_robot(robot)
+    geom = tsim.default_contact_geometry(model)
+    layout = tquad.quad_layout(model)
+    owner = tsub.point_owners(layout, geom)
+    torso = 0
+    for p, b in enumerate(np.asarray(jgeom.dyn_idx)):
+        leg, depth = owner[p] % tsub.LANES, owner[p] // tsub.LANES - 1
+        if b == 0:
+            assert (leg, depth) == (torso % tsub.LANES, -1), p
+            torso += 1
+        else:
+            assert layout.body_idx[depth, leg] == b, p
+    assert torso == 8 and (owner[:4] >= tsub.LANES).all()
+    consts = tsub.pack_constants(model, geom, tengine.SimParams(),
+                                 [2, 5, 8, 11], 0.1)
+    P = len(geom.dyn_idx)
+    assert consts.shape == (tsub.C_PTS + 8 * P,)
+    np.testing.assert_array_equal(consts[tsub.C_PTS + 7 * P:], owner)
+    bad = dataclasses.replace(geom, dyn_idx=np.r_[0, geom.dyn_idx[1:]])
+    with pytest.raises(ValueError):
+        tsub.point_owners(layout, bad)
+
+
+def test_launch_shape_covers_the_card():
+    """Four lanes an env, 32 envs a block: at the published 4096 envs 128
+    blocks, one for each of 128 of the H100's 132 SMs."""
+    assert tsub.launch_shape(4096) == (128, 128, 32)
+    assert tsub.launch_shape(37) == (2, 128, 32)
+    assert tsub.launch_shape(1) == (1, 128, 32)
