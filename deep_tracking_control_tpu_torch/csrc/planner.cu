@@ -11,9 +11,9 @@
 //
 // Bound on the H100: the latency of the per-env reductions over a little
 // work (about 3 KB of heights in, 80 B out per env; ~60 operations a
-// point).  Design: one warp per env, several envs a block (8 from
-// env/cuda_planner.py: 512 blocks of 256 threads at 4096 envs, held to 64
-// registers a thread so that 4 blocks fit an SM and all run in one wave).  The block loads the scan's
+// point).  Design: one warp per env, 8 envs a block (512 blocks of 256
+// threads at 4096 envs, held to 64 registers a thread so that 4 blocks fit
+// an SM and all run in one wave).  The block loads the scan's
 // env-independent tables (the base-frame scan x/y and the two decode rows)
 // into shared memory once for its envs.  Each lane keeps its points (every
 // 32nd) in registers; the clipped heights the stencils need from
@@ -35,8 +35,7 @@ namespace {
 
 constexpr int OUT_W = 20;   // 4 tx | 4 ty | 4 world x | 4 world y | 4 world z
 constexpr int MAXM = 24;    // points a lane: H <= 32 * MAXM
-constexpr int MAX_ENVS = 8;  // warps a block
-constexpr int MAX_SMEM = 48 * 1024;
+constexpr int ENVS = 8;     // envs a block, one warp each
 
 __device__ __forceinline__ float warp_sum(float v) {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -61,7 +60,7 @@ __device__ __forceinline__ float world_y(float cy, float sy, float by,
 }
 
 // at most 64 registers a thread: 4 blocks an SM, 512 blocks in one wave
-__global__ void __launch_bounds__(32 * MAX_ENVS, 4)
+__global__ void __launch_bounds__(32 * ENVS, 4)
 plan_kernel(const float* __restrict__ scal,     // (N, 16)
             const float* __restrict__ heights,  // (N, H)
             const float* __restrict__ stat,     // (4, H)
@@ -212,16 +211,16 @@ plan_kernel(const float* __restrict__ scal,     // (N, 16)
 
 }  // namespace
 
-// `envs` envs a block, one warp each.
+// shared memory: the 4 tables and each warp's clipped heights, at most
+// 12 * 768 floats (36 KB)
 DTC_EXPORT int dtc_plan_footholds(const void* scal, const void* heights,
                                   const void* stat, void* out, int N, int H,
-                                  int ny, float inv_s, float inv_2s, int envs,
+                                  int ny, float inv_s, float inv_2s,
                                   void* stream) {
-    const size_t smem = (4 + (size_t)envs) * H * sizeof(float);
-    if (H > 32 * MAXM || envs < 1 || envs > MAX_ENVS || smem > MAX_SMEM)
-        return (int)cudaErrorInvalidValue;
+    if (H > 32 * MAXM) return (int)cudaErrorInvalidValue;
     if (N > 0) {
-        plan_kernel<<<(N + envs - 1) / envs, 32 * envs, smem,
+        const size_t smem = (4 + ENVS) * (size_t)H * sizeof(float);
+        plan_kernel<<<(N + ENVS - 1) / ENVS, 32 * ENVS, smem,
                       (cudaStream_t)stream>>>(
             (const float*)scal, (const float*)heights, (const float*)stat,
             (float*)out, N, H, ny, inv_s, inv_2s);

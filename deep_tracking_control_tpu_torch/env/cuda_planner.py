@@ -9,9 +9,9 @@ reference's tiled tables.  The nominal footholds stay outside the kernel,
 as in the JAX package (pallas_planner.py:178-185).
 
 On the H100 the kernel is bound by the latency of its per-env reductions
-over little work; it runs one warp per env, ENVS_PER_BLOCK envs a block
-sharing the scan's tables in shared memory, and reduces by warp shuffles
-alone (`launch_shape`).  The mean and mean square are summed in another
+over little work; it runs one warp per env, 8 envs a block (fixed in
+the kernel; `launch_shape`) sharing the scan's tables in shared memory,
+and reduces by warp shuffles alone.  The mean and mean square are summed in another
 order than in the plain version, so a score within float noise of the 0.1
 threshold can flip, and with it a near-tied selection (the JAX package's
 tests/test_pallas_planner.py allows 2% of selections to differ, only at
@@ -27,15 +27,14 @@ from ..ops import quat as qm
 from .planner import first_argmin, rotate_positions_z, scan_gradients
 
 _SPACING = 0.05
-ENVS_PER_BLOCK = 8         # one warp an env (at most 8)
 MAX_SCAN = 768             # scan points an env (24 a lane)
 _statics_cache: dict = {}
 
 
 def launch_shape(n: int) -> tuple:
-    """(blocks, threads a block, envs a block) of the kernel at n envs."""
-    return (n + ENVS_PER_BLOCK - 1) // ENVS_PER_BLOCK, 32 * ENVS_PER_BLOCK, \
-        ENVS_PER_BLOCK
+    """(blocks, threads a block, envs a block) of the kernel at n envs:
+    a warp an env, 8 envs a block, as csrc/planner.cu fixes it."""
+    return (n + 7) // 8, 256, 8
 
 
 def build_statics(height_points, mpx, mpy, device):
@@ -151,7 +150,7 @@ def select_footholds(scal, heights, stat, ny: int):
     p = cuda_build.ptr
     cuda_build.launch("dtc_plan_footholds", p(scal), p(heights), p(stat),
                       p(out), N, H, ny, cuda_build.inv(_SPACING),
-                      cuda_build.inv(2 * _SPACING), ENVS_PER_BLOCK,
+                      cuda_build.inv(2 * _SPACING),
                       cuda_build.stream_ptr(dev))
     _counter.launches += 1
     return out

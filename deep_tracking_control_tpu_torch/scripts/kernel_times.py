@@ -1,119 +1,40 @@
 """Device time of the physics decimation kernel (fused and window
-variants) and of the planner kernel at the inputs of a real lite3_dtc step,
-at several block sizes of the physics kernel.
+variants, on the same inputs) and of the planner kernel at the inputs of
+a real lite3_dtc step, at several block sizes of the physics kernel.
 
     python deep_tracking_control_tpu_torch/scripts/kernel_times.py \
-        [--root DIR] [--threads 32 64 128] [--num_envs 4096] [--variants]
+        [--threads 32 64 128] [--num_envs 4096] [--repeats 20]
 
-Needs a CUDA device.  `--root` is the checkout whose package is timed
-(default: the one holding this file), so that two trees can be timed by
-one command, one process each; the helpers (inputs, checks, timing) come
-from the chip_smoke.py beside this file's package either way.  Each block size
-is set on `physics.cuda_substep.THREADS` before its calls; every result is
-held to its plain version (K1 1e-4 + 1e-4 rel, contact forces 1e-2 N; the
-window variant bit for bit the fused one; the planner at most 2% of envs
-differing) before it is timed.  `--variants` also builds the VARIANTS
-below, each into a library of its own, and times them on the same
-inputs: design alternatives (held to the plain version too) and probes
-that leave work out to show where the time goes (not held to it).
+Needs a CUDA device.  Each block size is set on
+`physics.cuda_substep.THREADS` before its calls; every result is held to
+its plain version (K1 1e-4 + 1e-4 rel, contact forces 1e-2 N; the window
+variant bit for bit the fused one; the planner at most 2% of envs
+differing, near-ties only) before it is timed.  The helpers (inputs,
+checks, timing) come from chip_smoke.py at the root of this checkout.
 Prints the card, the compiler's registers and stack of each kernel, one
-line per block size and variant, and a JSON line last.
+line per block size, and a JSON line last.
 """
 import argparse
-import ctypes
 import dataclasses
 import importlib.util
 import json
 import os
-import subprocess
 import sys
 import time
-
-# (name, source under csrc/, [(text, replacement), ...]) against the
-# sources of this checkout
-VARIANTS = [
-    ("K1: 4 leg and 4 torso point slots a lane", "substep.cu", [
-        ("constexpr int MAXLP = 3;", "constexpr int MAXLP = 4;"),
-        ("constexpr int MAXTS = 2;", "constexpr int MAXTS = 4;")]),
-    ("K1: joint rotations recomputed, not kept", "substep.cu", [
-        ("float R[3][9], X[3][3], V[3][6], E[3][9];",
-         "float R[3][9], X[3][3], V[3][6], E[1][9];"),
-        ("transpose3(Rj, E[d]);\n            xm_apply(E[d], r, Vp, V[d]);",
-         "transpose3(Rj, E[0]);\n            xm_apply(E[0], r, Vp, V[d]);"),
-        ("inertia_to_parent(E[d], r, Ia, IAc);",
-         "float Rj[9];\n            axis_rotation(ax, q[d], Rj);\n"
-         "            transpose3(Rj, E[0]);\n"
-         "            inertia_to_parent(E[0], r, Ia, IAc);"),
-        ("xf_inv_apply(E[d], r, pa, pAc);", "xf_inv_apply(E[0], r, pa, pAc);"),
-        ("xm_apply(E[d], r, a_par, ap);",
-         "float Rj[9];\n                axis_rotation(ax, q[d], Rj);\n"
-         "                transpose3(Rj, E[0]);\n"
-         "                xm_apply(E[0], r, a_par, ap);")]),
-    ("K3: no register cap", "planner.cu", [
-        ("__launch_bounds__(32 * MAX_ENVS, 4)",
-         "__launch_bounds__(32 * MAX_ENVS)")]),
-    ("K3 probe: empty kernel", "planner.cu", [
-        ("    extern __shared__ float4 sm4[];\n",
-         "    extern __shared__ float4 sm4[];\n    if (N > 0) return;\n")]),
-    ("K3 probe: the table load only", "planner.cu", [
-        ("    __syncthreads();\n", "    __syncthreads();\n    if (N > 0) return;\n")]),
-    ("K3 probe: no per-point pass", "planner.cu", [
-        ("        const float gk = gr[m];\n",
-         "        if (edge_term == 12345.0f) fv = gr[m];\n        break;\n"
-         "        const float gk = gr[m];\n")]),
-    ("K3 probe: no legs", "planner.cu", [
-        ("        for (int l = 0; l < 4; ++l) {\n            const float ddx",
-         "        if (hwx == 12345.0f && hwy == 12345.0f) fv = 0.0f;\n"
-         "        for (int l = 0; l < 0; ++l) {\n            const float ddx")]),
-]
-
-
-def build_variants(cuda_build):
-    """Compile each variant (one nvcc each, all at once) into
-    _build/variants/; returns [(name, library path)] and prints ptxas's
-    registers and stack for each."""
-    out = cuda_build.BUILD_DIR / "variants"
-    out.mkdir(parents=True, exist_ok=True)
-    nvcc, procs = cuda_build.nvcc_path(), []
-    for i, (name, src, subs) in enumerate(VARIANTS):
-        text = (cuda_build.CSRC / src).read_text()
-        for old, new in subs:
-            if old not in text:
-                raise ValueError(f"variant {name!r}: {old!r} not in {src}")
-            text = text.replace(old, new)
-        cu, lib = out / f"v{i}.cu", out / f"v{i}.so"
-        cu.write_text(text)
-        procs.append((name, lib, subprocess.Popen(
-            [nvcc, *cuda_build.NVCC_FLAGS, "-shared", "-I",
-             str(cuda_build.CSRC), "-o", str(lib), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    built = []
-    for name, lib, p in procs:
-        log = p.communicate()[0]
-        if p.returncode:
-            raise RuntimeError(f"variant {name!r}: nvcc failed\n{log}")
-        for line in log.splitlines():
-            if "registers" in line or "stack frame" in line:
-                print(f"[kernel_times] {name}: {line.strip()}", flush=True)
-        built.append((name, lib))
-    return built
 
 
 def main():
     own = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=own)
     ap.add_argument("--threads", type=int, nargs="*", default=None)
     ap.add_argument("--num_envs", type=int, default=4096)
     ap.add_argument("--repeats", type=int, default=20)
-    ap.add_argument("--variants", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device")
-    root = os.path.abspath(args.root)
-    sys.path.insert(0, root)
+    sys.path.insert(0, own)
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(own, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
@@ -125,7 +46,7 @@ def main():
     from deep_tracking_control_tpu_torch.physics import cuda_substep
     from deep_tracking_control_tpu_torch.tasks import registry
     card = cs.card_line()
-    print(f"[kernel_times] root {root}; card {card}", flush=True)
+    print(f"[kernel_times] card {card}", flush=True)
     cuda_build.build()
     for line in cuda_build.build_log.splitlines():
         if any(w in line for w in ("registers", "stack", "Compiling entry")):
@@ -191,29 +112,7 @@ def main():
     print(f"[kernel_times] K3: {row['ms']:.4f} ms ({frac:.3%} of envs "
           f"differ from plain; {card})", flush=True)
 
-    if args.variants:
-        main_lib = cuda_build.library()
-        for name, lib in build_variants(cuda_build):
-            cuda_build._lib = ctypes.CDLL(str(lib))
-            cuda_build._entry_points.clear()
-            fn = k1 if name.startswith("K1") else k3
-            out = fn()
-            torch.cuda.synchronize()
-            if name.startswith("K1"):
-                got = dict(out[0], anchors=out[1], **out[2])
-                for k, v in got.items():
-                    cs.check_close(f"{name} {k}", v, want[k],
-                                   1e-2 if k == "contact_forces" else 1e-4,
-                                   1e-4)
-            elif "probe" not in name:
-                cs.check_planner(out, want3, scal, heights, stat, ny)
-            row = dict(kernel=name, ms=cs.device_ms(torch, fn, args.repeats))
-            results.append(row)
-            print(f"[kernel_times] {name}: {row['ms']:.4f} ms ({card})",
-                  flush=True)
-        cuda_build._lib = main_lib
-        cuda_build._entry_points.clear()
-    print(json.dumps(dict(root=root, card=card, num_envs=env.num_envs,
+    print(json.dumps(dict(card=card, num_envs=env.num_envs,
                           results=results)))
 
 
