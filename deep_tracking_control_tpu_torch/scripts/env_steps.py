@@ -1,7 +1,8 @@
 """Collection and train-iteration env-steps/s of the default route at the
 lite3_dtc task's 4096 envs, taken as chip_smoke.py phases 4 and 5 take
 them: one warm-up collect, then 3 timed collects; one warm-up learn(1),
-then a timed learn(3).
+then a timed learn(3), with each of its iterations' collection and
+learning (update) seconds.
 
     python deep_tracking_control_tpu_torch/scripts/env_steps.py
 
@@ -52,14 +53,16 @@ def main():
     runner.learn(1)               # warm-up: the update's allocations
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    runner.learn(ITERS)
+    rows = runner.learn(ITERS)
     torch.cuda.synchronize()
     learn_s = time.perf_counter() - t0
     print(json.dumps(dict(
         root=root, card=card, num_envs=env.num_envs,
         collect_env_steps_s=ITERS * steps / sum(collect_s),
         learn_env_steps_s=ITERS * steps / learn_s,
-        collect_s=collect_s, learn_s=learn_s)))
+        collect_s=collect_s, learn_s=learn_s,
+        learn_collection_s=[r["collection_time"] for r in rows],
+        learn_update_s=[r["learning_time"] for r in rows])))
 
 
 if __name__ == "__main__":
