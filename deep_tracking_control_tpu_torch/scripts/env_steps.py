@@ -2,7 +2,10 @@
 lite3_dtc task's 4096 envs, taken as chip_smoke.py phases 4 and 5 take
 them: one warm-up collect, then 3 timed collects; one warm-up learn(1),
 then a timed learn(3), with each of its iterations' collection and
-learning (update) seconds.
+learning (update) seconds.  Then one collect and one update, each under
+torch.profiler, for the host's side: wall ms, CPU-side op calls, kernel
+launch calls, their self CPU ms, the synchronisations' count and ms, and
+device ms.
 
     python deep_tracking_control_tpu_torch/scripts/env_steps.py
 
@@ -19,6 +22,31 @@ import sys
 import time
 
 ITERS = 3
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def host_profile(torch, fn):
+    """One synchronized run of fn under torch.profiler (CPU and CUDA)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = prof.key_averages()
+    launch = [e for e in ev if e.key in LAUNCH_CALLS]
+    sync = [e for e in ev if "Synchronize" in e.key or "Memcpy" in e.key]
+    return out, dict(
+        wall_ms=wall * 1e3,
+        cpu_op_calls=sum(e.count for e in ev if e.key.startswith("aten::")),
+        launch_calls=sum(e.count for e in launch),
+        launch_cpu_ms=sum(e.self_cpu_time_total for e in launch) / 1e3,
+        sync_calls=sum(e.count for e in sync),
+        sync_cpu_ms=sum(e.self_cpu_time_total for e in sync) / 1e3,
+        device_ms=sum(e.self_device_time_total for e in ev) / 1e3)
 
 
 def main():
@@ -56,13 +84,17 @@ def main():
     rows = runner.learn(ITERS)
     torch.cuda.synchronize()
     learn_s = time.perf_counter() - t0
+    (batch, _), collect_prof = host_profile(torch, runner.collect)
+    _, update_prof = host_profile(
+        torch, lambda: runner.ppo.update(batch, runner.generator))
     print(json.dumps(dict(
         root=root, card=card, num_envs=env.num_envs,
         collect_env_steps_s=ITERS * steps / sum(collect_s),
         learn_env_steps_s=ITERS * steps / learn_s,
         collect_s=collect_s, learn_s=learn_s,
         learn_collection_s=[r["collection_time"] for r in rows],
-        learn_update_s=[r["learning_time"] for r in rows])))
+        learn_update_s=[r["learning_time"] for r in rows],
+        collect_profile=collect_prof, update_profile=update_prof)))
 
 
 if __name__ == "__main__":
