@@ -28,6 +28,7 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 
 def host_profile(torch, fn):
     """One synchronized run of fn under torch.profiler (CPU and CUDA)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -46,7 +47,9 @@ def host_profile(torch, fn):
         launch_cpu_ms=sum(e.self_cpu_time_total for e in launch) / 1e3,
         sync_calls=sum(e.count for e in sync),
         sync_cpu_ms=sum(e.self_cpu_time_total for e in sync) / 1e3,
-        device_ms=sum(e.self_device_time_total for e in ev) / 1e3)
+        # the kernels alone: a CPU op's entry repeats its kernels' time
+        device_ms=sum(e.self_device_time_total for e in ev
+                      if e.device_type == DeviceType.CUDA) / 1e3)
 
 
 def main():
