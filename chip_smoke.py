@@ -6,8 +6,12 @@
 Phases (each prints its own line; any failure ends the run non-zero):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. build of the CUDA kernels from deep_tracking_control_tpu_torch/csrc;
-  3. each kernel against its plain PyTorch version on the inputs of a real
-     lite3_dtc step at 4096 envs, with the kernel and plain times: the
+  3. the lite3_dtc env's terrain generator (it must be the native one, as
+     in the JAX package's env); each kernel against its plain PyTorch
+     version on the inputs of a real lite3_dtc step at 4096 envs, with the
+     kernel and plain times (a kernel row's device time twice: the call's,
+     all the work its wrapper queues, and its CUDA kernel's alone, found
+     by the kernel's symbol in the profiler's events): the
      physics, sampler and planner kernels (the physics and planner kernels
      with their launch shapes), the reward kernel (also on
      random inputs that switch on all 33 terms, with and without the
@@ -90,6 +94,17 @@ KERNELS = {
                              "deep_tracking_control_tpu/experimental/pallas_obs.py:98"),
     "uniform_pm1": ("deep_tracking_control_tpu_torch/csrc/rng.cu",
                     "deep_tracking_control_tpu/experimental/pallas_rng.py:49"),
+}
+
+
+# kernel -> the symbol of its CUDA kernel, as the profiler names it (every
+# kernel of csrc/ lies in an anonymous namespace)
+SYMBOLS = {
+    "decimation_step": "substep_kernel", "decimation_step_window": "substep_kernel",
+    "extract_patches": "copy_rows_kernel", "extract_windows": "copy_rows_kernel",
+    "sample_all": "sample_all_kernel", "plan_footholds": "plan_kernel",
+    "permute_groups": "gather_kernel", "compute_rewards": "rewards_kernel",
+    "compute_observations": "obs_kernel", "uniform_pm1": "uniform_kernel",
 }
 
 
@@ -192,13 +207,21 @@ def wall_ms(torch, fn, repeats=REPEATS):
     return a.elapsed_time(b) / repeats
 
 
-def device_ms(torch, fn, repeats=REPEATS):
-    """Mean over `repeats` calls of the device time of all the work one
-    fn() call queues: one torch.profiler session (CUDA activity only)
-    around the calls, each followed by a synchronize.  On the H100 host a
-    session now and then records no device activity at all, mostly right
-    after a session of thousands of kernels: it is run again after a pause
-    of 1, 2 and 4 s, and the run fails if the last one is empty too."""
+def is_symbol(key, symbol):
+    """Whether a profiler event's name is the CUDA kernel `symbol` of
+    csrc/ (a kernel in an anonymous namespace, maybe a template)."""
+    return (f"(anonymous namespace)::{symbol}(" in key
+            or f"(anonymous namespace)::{symbol}<" in key)
+
+
+def device_profile(torch, fn, repeats=REPEATS):
+    """The device events of `repeats` fn() calls: one torch.profiler
+    session (CUDA activity only) around the calls, each followed by a
+    synchronize; a list of (name, self device us, count).  On the H100
+    host a session now and then records no device activity at all, mostly
+    right after a session of thousands of kernels: it is run again after
+    a pause of 1, 2 and 4 s, and the run fails if the last one is empty
+    too."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -208,15 +231,46 @@ def device_ms(torch, fn, repeats=REPEATS):
             for _ in range(repeats):
                 fn()
                 torch.cuda.synchronize()
-        ms = sum(e.self_device_time_total
-                 for e in prof.key_averages()) / 1e3 / repeats
-        if ms > 0.0:
-            return ms
+        events = [(e.key, e.self_device_time_total, e.count)
+                  for e in prof.key_averages() if e.self_device_time_total > 0]
+        if events:
+            return events
     raise AssertionError("the profiler saw no device time in 4 sessions")
 
 
-def timings(torch, kernel, plain, plain_repeats=REPEATS):
-    return dict(ms=device_ms(torch, kernel),
+def device_ms(torch, fn, repeats=REPEATS):
+    """Mean over `repeats` calls of the device time of all the work one
+    fn() call queues (`device_profile`)."""
+    return sum(us for _, us, _ in device_profile(torch, fn, repeats)) / 1e3 / repeats
+
+
+def device_split(torch, fn, symbol, repeats=REPEATS):
+    """(call ms, kernel ms, device ops a call, the other ops' names) of
+    one fn() call, one profiler session over `repeats` calls: the device
+    time of all the work the call queues, that of the CUDA kernel
+    `symbol` alone, the number of device ops the call queues, and the
+    names of the ops other than the kernel.  The call launches the kernel
+    once, so the kernel's event count is the number of calls the session
+    saw (now and then it misses the first one): the means are taken over
+    that count."""
+    events = device_profile(torch, fn, repeats)
+    own = [(us, c) for k, us, c in events if is_symbol(k, symbol)]
+    seen = sum(c for _, c in own)
+    if not own or seen > repeats:
+        raise AssertionError(f"{seen} events of {symbol} in {repeats} calls "
+                             f"among {[k[:60] for k, _, _ in events]}")
+    return (sum(us for _, us, _ in events) / 1e3 / seen,
+            sum(us for us, _ in own) / 1e3 / seen,
+            sum(c for _, _, c in events) / seen,
+            sorted(k for k, _, _ in events if not is_symbol(k, symbol)))
+
+
+def timings(torch, name, kernel, plain, plain_repeats=REPEATS):
+    """Kernel row `name`: the call's device ms (`ms`), its CUDA kernel's
+    alone (`kernel_ms`), the device ops a call queues, the plain version's
+    device ms, and both stream times."""
+    ms, kernel_ms, ops, others = device_split(torch, kernel, SYMBOLS[name])
+    return dict(ms=ms, kernel_ms=kernel_ms, device_ops=ops, others=others,
                 plain_ms=device_ms(torch, plain, plain_repeats),
                 wall_ms=wall_ms(torch, kernel),
                 plain_wall_ms=wall_ms(torch, plain, plain_repeats))
@@ -548,7 +602,7 @@ def compare_kernels(calls, tables):
         nbytes, lambda a=args, k=kw: cuda_substep.decimation_step_plain(*a, **k),
         0)
     results["decimation_step"] = dict(max_abs_err=err, **timings(
-        torch, lambda: cuda_substep.decimation_step(*args, **kwargs),
+        torch, "decimation_step", lambda: cuda_substep.decimation_step(*args, **kwargs),
         lambda: cuda_substep.decimation_step_plain(*args, **kw), 5))
     say(3, f"decimation_step vs plain: max abs err {err:.3e} "
            f"(budget 1e-4 + 1e-4 rel; contact forces 1e-2 N); "
@@ -574,10 +628,18 @@ def compare_kernels(calls, tables):
     work["sample_all"] = (
         nbytes, lambda a=args: cuda_sampler.sample_all_plain(*a), 0)
     results["sample_all"] = dict(max_abs_err=err, **timings(
-        torch, lambda: cuda_sampler.sample_all(*args),
+        torch, "sample_all", lambda: cuda_sampler.sample_all(*args),
         lambda: cuda_sampler.sample_all_plain(*args)))
+    # the card path queues the kernel and nothing else (the patch
+    # coordinates are made inside it)
+    if results["sample_all"]["others"]:
+        raise AssertionError(f"sample_all queues more than its kernel: "
+                             f"{results['sample_all']['others']}")
+    blocks, threads, _ = cuda_sampler.launch_shape(n)
     say(3, f"sample_all vs plain: nearest exact, max abs err {err:.3e} "
-           f"(budget 1e-5 heights, 1e-4 slopes)")
+           f"(budget 1e-5 heights, 1e-4 slopes); one device op a call; "
+           f"launch shape {blocks} blocks x {threads} threads, 4 queries a "
+           f"thread, device {results['sample_all']['ms']:.4f} ms a call")
 
     # K3: selections may differ in <= 2% of envs, and only at near-ties
     (scal, heights, stat, ny), _ = calls["plan_footholds"]
@@ -590,7 +652,7 @@ def compare_kernels(calls, tables):
     work["plan_footholds"] = (
         nbytes, lambda: cuda_planner.plan_plain(scal, heights, stat, ny), 0)
     results["plan_footholds"] = dict(max_abs_err=err, **timings(
-        torch, lambda: cuda_planner.select_footholds(scal, heights, stat, ny),
+        torch, "plan_footholds", lambda: cuda_planner.select_footholds(scal, heights, stat, ny),
         lambda: cuda_planner.plan_plain(scal, heights, stat, ny)))
     say(3, f"plan_footholds vs plain: {frac:.3%} of envs differ (budget 2%, "
            f"near-ties only); max abs err elsewhere {err:.3e}; "
@@ -618,17 +680,27 @@ def compare_kernels(calls, tables):
     scratch = sums.clone()            # the timed calls add to it
     rew, upd = cuda_rewards.compute_rewards_fused(*head, scratch.clone())
     # bytes: the step quantities (the height scan among them, read by the
-    # plane fit the wrapper queues), the sums read and written, the outputs
+    # kernel's plane fit), the sums read and written, the outputs
     nbytes = tensor_bytes(args) + tensor_bytes((sums, rew, upd))
     work["compute_rewards"] = (
         nbytes, lambda: cuda_rewards.rewards_plain(*head, scratch), 0)
     results["compute_rewards"] = dict(max_abs_err=err, **timings(
-        torch, lambda: cuda_rewards.compute_rewards_fused(*head, scratch),
+        torch, "compute_rewards", lambda: cuda_rewards.compute_rewards_fused(*head, scratch),
         lambda: cuda_rewards.rewards_plain(*head, scratch)))
+    # a team of lanes an env: the grid covers every SM; the plane fit is
+    # made inside the kernel, so the call queues the kernel alone
+    if results["compute_rewards"]["others"]:
+        raise AssertionError(f"compute_rewards queues more than its kernel: "
+                             f"{results['compute_rewards']['others']}")
+    blocks, threads, envs = cuda_rewards.launch_shape(rew.shape[0])
+    if blocks < torch.cuda.get_device_properties(0).multi_processor_count:
+        raise AssertionError(f"compute_rewards: {blocks} blocks leave SMs "
+                             f"idle")
     say(3, f"compute_rewards vs plain on the step: {len(head[0])} terms + "
            f"termination, max abs err {err:.3e} (budget 1e-5 + 2e-5 rel; "
            f"feet_air_time 1e-7 + 1e-6 rel, pitch_est 1e-6 + 1e-5 rel, the "
-           f"stumble ring exact)")
+           f"stumble ring exact); {shape_text((blocks, threads, envs))}, "
+           f"device {results['compute_rewards']['ms']:.4f} ms a call")
 
     # K7: against the plain version fed the noise kernel's draws for the
     # same seed (1e-6); the plain version's own draws must be those draws
@@ -655,7 +727,7 @@ def compare_kernels(calls, tables):
         nbytes, lambda: cuda_obs.observations_plain(*args, **draws),
         PHILOX_OPS * drawn)
     results["compute_observations"] = dict(max_abs_err=err, **timings(
-        torch, lambda: cuda_obs.compute_observations_fused(*args),
+        torch, "compute_observations", lambda: cuda_obs.compute_observations_fused(*args),
         lambda: cuda_obs.observations_plain(*args)))
     say(3, f"compute_observations vs plain fed the noise kernel's draws: max "
            f"abs err {err:.3e} (budget 1e-6); the plain draws equal them")
@@ -690,14 +762,15 @@ def compare_kernels(calls, tables):
         res[shape] = dict(
             max_abs_err=0.0, library_ms=device_ms(torch, library),
             library_wall_ms=wall_ms(torch, library), **timings(
-                torch, lambda s=shape: cuda_rng.uniform_pm1(rseed, s),
+                torch, "uniform_pm1", lambda s=shape: cuda_rng.uniform_pm1(rseed, s),
                 lambda s=shape: cuda_rng.uniform_pm1_plain(rseed, s)))
         numel = shape[0] * shape[1]
         res[shape].update(zip(("bound_ms", "bound_by"),
                               bound(numel * 4 + 16, PHILOX_OPS * numel)))
         r = res[shape]
         say(3, f"uniform_pm1 at {shape}: device time per call, mean of "
-               f"{REPEATS}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
+               f"{REPEATS}: kernel call {r['ms']:.4f} ms (its CUDA kernel "
+               f"alone {r['kernel_ms']:.4f} ms), plain {r['plain_ms']:.4f}"
                f" ms, uniform_ {r['library_ms']:.4f} ms; stream time: kernel "
                f"{r['wall_ms']:.4f} ms, plain {r['plain_wall_ms']:.4f} ms, "
                f"uniform_ {r['library_wall_ms']:.4f} ms; bound "
@@ -761,7 +834,7 @@ def compare_route_kernels(calls, tables, results):
         results[name] = dict(
             max_abs_err=0.0, **dict(zip(("bound_ms", "bound_by"),
                                         bound(nbytes, 0))),
-            **timings(torch, lambda: fn(*args, **kwargs),
+            **timings(torch, name, lambda: fn(*args, **kwargs),
                       lambda: plain(*args, **kwargs)),
             library_ms=device_ms(torch, library),
             library_wall_ms=wall_ms(torch, library))
@@ -803,7 +876,8 @@ def compare_route_kernels(calls, tables, results):
     results["decimation_step_window"] = r = dict(
         max_abs_err=err, **dict(zip(("bound_ms", "bound_by"),
                                     bound(nbytes, ops))),
-        **timings(torch, lambda: cuda_substep.decimation_step(*args, **kwargs),
+        **timings(torch, "decimation_step_window",
+                  lambda: cuda_substep.decimation_step(*args, **kwargs),
                   lambda: cuda_substep.decimation_step_plain(*args, **kw), 5))
     say(7, f"decimation_step_window: {shape_text(cuda_substep.launch_shape(n))}"
            f", device {r['ms']:.4f} ms a call")
@@ -975,7 +1049,8 @@ def compare_gather(ppo, batch, gen):
     nbytes = 2 * tensor_bytes(flat) + tensor_bytes(perm)
     res = dict(max_abs_err=0.0, **dict(zip(("bound_ms", "bound_by"),
                                             bound(nbytes, 0))),
-               **timings(torch, lambda: cuda_gather.permute_groups(flat, perm, G),
+               **timings(torch, "permute_groups",
+                         lambda: cuda_gather.permute_groups(flat, perm, G),
                          lambda: cuda_gather.permute_groups_plain(flat, perm, G)),
                library_ms=device_ms(torch, library),
                library_wall_ms=wall_ms(torch, library))
@@ -1218,8 +1293,13 @@ def main():
     env = LeggedEnv(task, device="cuda")
     runner = OnPolicyRunner(env, train)
     say(3, f"lite3_dtc: {env.num_envs} envs, terrain "
-           f"{tuple(env.grid.height.shape)}, set up in "
-           f"{time.perf_counter() - t0:.1f} s")
+           f"{tuple(env.grid.height.shape)} from the {env.terrain.backend} "
+           f"generator, set up in {time.perf_counter() - t0:.1f} s")
+    # the JAX package's env builds its world with the native generator:
+    # the port must build the same one, with no silent fall-back
+    if env.terrain.backend != "native":
+        raise AssertionError(f"terrain backend {env.terrain.backend!r}, "
+                             f"expected 'native'")
     calls, runner.env_state = record_kernel_inputs(
         env, runner.env_params, runner.env_state, runner.generator)
     tables = {id(env.patch_src.blocks), id(env.patch_src.blocks16)}
@@ -1269,8 +1349,9 @@ def main():
                else f"; {library_call[k]}: device {r['library_ms']:.4f}"
                f" ms, stream {r['library_wall_ms']:.4f} ms")
         say(4, f"{k} at {NUM_ENVS} envs: device time per call, mean of "
-               f"{REPEATS}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
-               f" ms; stream time per call: kernel {r['wall_ms']:.4f} ms, "
+               f"{REPEATS}: kernel call {r['ms']:.4f} ms ({r['device_ops']:g} "
+               f"device ops; its CUDA kernel alone {r['kernel_ms']:.4f} ms), "
+               f"plain {r['plain_ms']:.4f} ms; stream time per call: kernel {r['wall_ms']:.4f} ms, "
                f"plain {r['plain_wall_ms']:.4f} ms{lib}; bound "
                f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({card})")
     err, same = small_reference_check(registry, LeggedEnv)
@@ -1328,8 +1409,9 @@ def main():
                f"ms, stream {r['library_wall_ms']:.4f} ms"
                if "library_ms" in r else "")
         say(7, f"{k} at {NUM_ENVS} envs: device time per call, mean of "
-               f"{REPEATS}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
-               f" ms; stream time per call: kernel {r['wall_ms']:.4f} ms, "
+               f"{REPEATS}: kernel call {r['ms']:.4f} ms ({r['device_ops']:g} "
+               f"device ops; its CUDA kernel alone {r['kernel_ms']:.4f} ms), "
+               f"plain {r['plain_ms']:.4f} ms; stream time per call: kernel {r['wall_ms']:.4f} ms, "
                f"plain {r['plain_wall_ms']:.4f} ms{lib}; bound "
                f"{r['bound_ms']:.4f} ms by {r['bound_by']}; {launches[k]} "
                f"launches in its route's collect ({card})")
@@ -1338,7 +1420,8 @@ def main():
     kernels = [dict(name=k, route="cuda", source=KERNELS[k][0],
                     replaces=KERNELS[k][1], launches=launches[k],
                     max_abs_err=results[k]["max_abs_err"],
-                    ms=results[k]["ms"], plain_ms=results[k]["plain_ms"],
+                    ms=results[k]["ms"], kernel_ms=results[k]["kernel_ms"],
+                    plain_ms=results[k]["plain_ms"],
                     bound_ms=results[k]["bound_ms"],
                     bound_by=results[k]["bound_by"],
                     library_ms=results[k].get("library_ms"))

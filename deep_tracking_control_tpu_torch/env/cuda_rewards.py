@@ -15,12 +15,17 @@ Both versions add to `episode_sums` in place (the widest per-step
 accumulator) and return the updates of the stateful terms exactly when
 those terms are active, as ctx["updates"] holds them.  The kernel reads
 every input through its strides, so the env's transposed views of the
-physics outputs go in without copies; the plane fit of the orientation
-terms stays a matrix product here, as in the JAX package.
+physics outputs go in without copies; it stages a block's per-env rows
+in shared memory and runs a team of lanes an env (`TEAM` lanes, `ENVS`
+envs a block).  The plane fit of the orientation terms is a matrix
+product in the plain version, as in the JAX package, and a reduction
+over the scan row inside the kernel: the card path queues the kernel
+alone.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -31,6 +36,11 @@ from . import rewards as rew_mod
 TERM_IDS = {name: i for i, name in enumerate(rew_mod.REWARD_FUNCTIONS)}
 MAX_TERMS = 40                    # csrc/rewards.cu
 MAX_FEET = 8
+MAX_WORDS = 320                   # staged words an env (csrc/rewards.cu)
+MAX_CWORDS = 160                  # staged constants a block
+TEAM = 16                         # lanes an env
+ENVS = 16                         # envs a block (TEAM * ENVS threads)
+PROBE = 0
 
 # the kernel's inputs in the order of csrc/rewards.cu `In`: ctx key, dtype
 _F32 = ["base_lin_vel", "base_ang_vel", "projected_gravity", "dof_pos",
@@ -39,13 +49,59 @@ _F32 = ["base_lin_vel", "base_ang_vel", "projected_gravity", "dof_pos",
         "commands", "cmd_buffer", "lin_vel_buffer", "ang_vel_buffer",
         "default_dof_pos", "soft_lo", "soft_hi", "dof_vel_limit",
         "torque_limit", "robot_mass", "foot_positions", "foot_velocities",
-        "last_foot_velocities", "measured_foot_clearance", "plane_x",
-        "pitch_est", "acc_points", "optimal_footholds_world", "root_z",
+        "last_foot_velocities", "measured_foot_clearance", "pitch_est", "acc_points", "optimal_footholds_world", "root_z",
         "env_origin_z", "lin_vel_x_max"]
 _BOOL = ["feet_contact", "last_contacts", "contact_filt", "stumb_buffer",
          "reset_buf", "time_out_buf"]
 _I32 = ["terrain_levels"]
 _I64 = ["feet_idx", "penalised_idx", "hip_dof_idx"]
+# the plane fit's inputs, last in csrc/rewards.cu `In`
+_PLANE = ["measured_heights", "plane_pinv"]
+# the term buffers' rows the terms read: the last 4
+BUFFER_ROWS = 4
+
+
+# What one term adds to the kernel's time, in us: a lite3_dtc step at 4096
+# envs on the H100, the kernel with that term alone against none
+# (scripts/kernel_times.py --reward_term_costs; orientation less its plane
+# fit); the terms lite3_dtc does not run count 1.2.  They deal the terms
+# out across a team's lanes (`lane_table`).
+TERM_COST = dict(
+    lin_vel_z=0.9, ang_vel_xy=0.8, torques=1.1, dof_acc=1.2, action_rate=1.1,
+    collision=2.0, dof_pos_limits=1.2, feet_air_time=1.1, stand_still=1.2,
+    power=1.1, smooth=1.2, foot_clearance=1.7, feet_slip=1.2, hip_pos=1.2,
+    powerchange=1.2, pos_acc=1.6, foot_acc=1.3, orientation=1.6,
+    base_height=1.2, foothold_miss=1.1, soft_tracking_lin_vel=1.5,
+    soft_tracking_ang_vel=1.2, tracking_optimal_footholds=1.3)
+
+
+@functools.lru_cache(maxsize=None)
+def lane_table(names: tuple, team: int, envs: int) -> tuple:
+    """The team lane of each term.  A warp holds 32 // envs lanes (one
+    lane's threads are envs adjacent envs), and lanes of one warp that run
+    different terms run them one after the other: each term goes, the
+    costliest first, to the warp with the least cost so far, and there to
+    its lane with the least."""
+    per_warp = max(1, 32 // envs)
+    warp_cost = [0.0] * (-(-team // per_warp))
+    lane_cost = [0.0] * team
+    lanes = [0] * len(names)
+    for k in sorted(range(len(names)),
+                    key=lambda k: -TERM_COST.get(names[k], 1.2)):
+        w = min(range(len(warp_cost)), key=lambda i: warp_cost[i])
+        lane = min(range(w * per_warp, min(team, (w + 1) * per_warp)),
+                   key=lambda i: lane_cost[i])
+        c = TERM_COST.get(names[k], 1.2)
+        warp_cost[w] += c
+        lane_cost[lane] += c
+        lanes[k] = lane
+    return tuple(lanes)
+
+
+def launch_shape(n: int) -> tuple:
+    """(blocks, threads a block, envs a block) of the kernel at n envs:
+    a team of TEAM lanes an env, ENVS envs a block."""
+    return (n + ENVS - 1) // ENVS, TEAM * ENVS, ENVS
 
 
 def rewards_plain(names, scales_dt, ctx, only_positive, termination_scale_dt,
@@ -107,18 +163,16 @@ def _launch(names, scales_dt, ctx, only_positive, termination_scale_dt,
     orient = "orientation" in names or "orientation_roll" in names
     lo, hi = ctx["soft_dof_pos_limits"]
     inputs = dict(ctx, soft_lo=lo, soft_hi=hi)
-    # the plane fit of the orientation terms (rewards._plane_norm); without
-    # them the kernel reads no plane, and any (N, 3) tensor holds the slot
-    inputs["plane_x"] = (ctx["measured_heights"] @ ctx["plane_pinv"].T
-                         if orient else ctx["base_lin_vel"])
+    for k in ("cmd_buffer", "lin_vel_buffer", "ang_vel_buffer"):
+        inputs[k] = ctx[k][:, -BUFFER_ROWS:]          # a view: no copy
     shapes = dict(
         base_lin_vel=(N, 3), base_ang_vel=(N, 3), projected_gravity=(N, 3),
         contact_forces=(N, B, 3), feet_air_time=(N, nf), commands=(N, 4),
-        cmd_buffer=(N, L[0], 4), lin_vel_buffer=(N, L[1], 2),
-        ang_vel_buffer=(N, L[2], 1), robot_mass=(N,),
+        cmd_buffer=(N, BUFFER_ROWS, 4), lin_vel_buffer=(N, BUFFER_ROWS, 2),
+        ang_vel_buffer=(N, BUFFER_ROWS, 1), robot_mass=(N,),
         foot_positions=(N, nf, 3), foot_velocities=(N, nf, 3),
         last_foot_velocities=(N, nf, 3), measured_foot_clearance=(N, nf),
-        plane_x=(N, 3), pitch_est=(N,),
+        pitch_est=(N,),
         acc_points=tuple(ctx["acc_points"].shape),
         optimal_footholds_world=(N, nf, 3), root_z=(N,), env_origin_z=(N,),
         lin_vel_x_max=(N,), feet_contact=(N, nf), last_contacts=(N, nf),
@@ -128,12 +182,55 @@ def _launch(names, scales_dt, ctx, only_positive, termination_scale_dt,
         hip_dof_idx=tuple(ctx["hip_dof_idx"].shape))
     if len(shapes["acc_points"]) != 2 or shapes["acc_points"][1] != 3:
         raise ValueError(f"acc_points: shape {shapes['acc_points']}")
-    table = []
+    # the plane fit (rewards._plane_norm) reads the scan only for the
+    # orientation terms
+    H = ctx["measured_heights"].shape[1] if orient else 0
+    shapes.update(measured_heights=(N, H), plane_pinv=(3, H))
+    table, offs, words, cwords = [], [], [], []
     for keys, dtype in ((_F32, torch.float32), (_BOOL, torch.bool),
-                        (_I32, torch.int32), (_I64, torch.int64)):
+                        (_I32, torch.int32), (_I64, torch.int64),
+                        (_PLANE, torch.float32)):
         for k in keys:
-            table += cuda_build.view(inputs[k], k, shapes.get(k, (N, nq)),
-                                    dtype, dev)
+            shape = shapes.get(k, (N, nq))
+            if k in _PLANE:
+                # read where they lie, by the plane fit alone
+                table += (cuda_build.view(inputs[k], k, shape, dtype, dev)
+                          + [shape[1], 1] if orient else [0, 0, 0, 0, 1, 1])
+                continue
+            i = len(offs)
+            v = cuda_build.view(inputs[k], k, shape, dtype, dev)
+            # where each input is read in shared memory (csrc/rewards.cu
+            # RewardArgs): a per-env input in each env's staged row, word
+            # by word (its input, the element's offset past the env's
+            # first); an input with a zero env stride, the acceleration
+            # points and the index tables once a block, among the block's
+            # constants
+            if dtype is torch.int64 or k == "acc_points":
+                d1, d2 = (tuple(shape) + (1, 1))[:2]
+                elems = [b * v[1] + c * v[2] for b in range(d1)
+                         for c in range(d2)]
+            else:
+                d1, d2 = (tuple(shape[1:]) + (1, 1))[:2]
+                elems = [b * v[2] + c * v[3] for b in range(d1)
+                         for c in range(d2)]
+            table += v + [d1, d2]
+            if dtype is not torch.int64 and k != "acc_points" and v[1] != 0:
+                offs.append(len(words))
+                words += [i << 24 | e for e in elems]
+            else:
+                offs.append(-1 - len(cwords))
+                cwords += [i << 24 | e for e in elems]
+    if (len(words) > MAX_WORDS or len(cwords) > MAX_CWORDS
+            or max(e & 0xFFFFFF for e in words + cwords) == 0xFFFFFF):
+        raise ValueError(f"{len(words)} staged words an env and {len(cwords)} "
+                         f"a block (the kernel takes {MAX_WORDS} and "
+                         f"{MAX_CWORDS}), or an input's strides too wide")
+    width = len(words)
+    # the env's row: the staged inputs, its plane fit (3), its term values
+    # (MAX_TERMS, the termination term's, the total); an odd count of
+    # words, so that the teams of a warp read other banks
+    off_plane, off_val = width, width + 3
+    row_words = (off_val + MAX_TERMS + 2) | 1
 
     rew = torch.empty((N,), dtype=torch.float32, device=dev)
     updates = {}
@@ -155,20 +252,26 @@ def _launch(names, scales_dt, ctx, only_positive, termination_scale_dt,
         inv(ctx["ang_vel_yaw_max"]), ctx["soft_dof_vel_limit"],
         ctx["soft_torque_limit"], ctx["max_contact_force"], ctx["max_acc"],
         ctx["base_height_target"])
-    iparams = (ctypes.c_int * 13)(
+    iparams = (ctypes.c_int * 21)(
         N, nq, nf, shapes["penalised_idx"][0], shapes["hip_dof_idx"][0],
-        shapes["acc_points"][0], *L, len(names), int(term_on),
-        rows.get("termination", -1), int(bool(only_positive)))
+        shapes["acc_points"][0], BUFFER_ROWS, BUFFER_ROWS, BUFFER_ROWS,
+        len(names), int(term_on), rows.get("termination", -1),
+        int(bool(only_positive)), H, row_words, off_plane, off_val, TEAM,
+        ENVS, len(cwords), PROBE)
     n = max(len(names), 1)
     ids = (ctypes.c_int * n)(*[TERM_IDS[k] for k in names])
     term_rows = (ctypes.c_int * n)(*[rows.get(k, -1) for k in names])
+    lanes = (ctypes.c_int * n)(*(lane_table(tuple(names), TEAM, ENVS) or [0]))
     scales = (ctypes.c_float * n)(*[scales_dt[k] for k in names])
     cuda_build.launch(
         "dtc_compute_rewards", (ctypes.c_longlong * len(table))(*table),
         (ctypes.c_longlong * len(outs))(
             *[0 if t is None else t.data_ptr() for t in outs]),
-        fparams, iparams, ids, term_rows, scales,
-        float(np.float32(termination_scale_dt)), cuda_build.stream_ptr(dev))
+        fparams, iparams, (ctypes.c_int * len(offs))(*offs),
+        (ctypes.c_uint * max(width, 1))(*words),
+        (ctypes.c_uint * max(len(cwords), 1))(*cwords), ids, lanes, term_rows,
+        scales, float(np.float32(termination_scale_dt)),
+        cuda_build.stream_ptr(dev))
     _counter.launches += 1
     return rew, updates
 

@@ -95,7 +95,8 @@ class LeggedEnv:
             raise NotImplementedError(
                 "only DTC tasks with a height scan are ported yet")
 
-        # --- terrain (the Python generator backend) ---------------------
+        # --- terrain (the native generator where g++ builds it, as the JAX
+        # package's env: Terrain's backend="auto") -------------------------
         self.terrain = Terrain(cfg.terrain, seed=terrain_seed)
         self.grid = TerrainGrid(
             height=torch.as_tensor(self.terrain.heights_meters(), device=dev),

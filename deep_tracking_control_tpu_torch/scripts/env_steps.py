@@ -5,7 +5,7 @@ then a timed learn(3), with each of its iterations' collection and
 learning (update) seconds.  Then one collect and one update, each under
 torch.profiler, for the host's side: wall ms, CPU-side op calls, kernel
 launch calls, their self CPU ms, the synchronisations' count and ms, and
-device ms.
+device ms and device ops.
 
     python deep_tracking_control_tpu_torch/scripts/env_steps.py
 
@@ -49,7 +49,8 @@ def host_profile(torch, fn):
         sync_cpu_ms=sum(e.self_cpu_time_total for e in sync) / 1e3,
         # the kernels alone: a CPU op's entry repeats its kernels' time
         device_ms=sum(e.self_device_time_total for e in ev
-                      if e.device_type == DeviceType.CUDA) / 1e3)
+                      if e.device_type == DeviceType.CUDA) / 1e3,
+        device_ops=sum(e.count for e in ev if e.device_type == DeviceType.CUDA))
 
 
 def main():

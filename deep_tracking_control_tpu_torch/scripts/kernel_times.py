@@ -1,18 +1,30 @@
-"""Device time of the physics decimation kernel (fused and window
-variants, on the same inputs) and of the planner kernel at the inputs of
-a real lite3_dtc step, at several block sizes of the physics kernel.
+"""Device time of the physics decimation kernel K1 (fused and window
+variants, on the same inputs), the terrain sampler K2, the planner K3 and
+the reward kernel K6 at the inputs of a real lite3_dtc step, at several
+launch shapes.
 
     python deep_tracking_control_tpu_torch/scripts/kernel_times.py \
-        [--threads 32 64 128] [--num_envs 4096] [--repeats 20]
+        [--threads 32 64 128] [--sampler_threads 128 256] \
+        [--reward_shapes 8x16 4x32] [--num_envs 4096] [--repeats 20] \
+        [--save FILE | --load FILE]
 
-Needs a CUDA device.  Each block size is set on
-`physics.cuda_substep.THREADS` before its calls; every result is held to
-its plain version (K1 1e-4 + 1e-4 rel, contact forces 1e-2 N; the window
-variant bit for bit the fused one; the planner at most 2% of envs
-differing, near-ties only) before it is timed.  The helpers (inputs,
-checks, timing) come from chip_smoke.py at the root of this checkout.
-Prints the card, the compiler's registers and stack of each kernel, one
-line per block size, and a JSON line last.
+Needs a CUDA device.  K1's block size is set on
+`physics.cuda_substep.THREADS`, K2's on `terrain.cuda_sampler.THREADS`,
+and K6's team (lanes an env) and envs a block on `env.cuda_rewards.TEAM`
+and `.ENVS` before their calls; a checkout whose wrapper lacks the
+attribute times its one shape.  Every result is held to its plain version
+before it is timed (K1 1e-4 + 1e-4 rel, contact forces 1e-2 N; the
+window variant bit for bit the fused one; K2 nearest exact, bilinear
+1e-5, slopes 1e-4; K3 at most 2% of envs differing, near-ties only; K6
+the budgets of chip_smoke.py).  Each K2 and K6 row gives the call's
+device ms (all the work the wrapper queues) and its CUDA kernel's alone.
+
+`--save FILE` keeps the recorded step's kernel inputs (torch.save) and
+`--load FILE` times on inputs kept so, so that two checkouts (copy this
+file and chip_smoke.py into the other one) are timed on the same inputs.
+The helpers (inputs, checks, timing) come from chip_smoke.py at the root
+of this checkout.  Prints the card, the compiler's registers and stack of
+each kernel, one line per shape, and a JSON line last.
 """
 import argparse
 import dataclasses
@@ -28,8 +40,15 @@ def main():
         os.path.abspath(__file__))))
     ap = argparse.ArgumentParser()
     ap.add_argument("--threads", type=int, nargs="*", default=None)
+    ap.add_argument("--sampler_threads", type=int, nargs="*", default=None)
+    ap.add_argument("--reward_shapes", nargs="*", default=None,
+                    help="LANESxENVS: lanes an env, envs a block")
+    ap.add_argument("--reward_probes", action="store_true")
+    ap.add_argument("--reward_term_costs", action="store_true")
     ap.add_argument("--num_envs", type=int, default=4096)
     ap.add_argument("--repeats", type=int, default=20)
+    ap.add_argument("--save", default=None)
+    ap.add_argument("--load", default=None)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -40,29 +59,48 @@ def main():
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     from deep_tracking_control_tpu_torch import cuda_build
-    from deep_tracking_control_tpu_torch.env import cuda_planner
+    from deep_tracking_control_tpu_torch.env import cuda_planner, cuda_rewards
     from deep_tracking_control_tpu_torch.env.legged_env import LeggedEnv
     from deep_tracking_control_tpu_torch.ops import cuda_patch
     from deep_tracking_control_tpu_torch.physics import cuda_substep
     from deep_tracking_control_tpu_torch.tasks import registry
+    from deep_tracking_control_tpu_torch.terrain import cuda_sampler
+    torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.card_line()
-    print(f"[kernel_times] card {card}", flush=True)
+    print(f"[kernel_times] card {card}; checkout {own}", flush=True)
     cuda_build.build()
     for line in cuda_build.build_log.splitlines():
         if any(w in line for w in ("registers", "stack", "Compiling entry")):
             print(f"[kernel_times] {line.strip()}", flush=True)
 
-    task, _ = registry.get_cfgs("lite3_dtc")
-    task = dataclasses.replace(
-        task, env=dataclasses.replace(task.env, num_envs=args.num_envs))
     t0 = time.perf_counter()
-    env = LeggedEnv(task, device="cuda")
-    gen = torch.Generator("cuda").manual_seed(0)
-    params, state = env.init(gen)
-    calls, _ = cs.record_kernel_inputs(env, params, state, gen)
-    print(f"[kernel_times] {env.num_envs} envs set up and stepped in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if args.load:
+        calls = torch.load(args.load, weights_only=False)
+        source = f"inputs loaded from {args.load}"
+    else:
+        task, _ = registry.get_cfgs("lite3_dtc")
+        task = dataclasses.replace(
+            task, env=dataclasses.replace(task.env, num_envs=args.num_envs))
+        env = LeggedEnv(task, device="cuda")
+        gen = torch.Generator("cuda").manual_seed(0)
+        params, state = env.init(gen)
+        calls, _ = cs.record_kernel_inputs(env, params, state, gen)
+        source = (f"{env.num_envs} envs on the {env.terrain.backend} "
+                  f"terrain, set up and stepped")
+        if args.save:
+            torch.save(calls, args.save)
+            source += f", inputs saved to {args.save}"
+    print(f"[kernel_times] {source} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    results = []
 
+    def split(name, fn):
+        call, kernel, ops, others = cs.device_split(
+            torch, fn, cs.SYMBOLS[name], args.repeats)
+        return dict(call_ms=call, kernel_ms=kernel, device_ops=ops,
+                    others=[k[:80] for k in others])
+
+    # K1 and K1w at each block size
     k1_args, k1_kw = calls["decimation_step"]
     plain_kw = {k: v for k, v in k1_kw.items() if k != "consts"}
     blocks, starts = k1_args[18], k1_args[19]
@@ -77,7 +115,6 @@ def main():
                                             window=window)
     plain = cuda_substep.decimation_step_plain(*k1_args, **plain_kw)
     want = dict(plain[0], anchors=plain[1], **plain[2])
-    results = []
     default = cuda_substep.THREADS
     for threads in args.threads or [default]:
         cuda_substep.THREADS = threads
@@ -91,14 +128,43 @@ def main():
             if not torch.equal(gotw[k], v):
                 raise AssertionError(f"K1w {k}: differs from K1")
         row = dict(kernel="decimation_step", threads=threads,
-                   ms=cs.device_ms(torch, k1, args.repeats),
-                   window_ms=cs.device_ms(torch, k1w, args.repeats))
+                   **split("decimation_step", k1),
+                   window=split("decimation_step_window", k1w))
         results.append(row)
-        print(f"[kernel_times] K1 at {threads} threads a block: "
-              f"{row['ms']:.4f} ms, K1w {row['window_ms']:.4f} ms (device "
-              f"time, mean of {args.repeats}; {card})", flush=True)
+        print(f"[kernel_times] K1 at {threads} threads a block: call "
+              f"{row['call_ms']:.4f} ms (kernel alone {row['kernel_ms']:.4f}"
+              f"), K1w call {row['window']['call_ms']:.4f} ms (kernel alone "
+              f"{row['window']['kernel_ms']:.4f}) (device time, mean of "
+              f"{args.repeats}; {card})", flush=True)
     cuda_substep.THREADS = default
 
+    # K2 at each block size
+    k2_args, _ = calls["sample_all"]
+    ph, pgx, pgy = cuda_sampler.sample_all_plain(*k2_args)
+    near = cuda_sampler.Q_MIN3 + cuda_sampler.Q_MAX10
+    default = getattr(cuda_sampler, "THREADS", None)
+    for threads in (args.sampler_threads or [default]) if default else [None]:
+        if threads:
+            cuda_sampler.THREADS = threads
+        h, gx, gy = cuda_sampler.sample_all(*k2_args)
+        torch.cuda.synchronize()
+        if not torch.equal(h[:, :near], ph[:, :near]):
+            raise AssertionError("K2: nearest samples differ")
+        cs.check_close("K2 bilinear", h[:, near:], ph[:, near:], 1e-5, 0.0)
+        cs.check_close("K2 gx", gx, pgx, 1e-4, 0.0)
+        cs.check_close("K2 gy", gy, pgy, 1e-4, 0.0)
+        row = dict(kernel="sample_all", threads=threads, **split(
+            "sample_all", lambda: cuda_sampler.sample_all(*k2_args)))
+        results.append(row)
+        print(f"[kernel_times] K2 at {threads or 'its'} threads a block: "
+              f"call {row['call_ms']:.4f} ms ({row['device_ops']:g} device "
+              f"ops), kernel alone {row['kernel_ms']:.4f} ms (device time, "
+              f"mean of {args.repeats}; {card}); other ops {row['others']}",
+              flush=True)
+    if default:
+        cuda_sampler.THREADS = default
+
+    # K3
     (scal, heights, stat, ny), _ = calls["plan_footholds"]
     want3 = cuda_planner.plan_plain(scal, heights, stat, ny)
 
@@ -107,12 +173,74 @@ def main():
     frac = float(cs.check_planner(k3(), want3, scal, heights, stat, ny)
                  .float().mean())
     row = dict(kernel="plan_footholds", differ=frac,
-               ms=cs.device_ms(torch, k3, args.repeats))
+               **split("plan_footholds", k3))
     results.append(row)
-    print(f"[kernel_times] K3: {row['ms']:.4f} ms ({frac:.3%} of envs "
-          f"differ from plain; {card})", flush=True)
+    print(f"[kernel_times] K3: call {row['call_ms']:.4f} ms (kernel alone "
+          f"{row['kernel_ms']:.4f}; {frac:.3%} of envs differ from plain; "
+          f"{card})", flush=True)
 
-    print(json.dumps(dict(card=card, num_envs=env.num_envs,
+    # K6 at each team shape, on the step's inputs (the sums it adds to are
+    # a scratch copy)
+    k6_args, _ = calls["compute_rewards"]
+    *head, sums = k6_args
+    scratch = sums.clone()
+    shapes = [None]
+    if hasattr(cuda_rewards, "TEAM"):
+        default = (cuda_rewards.TEAM, cuda_rewards.ENVS)
+        shapes = [tuple(int(v) for v in s.split("x"))
+                  for s in args.reward_shapes or []] or [default]
+    for shape in shapes:
+        if shape:
+            cuda_rewards.TEAM, cuda_rewards.ENVS = shape
+        err = cs.check_rewards("K6", k6_args)
+        row = dict(kernel="compute_rewards", shape=shape, max_abs_err=err,
+                   **split("compute_rewards", lambda: cuda_rewards
+                           .compute_rewards_fused(*head, scratch)))
+        results.append(row)
+        text = (f"{shape[0]} lanes an env, {shape[1]} envs a block"
+                if shape else "its shape")
+        print(f"[kernel_times] K6 at {text}: call {row['call_ms']:.4f} ms "
+              f"({row['device_ops']:g} device ops), kernel alone "
+              f"{row['kernel_ms']:.4f} ms; max abs err {err:.3e} (device "
+              f"time, mean of {args.repeats}; {card}); other ops "
+              f"{row['others']}", flush=True)
+        for probe in (4, 3, 1, 2) if args.reward_probes else ():
+            cuda_rewards.PROBE = probe
+            ms = cs.device_ms(torch, lambda: cuda_rewards
+                              .compute_rewards_fused(*head, scratch),
+                              args.repeats)
+            print(f"[kernel_times] K6 probe {probe}: {ms:.4f} ms", flush=True)
+        cuda_rewards.PROBE = 0
+    if shapes[0]:
+        cuda_rewards.TEAM, cuda_rewards.ENVS = default
+    if args.reward_term_costs:
+        # the kernel with one active term against none, on the same step
+        names, scales_dt, ctx, only_pos, _ = head[:5]
+        one = torch.zeros((1, sums.shape[1]), device=sums.device)
+
+        def run(sub):
+            return cs.device_ms(torch, lambda: cuda_rewards.compute_rewards_fused(
+                sub, scales_dt, ctx, only_pos, 0.0, sub, one[:len(sub)]),
+                args.repeats)
+        base = run([])
+        costs = {n: run([n]) - base for n in names}
+        results.append(dict(kernel="compute_rewards_term_costs", base_ms=base,
+                            costs=costs))
+        print(f"[kernel_times] K6 with no term {base:.4f} ms; one term adds "
+              + ", ".join(f"{n} {c:.4f}" for n, c in sorted(
+                  costs.items(), key=lambda x: -x[1])), flush=True)
+    # the plane fit of the orientation terms as the plain version computes
+    # it: one matrix product on the step's scan view
+    ctx = head[2]
+    row = dict(kernel="plane_fit_matmul", ms=cs.device_ms(
+        torch, lambda: ctx["measured_heights"] @ ctx["plane_pinv"].T,
+        args.repeats))
+    results.append(row)
+    print(f"[kernel_times] the plane fit as a matrix product "
+          f"{tuple(ctx['measured_heights'].shape)} x "
+          f"{tuple(ctx['plane_pinv'].T.shape)}: {row['ms']:.4f} ms", flush=True)
+
+    print(json.dumps(dict(card=card, checkout=own, inputs=source,
                           results=results)))
 
 

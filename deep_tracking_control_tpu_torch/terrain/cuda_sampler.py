@@ -5,11 +5,12 @@ Replaces the JAX package's terrain/pallas_sampler.py `sample_all` (the
 Pallas kernel `_sample_all_pallas`): one call answers every terrain query
 of a policy step — the 693-point min3 height scan, the 4-point max10 foot
 clearance and the 21-point bilinear height + slope at the body contact
-points.  On the H100 it is bound by memory traffic (about 36 MB at 4096
-envs, mostly the packed query coordinates and results); the kernel runs
-one block per env with threads over the queries, so those rows move
-coalesced, and reads table cells directly where the TPU kernel built
-one-hot matmuls.
+points.  On the H100 it is bound by memory traffic (44.4 MB at 4096 envs,
+mostly the packed world coordinates and the results); the kernel makes
+the patch coordinates itself and runs one thread per 4 queries, with
+float4 loads and stores of the query and result rows, and reads table
+cells directly where the TPU kernel built one-hot matmuls.  The card path
+queues this one kernel and nothing else.
 """
 from __future__ import annotations
 
@@ -24,12 +25,19 @@ Q_MAX10 = 8           # 4 feet + padding
 Q_BIL = 24            # body points + padding
 Q_TOT = Q_MIN3 + Q_MAX10 + Q_BIL
 _BIL_ROW_MAX = PATCH_R - 1 - 1e-4
+THREADS = 128         # threads a block of the kernel, a multiple of 32
+
+
+def launch_shape(n: int) -> tuple:
+    """(blocks, threads a block, queries a thread) of the kernel at n envs:
+    a thread per 4 queries, THREADS threads a block."""
+    return (n * Q_TOT // 4 + THREADS - 1) // THREADS, THREADS, 4
 
 
 def _patch_coords(src: PatchSource, origin, qx, qy):
-    """World query coords -> fractional patch cells (fr, fc), computed once
-    by the caller of either version, as the JAX package does outside its
-    kernel."""
+    """World query coords -> fractional patch cells (fr, fc), as the JAX
+    package computes them outside its kernel; the CUDA kernel computes the
+    same float32 ops itself."""
     hs = src.horizontal_scale
     return (qx - origin[:, 0:1]) / hs, (qy - origin[:, 1:2]) / hs
 
@@ -97,15 +105,20 @@ def sample_all(src: PatchSource, starts, origin, qx, qy):
     chk(origin, "origin", (N, 2), torch.float32, dev)
     chk(qx, "qx", (N, Q_TOT), torch.float32, dev)
     chk(qy, "qy", (N, Q_TOT), torch.float32, dev)
-    fr, fc = _patch_coords(src, origin, qx, qy)
+    for t, name in ((qx, "qx"), (qy, "qy")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned (float4 rows)")
+    if starts.data_ptr() % 8 or origin.data_ptr() % 8:
+        raise ValueError("starts/origin: not 8-byte aligned")
     h = torch.empty((N, Q_TOT), dtype=torch.float32, device=dev)
     gx = torch.empty((N, Q_BIL), dtype=torch.float32, device=dev)
     gy = torch.empty((N, Q_BIL), dtype=torch.float32, device=dev)
     p = cuda_build.ptr
     cuda_build.launch(
         "dtc_sample_all", p(src.blocks), p(src.blocks16), p(starts),
-        p(fr), p(fc), p(h), p(gx), p(gy), N, B, Rp,
-        cuda_build.inv(src.horizontal_scale), cuda_build.stream_ptr(dev))
+        p(origin), p(qx), p(qy), p(h), p(gx), p(gy), N, B, Rp,
+        cuda_build.inv(src.horizontal_scale), THREADS,
+        cuda_build.stream_ptr(dev))
     _counter.launches += 1
     return h, gx, gy
 

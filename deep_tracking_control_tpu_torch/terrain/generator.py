@@ -312,13 +312,11 @@ class Terrain:
     height of the central 2x2 m patch).
     """
 
-    def __init__(self, cfg, seed: int = 0, backend: str = "python"):
-        """backend: only "python" here.  The JAX package's C++ generator
-        (its native/ backend) is not carried into this package; the Python
-        generators give the same terrain semantics from their own RNG
-        stream."""
-        if backend not in ("python", "auto"):
-            raise ValueError(f"unsupported terrain backend {backend!r}")
+    def __init__(self, cfg, seed: int = 0, backend: str = "auto"):
+        """backend: "python" | "native" | "auto" — "native" uses the C++
+        generator (native/terrain_gen.cpp) via ctypes; "auto" prefers it
+        when the shared library is available.  The two backends implement
+        identical semantics but use independent RNG streams."""
         self.cfg = cfg
         self.env_length = cfg.terrain_length
         self.env_width = cfg.terrain_width
@@ -327,6 +325,24 @@ class Terrain:
         self.border = int(cfg.border_size / cfg.horizontal_scale)
         self.tot_rows = cfg.num_rows * lpx + 2 * self.border
         self.tot_cols = cfg.num_cols * wpx + 2 * self.border
+
+        # the native backend implements the curriculum/randomized layouts
+        # only; selected mode (terrain.py:64-77) always uses the python
+        # generators
+        if backend in ("auto", "native") and not getattr(cfg, "selected",
+                                                         False):
+            from .. import native
+            out = native.generate_terrain(cfg, seed) if native.available() \
+                else None
+            if out is not None:
+                self.height_field_raw, self.env_origins = out
+                self.backend = "native"
+                return
+            if backend == "native":
+                raise RuntimeError("native terrain backend unavailable")
+        elif backend == "native":
+            raise RuntimeError(
+                "native terrain backend does not implement selected mode")
 
         self.backend = "python"
         rng = np.random.default_rng(seed)

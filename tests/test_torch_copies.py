@@ -1,8 +1,9 @@
 """The torch port's copies of the framework-free modules, and its hygiene.
 
-robot/model.py, robot/quadrupeds.py, terrain/generator.py (Python
-backend), env/config.py, tasks/registry.py, utils/cli.py and the switch
-reader of utils/flags.py are copied into
+robot/model.py, robot/quadrupeds.py, terrain/generator.py, the native
+terrain generator (native/terrain_gen.cpp and its ctypes binding),
+env/config.py, tasks/registry.py, utils/cli.py and the switch reader of
+utils/flags.py are copied into
 the port (which must not import the JAX package); each copy must stay equal
 to its original.  The port itself imports neither jax, flax, optax, orbax
 nor triton, and its modules are all imported here, the training ones
@@ -14,10 +15,12 @@ import pathlib
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
 
+from deep_tracking_control_tpu import native as jnative
 from deep_tracking_control_tpu.env import config as jconfig
 from deep_tracking_control_tpu.physics import engine as jengine
 from deep_tracking_control_tpu.physics import sim as jsim
@@ -26,6 +29,7 @@ from deep_tracking_control_tpu.tasks import registry as jreg
 from deep_tracking_control_tpu.terrain import generator as jgen
 from deep_tracking_control_tpu.utils import cli as jcli
 from deep_tracking_control_tpu.utils import flags as jflags
+from deep_tracking_control_tpu_torch import native as tnative
 from deep_tracking_control_tpu_torch.env import config as tconfig
 from deep_tracking_control_tpu_torch.physics import sim as tsim
 from deep_tracking_control_tpu_torch.robot import quadrupeds as trobots
@@ -74,12 +78,78 @@ def test_python_terrain_equal(seed):
     cfg = tconfig.TerrainCfg(num_rows=3, num_cols=3, border_size=4.0)
     jcfg = jconfig.TerrainCfg(num_rows=3, num_cols=3, border_size=4.0)
     jt = jgen.Terrain(jcfg, seed=seed, backend="python")
-    tt = tgen.Terrain(cfg, seed=seed)
+    tt = tgen.Terrain(cfg, seed=seed, backend="python")
     assert tt.backend == "python"
     np.testing.assert_array_equal(tt.height_field_raw, jt.height_field_raw)
     np.testing.assert_array_equal(tt.env_origins, jt.env_origins)
     np.testing.assert_array_equal(tt.heights_meters(), jt.heights_meters())
     assert tgen.column_families(cfg) == jgen.column_families(jcfg)
+
+
+def _jax_native_ready(timeout=60.0):
+    """The JAX package builds its library next to its source at first use,
+    and another test process may be writing it right now: wait until it
+    loads."""
+    t0 = time.monotonic()
+    while not jnative.available():
+        if time.monotonic() - t0 > timeout:
+            return False
+        time.sleep(0.5)
+    return True
+
+
+def test_native_sources_equal():
+    jdir = pathlib.Path(jnative.__file__).parent
+    assert ((PORT / "native" / "terrain_gen.cpp").read_bytes()
+            == (jdir / "terrain_gen.cpp").read_bytes())
+    assert (inspect.getsource(tnative.generate_terrain)
+            == inspect.getsource(jnative.generate_terrain))
+    assert tnative.CXX_FLAGS == ["-O2", "-shared", "-fPIC"]
+    # the port builds its own library into its _build/, never the JAX one
+    assert tnative.library_path().parent == PORT / "_build"
+
+
+@pytest.mark.parametrize("case", [("small", 3), ("small", 11),
+                                  ("lite3_dtc", 1)])
+def test_native_terrain_equal(case):
+    """The port's `Terrain` with its default backend builds the JAX
+    package's native world bit for bit: two seeds of a small world, and
+    lite3_dtc's own terrain at terrain_seed=1."""
+    name, seed = case
+    if name == "small":
+        cfg = tconfig.TerrainCfg(num_rows=3, num_cols=4, border_size=4.0)
+        jcfg = jconfig.TerrainCfg(num_rows=3, num_cols=4, border_size=4.0)
+    else:
+        cfg, jcfg = treg.get_cfgs(name)[0].terrain, jreg.get_cfgs(name)[0].terrain
+    assert _jax_native_ready()
+    jt = jgen.Terrain(jcfg, seed=seed)
+    tt = tgen.Terrain(cfg, seed=seed)
+    assert (tt.backend, jt.backend) == ("native", "native")
+    np.testing.assert_array_equal(tt.height_field_raw, jt.height_field_raw)
+    np.testing.assert_array_equal(tt.env_origins, jt.env_origins)
+    # another seed is another world
+    other = tgen.Terrain(cfg, seed=seed + 1)
+    assert not np.array_equal(other.height_field_raw, tt.height_field_raw)
+
+
+def test_terrain_backend_choice():
+    """"auto" picks the native generator, selected mode the Python one on
+    both sides, and "native" in selected mode raises on both."""
+    assert _jax_native_ready()
+    kw = dict(num_rows=2, num_cols=2, border_size=4.0)
+    stairs = (("step_width", 0.31), ("step_height", 0.05))
+    selected = []
+    for gen, config in ((jgen, jconfig), (tgen, tconfig)):
+        assert gen.Terrain(config.TerrainCfg(**kw), seed=2).backend == "native"
+        sel = config.TerrainCfg(selected=True, selected_terrain_kwargs=stairs,
+                                **kw)
+        selected.append(gen.Terrain(sel, seed=2))
+        assert selected[-1].backend == "python"
+        with pytest.raises(RuntimeError):
+            gen.Terrain(sel, seed=2, backend="native")
+    np.testing.assert_array_equal(selected[1].height_field_raw,
+                                  selected[0].height_field_raw)
+    assert selected[1].height_field_raw.any()
 
 
 @pytest.mark.parametrize("argv", [[], ["--task", "lite3_dtc", "--num_envs", "16",

@@ -12,8 +12,10 @@ also on random inputs that switch on all 33 terms; the noise kernel bit
 for bit, and the obs kernel against its plain version fed that kernel's
 draws; the patch and window copies bit for bit, and the decimation
 kernel's window variant bit for bit against its fused variant.  The
-physics and planner kernels also run on the first n envs of that step for
-ragged n: a single env, a partial warp, a partial last block.
+physics, sampler, planner and reward kernels also run on ragged n envs: a
+single env, a partial warp, a partial last block (the sampler with
+queries on cell edges and outside the patch, the reward kernel on all 33
+terms with and without the plane fit and the positive clip).
 """
 import dataclasses
 
@@ -104,6 +106,46 @@ def test_sampler_kernel_matches_plain(recorded):
     args, _ = recorded[0]["k2"]
     h, gx, gy = cuda_sampler.sample_all(*args)
     ph, pgx, pgy = cuda_sampler.sample_all_plain(*args)
+    near = cuda_sampler.Q_MIN3 + cuda_sampler.Q_MAX10
+    assert torch.equal(h[:, :near], ph[:, :near])
+    torch.testing.assert_close(h[:, near:], ph[:, near:], atol=1e-5, rtol=0)
+    torch.testing.assert_close(gx, pgx, atol=1e-4, rtol=0)
+    torch.testing.assert_close(gy, pgy, atol=1e-4, rtol=0)
+
+
+def _sampler_queries(args, n):
+    """The step's sampler arguments cut to the first n envs, with some
+    queries exactly on cell edges (world coordinates origin + i * hs) and
+    some outside the patch on every side."""
+    src, starts, origin, qx, qy = args
+    starts, origin = starts[:n].contiguous(), origin[:n].contiguous()
+    qx, qy = qx[:n].clone(), qy[:n].clone()
+    hs = src.horizontal_scale
+    i = torch.arange(qx.shape[1], device=qx.device, dtype=torch.float32)
+    edge = slice(0, None, 5)
+    qx[:, edge] = origin[:, 0:1] + (i[edge] % 64) * hs
+    qy[:, edge] = origin[:, 1:2] + (i[edge] % 128) * hs
+    for k, (dx, dy) in enumerate(((-3.0, 0.5), (9.0, 0.5), (0.5, -3.0),
+                                  (0.5, 17.0))):
+        for cols in (slice(1 + k, 704, 37), slice(705 + k, 736, 11)):
+            qx[:, cols] = origin[:, 0:1] + dx
+            qy[:, cols] = origin[:, 1:2] + dy
+    return src, starts, origin, qx, qy
+
+
+@pytest.mark.parametrize("n", [1, 3, 37, 45])
+def test_sampler_kernel_ragged_envs(recorded, n):
+    """K2 on the first n envs, queries on cell edges and outside the
+    patch: the nearest samples bit for bit the plain version's (the patch
+    coordinates are made in the kernel with PyTorch's rounding), bilinear
+    heights 1e-5, slopes 1e-4; one launch."""
+    args = _sampler_queries(recorded[0]["k2"][0], n)
+    before = cuda_sampler.sample_all.launches
+    h, gx, gy = cuda_sampler.sample_all(*args)
+    ph, pgx, pgy = cuda_sampler.sample_all_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda_sampler.sample_all.launches == before + 1
+    assert h.shape == (n, cuda_sampler.Q_TOT) and gx.shape == (n, 24)
     near = cuda_sampler.Q_MIN3 + cuda_sampler.Q_MAX10
     assert torch.equal(h[:, :near], ph[:, :near])
     torch.testing.assert_close(h[:, near:], ph[:, near:], atol=1e-5, rtol=0)
@@ -256,6 +298,13 @@ def test_wrappers_reject_bad_input(recorded):
         cuda_sampler.sample_all(src, starts.long(), origin, qx, qy)
     with pytest.raises(ValueError):
         cuda_sampler.sample_all(src, starts, origin, qx[:, :-1], qy[:, :-1])
+    with pytest.raises(ValueError):                       # origin on the CPU
+        cuda_sampler.sample_all(src, starts, origin.cpu(), qx, qy)
+    # contiguous rows that are not 16-byte aligned (float4 loads)
+    shifted = torch.empty(qx.numel() + 1, device=qx.device)[1:].view(qx.shape)
+    shifted.copy_(qx)
+    with pytest.raises(ValueError):
+        cuda_sampler.sample_all(src, starts, origin, shifted, qy)
 
 
 @pytest.mark.parametrize("G, prefix", [(16, None), (1, 50), (3, 7)])
@@ -337,6 +386,27 @@ def test_rewards_kernel_all_terms(only_positive, term):
     sums = torch.randn((len(sum_names), 256), device="cuda",
                        generator=torch.Generator("cuda").manual_seed(1))
     _check_rewards((names, scales, ctx, only_positive, term, sum_names, sums))
+
+
+@pytest.mark.parametrize("plane", [True, False])
+@pytest.mark.parametrize("only_positive", [False, True])
+@pytest.mark.parametrize("n", [1, 3, 37, 45])
+def test_rewards_kernel_ragged_envs(n, only_positive, plane):
+    """K6 at n envs (a partial block of 16 envs, a partial team of warps)
+    on all 33 terms, or on all but the orientation terms (no plane fit),
+    with and without the positive clip: the budgets of chip_smoke.py."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    names = [k for k in rew_mod.REWARD_FUNCTIONS
+             if plane or k not in ("orientation", "orientation_roll")]
+    ctx = synthetic_ctx(n, 7 + n, "cuda")
+    scales = {k: 0.01 * (i + 1) * (-1) ** i for i, k in enumerate(names)}
+    sum_names = names + ["termination"]
+    sums = torch.randn((len(sum_names), n), device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(n))
+    upd = _check_rewards((names, scales, ctx, only_positive, -0.5, sum_names,
+                          sums))
+    assert ("pitch_est" in upd) == plane
 
 
 def test_obs_kernel_matches_plain_fed_its_draws(recorded):

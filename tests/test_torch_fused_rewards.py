@@ -140,4 +140,95 @@ def test_kernel_term_table_matches_the_plain_terms():
     slots = [t for t in slots if t and not t.startswith("//")]
     assert slots[-1] == "N_IN"
     assert len(slots) - 1 == len(cuda_rewards._F32 + cuda_rewards._BOOL
-                                 + cuda_rewards._I32 + cuda_rewards._I64)
+                                 + cuda_rewards._I32 + cuda_rewards._I64
+                                 + cuda_rewards._PLANE)
+    # the inputs that may be staged in shared memory (those before
+    # FEET_IDX) are the float32, bool and int32 ones, with their offsets
+    staged = cuda_rewards._F32 + cuda_rewards._BOOL + cuda_rewards._I32
+    assert slots.index("FEET_IDX") == len(staged)
+    assert slots.index("FC") == len(cuda_rewards._F32)
+    assert slots.index("LEVELS") == len(cuda_rewards._F32 + cuda_rewards._BOOL)
+    assert slots[-3:-1] == ["HSCAN", "PINV"]
+
+
+def _storage_word(t, at):
+    """Element `at` of tensor t's storage, counted from t's own first
+    element (as the kernel adds an offset to the view's address)."""
+    flat = torch.empty(0, dtype=t.dtype).set_(
+        t.untyped_storage(), 0,
+        (t.untyped_storage().nbytes() // t.element_size(),))
+    return float(flat[t.storage_offset() + at])
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_kernel_staging_plan_reads_every_input(monkeypatch, transposed):
+    """The wrapper's staging plans, read as csrc/rewards.cu reads them
+    (each env's row word by word, the block's constants once), give back
+    every input the terms read, on contiguous inputs and on the env's
+    transposed views; every term has a team lane."""
+    from deep_tracking_control_tpu_torch import cuda_build
+    got = {}
+    monkeypatch.setattr(cuda_build, "launch",
+                        lambda name, *args: got.update(args=args))
+    monkeypatch.setattr(cuda_build, "stream_ptr",
+                        lambda dev: cuda_build.Ptr(0))
+    n = 37
+    ctx = synthetic_ctx(n, 3, "cpu")
+    if transposed:          # env-trailing arrays, as the physics hands in
+        for k in ("base_lin_vel", "dof_pos", "dof_vel", "torques",
+                  "measured_foot_clearance"):
+            ctx[k] = ctx[k].T.contiguous().T
+        for k in ("contact_forces", "foot_positions", "foot_velocities"):
+            ctx[k] = ctx[k].permute(1, 2, 0).contiguous().permute(2, 0, 1)
+    names = list(trew.REWARD_FUNCTIONS)
+    cuda_rewards._launch(names, {k: 0.1 for k in names}, ctx, False, -0.5,
+                         names + ["termination"],
+                         torch.zeros((len(names) + 1, n)))
+    table, _, _, ip, offs, words, cwords, _, lanes, *_ = got["args"]
+    S, C = ip[15], ip[19]
+    lo, hi = ctx["soft_dof_pos_limits"]
+    inputs = dict(ctx, soft_lo=lo, soft_hi=hi)
+    for k in ("cmd_buffer", "lin_vel_buffer", "ang_vel_buffer"):
+        inputs[k] = ctx[k][:, -cuda_rewards.BUFFER_ROWS:]
+    keys = (cuda_rewards._F32 + cuda_rewards._BOOL + cuda_rewards._I32
+            + cuda_rewards._I64)
+
+    def word(entry, env):
+        k = entry >> 24
+        t = inputs[keys[k]]
+        assert table[6 * k] == t.data_ptr()
+        return _storage_word(t, env * table[6 * k + 1] + (entry & 0xFFFFFF))
+    rows = torch.tensor([[word(w, e) for w in list(words)[:S]]
+                         for e in range(n)], dtype=torch.float64)
+    cst = torch.tensor([word(c, 0) for c in list(cwords)[:C]],
+                       dtype=torch.float64)
+    for i, k in enumerate(keys):
+        t, o = inputs[k].double(), offs[i]
+        size = table[6 * i + 4] * table[6 * i + 5]
+        if o >= 0:
+            np.testing.assert_array_equal(rows[:, o:o + size],
+                                          t.reshape(n, -1), err_msg=k)
+        else:               # a zero env stride, or a table: its values
+            flat = t.reshape(-1)
+            want = flat[:size] if flat.numel() >= size else flat.expand(size)
+            np.testing.assert_array_equal(cst[-1 - o:-1 - o + size], want,
+                                          err_msg=k)
+    assert S <= cuda_rewards.MAX_WORDS and C <= cuda_rewards.MAX_CWORDS
+    assert sorted(set(lanes)) == list(range(cuda_rewards.TEAM))
+
+
+@pytest.mark.parametrize("team, envs", [(16, 16), (8, 16), (8, 32)])
+def test_lane_table_evens_out_the_warps(team, envs):
+    """Each term gets a lane of the team; the warps' summed costs differ
+    by at most one term's (lanes of one warp run their terms in turn)."""
+    names = tuple(trew.REWARD_FUNCTIONS)
+    lanes = cuda_rewards.lane_table(names, team, envs)
+    assert len(lanes) == len(names) and all(0 <= x < team for x in lanes)
+    per_warp = max(1, 32 // envs)
+    cost = {}
+    for name, lane in zip(names, lanes):
+        w = lane // per_warp
+        cost[w] = cost.get(w, 0.0) + cuda_rewards.TERM_COST.get(name, 1.2)
+    assert len(cost) == -(-team // per_warp)
+    assert max(cost.values()) - min(cost.values()) <= max(
+        cuda_rewards.TERM_COST.values()) + 1e-9
