@@ -100,8 +100,10 @@ KERNELS = {
 # kernel -> the symbol of its CUDA kernel, as the profiler names it (every
 # kernel of csrc/ lies in an anonymous namespace)
 SYMBOLS = {
-    "decimation_step": "substep_kernel", "decimation_step_window": "substep_kernel",
-    "extract_patches": "copy_rows_kernel", "extract_windows": "copy_rows_kernel",
+    "decimation_step": "substep_kernel",
+    "decimation_step_window": "substep_kernel",
+    "extract_patches": "copy_rows_kernel",
+    "extract_windows": "copy_rows_kernel",
     "sample_all": "sample_all_kernel", "plan_footholds": "plan_kernel",
     "permute_groups": "gather_kernel", "compute_rewards": "rewards_kernel",
     "compute_observations": "obs_kernel", "uniform_pm1": "uniform_kernel",
@@ -241,7 +243,8 @@ def device_profile(torch, fn, repeats=REPEATS):
 def device_ms(torch, fn, repeats=REPEATS):
     """Mean over `repeats` calls of the device time of all the work one
     fn() call queues (`device_profile`)."""
-    return sum(us for _, us, _ in device_profile(torch, fn, repeats)) / 1e3 / repeats
+    events = device_profile(torch, fn, repeats)
+    return sum(us for _, us, _ in events) / 1e3 / repeats
 
 
 def device_split(torch, fn, symbol, repeats=REPEATS):
@@ -602,7 +605,8 @@ def compare_kernels(calls, tables):
         nbytes, lambda a=args, k=kw: cuda_substep.decimation_step_plain(*a, **k),
         0)
     results["decimation_step"] = dict(max_abs_err=err, **timings(
-        torch, "decimation_step", lambda: cuda_substep.decimation_step(*args, **kwargs),
+        torch, "decimation_step",
+        lambda: cuda_substep.decimation_step(*args, **kwargs),
         lambda: cuda_substep.decimation_step_plain(*args, **kw), 5))
     say(3, f"decimation_step vs plain: max abs err {err:.3e} "
            f"(budget 1e-4 + 1e-4 rel; contact forces 1e-2 N); "
@@ -652,7 +656,8 @@ def compare_kernels(calls, tables):
     work["plan_footholds"] = (
         nbytes, lambda: cuda_planner.plan_plain(scal, heights, stat, ny), 0)
     results["plan_footholds"] = dict(max_abs_err=err, **timings(
-        torch, "plan_footholds", lambda: cuda_planner.select_footholds(scal, heights, stat, ny),
+        torch, "plan_footholds",
+        lambda: cuda_planner.select_footholds(scal, heights, stat, ny),
         lambda: cuda_planner.plan_plain(scal, heights, stat, ny)))
     say(3, f"plan_footholds vs plain: {frac:.3%} of envs differ (budget 2%, "
            f"near-ties only); max abs err elsewhere {err:.3e}; "
@@ -685,7 +690,8 @@ def compare_kernels(calls, tables):
     work["compute_rewards"] = (
         nbytes, lambda: cuda_rewards.rewards_plain(*head, scratch), 0)
     results["compute_rewards"] = dict(max_abs_err=err, **timings(
-        torch, "compute_rewards", lambda: cuda_rewards.compute_rewards_fused(*head, scratch),
+        torch, "compute_rewards",
+        lambda: cuda_rewards.compute_rewards_fused(*head, scratch),
         lambda: cuda_rewards.rewards_plain(*head, scratch)))
     # a team of lanes an env: the grid covers every SM; the plane fit is
     # made inside the kernel, so the call queues the kernel alone
@@ -727,7 +733,8 @@ def compare_kernels(calls, tables):
         nbytes, lambda: cuda_obs.observations_plain(*args, **draws),
         PHILOX_OPS * drawn)
     results["compute_observations"] = dict(max_abs_err=err, **timings(
-        torch, "compute_observations", lambda: cuda_obs.compute_observations_fused(*args),
+        torch, "compute_observations",
+        lambda: cuda_obs.compute_observations_fused(*args),
         lambda: cuda_obs.observations_plain(*args)))
     say(3, f"compute_observations vs plain fed the noise kernel's draws: max "
            f"abs err {err:.3e} (budget 1e-6); the plain draws equal them")
@@ -762,7 +769,8 @@ def compare_kernels(calls, tables):
         res[shape] = dict(
             max_abs_err=0.0, library_ms=device_ms(torch, library),
             library_wall_ms=wall_ms(torch, library), **timings(
-                torch, "uniform_pm1", lambda s=shape: cuda_rng.uniform_pm1(rseed, s),
+                torch, "uniform_pm1",
+                lambda s=shape: cuda_rng.uniform_pm1(rseed, s),
                 lambda s=shape: cuda_rng.uniform_pm1_plain(rseed, s)))
         numel = shape[0] * shape[1]
         res[shape].update(zip(("bound_ms", "bound_by"),
@@ -1351,7 +1359,8 @@ def main():
         say(4, f"{k} at {NUM_ENVS} envs: device time per call, mean of "
                f"{REPEATS}: kernel call {r['ms']:.4f} ms ({r['device_ops']:g} "
                f"device ops; its CUDA kernel alone {r['kernel_ms']:.4f} ms), "
-               f"plain {r['plain_ms']:.4f} ms; stream time per call: kernel {r['wall_ms']:.4f} ms, "
+               f"plain {r['plain_ms']:.4f} ms; stream time per call: kernel "
+               f"{r['wall_ms']:.4f} ms, "
                f"plain {r['plain_wall_ms']:.4f} ms{lib}; bound "
                f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({card})")
     err, same = small_reference_check(registry, LeggedEnv)
@@ -1411,7 +1420,8 @@ def main():
         say(7, f"{k} at {NUM_ENVS} envs: device time per call, mean of "
                f"{REPEATS}: kernel call {r['ms']:.4f} ms ({r['device_ops']:g} "
                f"device ops; its CUDA kernel alone {r['kernel_ms']:.4f} ms), "
-               f"plain {r['plain_ms']:.4f} ms; stream time per call: kernel {r['wall_ms']:.4f} ms, "
+               f"plain {r['plain_ms']:.4f} ms; stream time per call: kernel "
+               f"{r['wall_ms']:.4f} ms, "
                f"plain {r['plain_wall_ms']:.4f} ms{lib}; bound "
                f"{r['bound_ms']:.4f} ms by {r['bound_by']}; {launches[k]} "
                f"launches in its route's collect ({card})")

@@ -38,12 +38,11 @@
 //      The inputs that do not vary with the env (per-joint limits, index
 //      tables, acceleration points) are staged once a block.
 //   2. A warp an env fits the plane from shared memory.
-//   3. The active terms are dealt out across the team's lanes: lane l of
-//      env e is thread l * envs + e, so that a warp runs a term for
-//      adjacent envs, and the wrapper gives each term a lane so that the
-//      warps' costs even out (lanes of one warp run their terms one after
-//      the other).  Each term reads shared memory and writes its value
-//      there.
+//   3. The active terms are dealt out across the team's lanes (term k on
+//      lane k mod team): lane l of env e is thread l * envs + e, so that a
+//      warp runs one term for adjacent envs (lanes of one warp run their
+//      terms one after the other).  Each term reads shared memory and
+//      writes its value there.
 //   4. One lane an env adds the values in the reference order (the
 //      total's order of additions is the one-thread-an-env kernel's), and
 //      the block adds the episode-sum rows with envs adjacent, coalesced.
@@ -103,7 +102,7 @@ enum FParam {
 enum IParam {
     I_N, I_NQ, I_NF, I_NPEN, I_NHIP, I_NPTS, I_LCMDB, I_LLVB, I_LAVB,
     I_NTERMS, I_TERM_ON, I_TERM_ROW, I_ONLY_POS, I_NH, I_W, I_OFF_PLANE,
-    I_OFF_VAL, I_TEAM, I_ENVS, I_NC, I_PROBE, N_I
+    I_OFF_VAL, I_TEAM, I_ENVS, I_NC, N_I
 };
 
 struct View {
@@ -127,7 +126,6 @@ struct RewardArgs {
     unsigned word[MAX_WORDS];       // an env's row
     unsigned cword[MAX_CWORDS];     // the block's constants
     int id[MAX_TERMS];
-    int lane[MAX_TERMS];    // the team lane that computes the term
     int row[MAX_TERMS];
     float scale[MAX_TERMS];
     float term_scale;
@@ -220,6 +218,8 @@ struct Env {
         p_local_y = add(-mul(qw, t1), c1);
     }
 
+    // The term loops stay rolled (`#pragma unroll 1`): so the terms ran
+    // in less time on the H100 than unrolled (PERF.md, Findings).
     __device__ __forceinline__ float term(int id) {
         const float* fp = a.f;
         float s = 0.0f;
@@ -480,7 +480,6 @@ __global__ void rewards_kernel(const __grid_constant__ RewardArgs a) {
     float* pinv = scan + envs * NHP;                    // (3, NH)
     float* rows = pinv + 3 * NH;                        // (envs, W)
     float* cst = rows + envs * W;                       // (I_NC)
-    if (a.i[I_PROBE] == 4) return;
 
     // 1. the block's inputs into shared memory, with asynchronous copies
     // (cp.async: no register round trip, every copy of a thread in flight
@@ -541,12 +540,7 @@ __global__ void rewards_kernel(const __grid_constant__ RewardArgs a) {
         cst[c] = load_word(a.in[k], k, ent & 0xffffffu);
     }
     cp_async_wait_all();
-    if (a.i[I_PROBE] == 7) {
-        __syncthreads();
-        return;
-    }
     __syncthreads();
-    if (a.i[I_PROBE] == 3) return;
 
     // 2. the plane fit, X = pinv @ heights, from shared memory: a warp an
     // env, each lane a strided share of the scan, then a butterfly sum
@@ -577,8 +571,6 @@ __global__ void rewards_kernel(const __grid_constant__ RewardArgs a) {
     }
     __syncthreads();
 
-    if (a.i[I_PROBE] == 1) return;
-
     // 3. the terms, dealt out across the team's lanes: lane l of env e is
     // thread l * envs + e, so that a warp's threads run one term for
     // adjacent envs (a term per lane of one warp would serialize them)
@@ -590,8 +582,8 @@ __global__ void rewards_kernel(const __grid_constant__ RewardArgs a) {
             0.0f, 0.0f};
     if (e < ne) {
         env.cmd_norm = norm2(env.f(CMD, 0), env.f(CMD, 1));
-        for (int k = 0; k < nt; ++k) {
-            if (a.lane[k] == lane) val[k] = mul(env.term(a.id[k]), a.scale[k]);
+        for (int k = lane; k < nt; k += team) {
+            val[k] = mul(env.term(a.id[k]), a.scale[k]);
         }
         // the pitch filter's state, from the lane(s) of the orientation
         // terms (the wrapper asks for it exactly when one is active; two
@@ -601,7 +593,6 @@ __global__ void rewards_kernel(const __grid_constant__ RewardArgs a) {
         }
     }
     __syncthreads();
-    if (a.i[I_PROBE] == 2) return;
 
     // 4. the total on one lane, in the reference order
     if (e < ne && lane == 0) {
@@ -642,8 +633,7 @@ __global__ void rewards_kernel(const __grid_constant__ RewardArgs a) {
 // int64 [N_OUT addresses, 0 where not written]; fparams: host float32
 // [N_F]; iparams: host int32 [N_I]; offs: host int32 [HSCAN] (RewardArgs
 // `off`); words, cwords: host uint32 [I_OFF_PLANE], [I_NC] (the staging
-// plans of an env's row and of the block's constants); ids, lanes (the
-// team lane of each term),
+// plans of an env's row and of the block's constants); ids,
 // rows (the episode-sum row of each term, -1 for none): host int32
 // [n_terms]; scales: host float32 [n_terms].  Shared memory: I_ENVS scan
 // rows (I_NH rounded up to 4), the pseudo-inverse (3 x I_NH), I_ENVS rows
@@ -652,7 +642,6 @@ DTC_EXPORT int dtc_compute_rewards(const void* views, const void* outs,
                                    const void* fparams, const void* iparams,
                                    const void* offs, const void* words,
                                    const void* cwords, const void* ids,
-                                   const void* lanes,
                                    const void* rows, const void* scales,
                                    float term_scale, void* stream) {
     const long long* v = (const long long*)views;
@@ -692,15 +681,13 @@ DTC_EXPORT int dtc_compute_rewards(const void* views, const void* outs,
     const int nt = a.i[I_NTERMS], team = a.i[I_TEAM], envs = a.i[I_ENVS];
     const int threads = team * envs;
     if (nt < 0 || nt > MAX_TERMS || a.i[I_NF] > MAX_FEET || a.i[I_N] < 0
-            || team <= 0 || envs <= 0 || threads > 1024
+            || team <= 0 || envs <= 0 || threads % 32 != 0 || threads > 1024
             || a.i[I_W] < a.i[I_OFF_VAL] + MAX_TERMS + 2) {
         return (int)cudaErrorInvalidValue;
     }
     for (int k = 0; k < nt; ++k) {
         a.id[k] = ((const int*)ids)[k];
         a.row[k] = ((const int*)rows)[k];
-        a.lane[k] = ((const int*)lanes)[k];
-        if (a.lane[k] < 0 || a.lane[k] >= team) return (int)cudaErrorInvalidValue;
         a.scale[k] = ((const float*)scales)[k];
         if (a.id[k] < 0 || a.id[k] >= N_TERMS) return (int)cudaErrorInvalidValue;
     }

@@ -40,7 +40,6 @@ MAX_WORDS = 320                   # staged words an env (csrc/rewards.cu)
 MAX_CWORDS = 160                  # staged constants a block
 TEAM = 16                         # lanes an env
 ENVS = 16                         # envs a block (TEAM * ENVS threads)
-PROBE = 0
 
 # the kernel's inputs in the order of csrc/rewards.cu `In`: ctx key, dtype
 _F32 = ["base_lin_vel", "base_ang_vel", "projected_gravity", "dof_pos",
@@ -49,8 +48,9 @@ _F32 = ["base_lin_vel", "base_ang_vel", "projected_gravity", "dof_pos",
         "commands", "cmd_buffer", "lin_vel_buffer", "ang_vel_buffer",
         "default_dof_pos", "soft_lo", "soft_hi", "dof_vel_limit",
         "torque_limit", "robot_mass", "foot_positions", "foot_velocities",
-        "last_foot_velocities", "measured_foot_clearance", "pitch_est", "acc_points", "optimal_footholds_world", "root_z",
-        "env_origin_z", "lin_vel_x_max"]
+        "last_foot_velocities", "measured_foot_clearance", "pitch_est",
+        "acc_points", "optimal_footholds_world", "root_z", "env_origin_z",
+        "lin_vel_x_max"]
 _BOOL = ["feet_contact", "last_contacts", "contact_filt", "stumb_buffer",
          "reset_buf", "time_out_buf"]
 _I32 = ["terrain_levels"]
@@ -61,47 +61,43 @@ _PLANE = ["measured_heights", "plane_pinv"]
 BUFFER_ROWS = 4
 
 
-# What one term adds to the kernel's time, in us: a lite3_dtc step at 4096
-# envs on the H100, the kernel with that term alone against none
-# (scripts/kernel_times.py --reward_term_costs; orientation less its plane
-# fit); the terms lite3_dtc does not run count 1.2.  They deal the terms
-# out across a team's lanes (`lane_table`).
-TERM_COST = dict(
-    lin_vel_z=0.9, ang_vel_xy=0.8, torques=1.1, dof_acc=1.2, action_rate=1.1,
-    collision=2.0, dof_pos_limits=1.2, feet_air_time=1.1, stand_still=1.2,
-    power=1.1, smooth=1.2, foot_clearance=1.7, feet_slip=1.2, hip_pos=1.2,
-    powerchange=1.2, pos_acc=1.6, foot_acc=1.3, orientation=1.6,
-    base_height=1.2, foothold_miss=1.1, soft_tracking_lin_vel=1.5,
-    soft_tracking_ang_vel=1.2, tracking_optimal_footholds=1.3)
-
-
-@functools.lru_cache(maxsize=None)
-def lane_table(names: tuple, team: int, envs: int) -> tuple:
-    """The team lane of each term.  A warp holds 32 // envs lanes (one
-    lane's threads are envs adjacent envs), and lanes of one warp that run
-    different terms run them one after the other: each term goes, the
-    costliest first, to the warp with the least cost so far, and there to
-    its lane with the least."""
-    per_warp = max(1, 32 // envs)
-    warp_cost = [0.0] * (-(-team // per_warp))
-    lane_cost = [0.0] * team
-    lanes = [0] * len(names)
-    for k in sorted(range(len(names)),
-                    key=lambda k: -TERM_COST.get(names[k], 1.2)):
-        w = min(range(len(warp_cost)), key=lambda i: warp_cost[i])
-        lane = min(range(w * per_warp, min(team, (w + 1) * per_warp)),
-                   key=lambda i: lane_cost[i])
-        c = TERM_COST.get(names[k], 1.2)
-        warp_cost[w] += c
-        lane_cost[lane] += c
-        lanes[k] = lane
-    return tuple(lanes)
-
-
 def launch_shape(n: int) -> tuple:
     """(blocks, threads a block, envs a block) of the kernel at n envs:
     a team of TEAM lanes an env, ENVS envs a block."""
     return (n + ENVS - 1) // ENVS, TEAM * ENVS, ENVS
+
+
+@functools.lru_cache(maxsize=16)
+def _staging_plan(layout):
+    """Where the kernel reads each input in shared memory (csrc/rewards.cu
+    RewardArgs), from the inputs' layout: per input of _F32 + _BOOL + _I32
+    + _I64, (own, s0, s1, s2, d1, d2), `own` for a table without an env
+    dim.  A per-env input goes into each env's staged row word by word
+    (its input << 24 | the element's offset past the env's first); an
+    input with a zero env stride and the tables go once a block into the
+    block's constants.  Returns ctypes arrays (offs, words, cwords) and
+    the two word counts; the layout is the same every step, so the plan
+    is made once."""
+    offs, words, cwords = [], [], []
+    for i, (own, s0, s1, s2, d1, d2) in enumerate(layout):
+        inner = (s0, s1) if own else (s1, s2)
+        elems = [i << 24 | (b * inner[0] + c * inner[1])
+                 for b in range(d1) for c in range(d2)]
+        if not own and s0 != 0:
+            offs.append(len(words))
+            words += elems
+        else:
+            offs.append(-1 - len(cwords))
+            cwords += elems
+    if (len(words) > MAX_WORDS or len(cwords) > MAX_CWORDS
+            or max(e & 0xFFFFFF for e in words + cwords) == 0xFFFFFF):
+        raise ValueError(f"{len(words)} staged words an env and {len(cwords)} "
+                         f"a block (the kernel takes {MAX_WORDS} and "
+                         f"{MAX_CWORDS}), or an input's strides too wide")
+    return ((ctypes.c_int * len(offs))(*offs),
+            (ctypes.c_uint * max(len(words), 1))(*words),
+            (ctypes.c_uint * max(len(cwords), 1))(*cwords),
+            len(words), len(cwords))
 
 
 def rewards_plain(names, scales_dt, ctx, only_positive, termination_scale_dt,
@@ -186,7 +182,7 @@ def _launch(names, scales_dt, ctx, only_positive, termination_scale_dt,
     # orientation terms
     H = ctx["measured_heights"].shape[1] if orient else 0
     shapes.update(measured_heights=(N, H), plane_pinv=(3, H))
-    table, offs, words, cwords = [], [], [], []
+    table, layout = [], []
     for keys, dtype in ((_F32, torch.float32), (_BOOL, torch.bool),
                         (_I32, torch.int32), (_I64, torch.int64),
                         (_PLANE, torch.float32)):
@@ -197,39 +193,17 @@ def _launch(names, scales_dt, ctx, only_positive, termination_scale_dt,
                 table += (cuda_build.view(inputs[k], k, shape, dtype, dev)
                           + [shape[1], 1] if orient else [0, 0, 0, 0, 1, 1])
                 continue
-            i = len(offs)
             v = cuda_build.view(inputs[k], k, shape, dtype, dev)
-            # where each input is read in shared memory (csrc/rewards.cu
-            # RewardArgs): a per-env input in each env's staged row, word
-            # by word (its input, the element's offset past the env's
-            # first); an input with a zero env stride, the acceleration
-            # points and the index tables once a block, among the block's
-            # constants
-            if dtype is torch.int64 or k == "acc_points":
-                d1, d2 = (tuple(shape) + (1, 1))[:2]
-                elems = [b * v[1] + c * v[2] for b in range(d1)
-                         for c in range(d2)]
-            else:
-                d1, d2 = (tuple(shape[1:]) + (1, 1))[:2]
-                elems = [b * v[2] + c * v[3] for b in range(d1)
-                         for c in range(d2)]
+            # the index tables and the acceleration points have no env dim
+            own = dtype is torch.int64 or k == "acc_points"
+            d1, d2 = (tuple(shape if own else shape[1:]) + (1, 1))[:2]
             table += v + [d1, d2]
-            if dtype is not torch.int64 and k != "acc_points" and v[1] != 0:
-                offs.append(len(words))
-                words += [i << 24 | e for e in elems]
-            else:
-                offs.append(-1 - len(cwords))
-                cwords += [i << 24 | e for e in elems]
-    if (len(words) > MAX_WORDS or len(cwords) > MAX_CWORDS
-            or max(e & 0xFFFFFF for e in words + cwords) == 0xFFFFFF):
-        raise ValueError(f"{len(words)} staged words an env and {len(cwords)} "
-                         f"a block (the kernel takes {MAX_WORDS} and "
-                         f"{MAX_CWORDS}), or an input's strides too wide")
-    width = len(words)
+            layout.append((own, *v[1:], d1, d2))
+    offs, words, cwords, n_words, n_cwords = _staging_plan(tuple(layout))
     # the env's row: the staged inputs, its plane fit (3), its term values
     # (MAX_TERMS, the termination term's, the total); an odd count of
     # words, so that the teams of a warp read other banks
-    off_plane, off_val = width, width + 3
+    off_plane, off_val = n_words, n_words + 3
     row_words = (off_val + MAX_TERMS + 2) | 1
 
     rew = torch.empty((N,), dtype=torch.float32, device=dev)
@@ -252,24 +226,21 @@ def _launch(names, scales_dt, ctx, only_positive, termination_scale_dt,
         inv(ctx["ang_vel_yaw_max"]), ctx["soft_dof_vel_limit"],
         ctx["soft_torque_limit"], ctx["max_contact_force"], ctx["max_acc"],
         ctx["base_height_target"])
-    iparams = (ctypes.c_int * 21)(
+    iparams = (ctypes.c_int * 20)(
         N, nq, nf, shapes["penalised_idx"][0], shapes["hip_dof_idx"][0],
         shapes["acc_points"][0], BUFFER_ROWS, BUFFER_ROWS, BUFFER_ROWS,
         len(names), int(term_on), rows.get("termination", -1),
         int(bool(only_positive)), H, row_words, off_plane, off_val, TEAM,
-        ENVS, len(cwords), PROBE)
+        ENVS, n_cwords)
     n = max(len(names), 1)
     ids = (ctypes.c_int * n)(*[TERM_IDS[k] for k in names])
     term_rows = (ctypes.c_int * n)(*[rows.get(k, -1) for k in names])
-    lanes = (ctypes.c_int * n)(*(lane_table(tuple(names), TEAM, ENVS) or [0]))
     scales = (ctypes.c_float * n)(*[scales_dt[k] for k in names])
     cuda_build.launch(
         "dtc_compute_rewards", (ctypes.c_longlong * len(table))(*table),
         (ctypes.c_longlong * len(outs))(
             *[0 if t is None else t.data_ptr() for t in outs]),
-        fparams, iparams, (ctypes.c_int * len(offs))(*offs),
-        (ctypes.c_uint * max(width, 1))(*words),
-        (ctypes.c_uint * max(len(cwords), 1))(*cwords), ids, lanes, term_rows,
+        fparams, iparams, offs, words, cwords, ids, term_rows,
         scales, float(np.float32(termination_scale_dt)),
         cuda_build.stream_ptr(dev))
     _counter.launches += 1

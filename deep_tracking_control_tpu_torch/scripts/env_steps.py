@@ -50,7 +50,8 @@ def host_profile(torch, fn):
         # the kernels alone: a CPU op's entry repeats its kernels' time
         device_ms=sum(e.self_device_time_total for e in ev
                       if e.device_type == DeviceType.CUDA) / 1e3,
-        device_ops=sum(e.count for e in ev if e.device_type == DeviceType.CUDA))
+        device_ops=sum(e.count for e in ev
+                       if e.device_type == DeviceType.CUDA))
 
 
 def main():

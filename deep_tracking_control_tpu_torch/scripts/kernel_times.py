@@ -5,7 +5,7 @@ launch shapes.
 
     python deep_tracking_control_tpu_torch/scripts/kernel_times.py \
         [--threads 32 64 128] [--sampler_threads 128 256] \
-        [--reward_shapes 8x16 4x32] [--num_envs 4096] [--repeats 20] \
+        [--reward_shapes 16x16 8x16] [--num_envs 4096] [--repeats 20] \
         [--save FILE | --load FILE]
 
 Needs a CUDA device.  K1's block size is set on
@@ -16,8 +16,9 @@ attribute times its one shape.  Every result is held to its plain version
 before it is timed (K1 1e-4 + 1e-4 rel, contact forces 1e-2 N; the
 window variant bit for bit the fused one; K2 nearest exact, bilinear
 1e-5, slopes 1e-4; K3 at most 2% of envs differing, near-ties only; K6
-the budgets of chip_smoke.py).  Each K2 and K6 row gives the call's
-device ms (all the work the wrapper queues) and its CUDA kernel's alone.
+the budgets of chip_smoke.py).  Each row gives the call's device ms (all
+the work the wrapper queues) and its CUDA kernel's alone.  Then the plane
+fit of the orientation terms as the plain version's matrix product.
 
 `--save FILE` keeps the recorded step's kernel inputs (torch.save) and
 `--load FILE` times on inputs kept so, so that two checkouts (copy this
@@ -43,8 +44,6 @@ def main():
     ap.add_argument("--sampler_threads", type=int, nargs="*", default=None)
     ap.add_argument("--reward_shapes", nargs="*", default=None,
                     help="LANESxENVS: lanes an env, envs a block")
-    ap.add_argument("--reward_probes", action="store_true")
-    ap.add_argument("--reward_term_costs", action="store_true")
     ap.add_argument("--num_envs", type=int, default=4096)
     ap.add_argument("--repeats", type=int, default=20)
     ap.add_argument("--save", default=None)
@@ -204,31 +203,8 @@ def main():
               f"{row['kernel_ms']:.4f} ms; max abs err {err:.3e} (device "
               f"time, mean of {args.repeats}; {card}); other ops "
               f"{row['others']}", flush=True)
-        for probe in (4, 3, 1, 2) if args.reward_probes else ():
-            cuda_rewards.PROBE = probe
-            ms = cs.device_ms(torch, lambda: cuda_rewards
-                              .compute_rewards_fused(*head, scratch),
-                              args.repeats)
-            print(f"[kernel_times] K6 probe {probe}: {ms:.4f} ms", flush=True)
-        cuda_rewards.PROBE = 0
     if shapes[0]:
         cuda_rewards.TEAM, cuda_rewards.ENVS = default
-    if args.reward_term_costs:
-        # the kernel with one active term against none, on the same step
-        names, scales_dt, ctx, only_pos, _ = head[:5]
-        one = torch.zeros((1, sums.shape[1]), device=sums.device)
-
-        def run(sub):
-            return cs.device_ms(torch, lambda: cuda_rewards.compute_rewards_fused(
-                sub, scales_dt, ctx, only_pos, 0.0, sub, one[:len(sub)]),
-                args.repeats)
-        base = run([])
-        costs = {n: run([n]) - base for n in names}
-        results.append(dict(kernel="compute_rewards_term_costs", base_ms=base,
-                            costs=costs))
-        print(f"[kernel_times] K6 with no term {base:.4f} ms; one term adds "
-              + ", ".join(f"{n} {c:.4f}" for n, c in sorted(
-                  costs.items(), key=lambda x: -x[1])), flush=True)
     # the plane fit of the orientation terms as the plain version computes
     # it: one matrix product on the step's scan view
     ctx = head[2]
@@ -238,7 +214,8 @@ def main():
     results.append(row)
     print(f"[kernel_times] the plane fit as a matrix product "
           f"{tuple(ctx['measured_heights'].shape)} x "
-          f"{tuple(ctx['plane_pinv'].T.shape)}: {row['ms']:.4f} ms", flush=True)
+          f"{tuple(ctx['plane_pinv'].T.shape)}: {row['ms']:.4f} ms",
+          flush=True)
 
     print(json.dumps(dict(card=card, checkout=own, inputs=source,
                           results=results)))

@@ -120,7 +120,8 @@ def test_native_terrain_equal(case):
         cfg = tconfig.TerrainCfg(num_rows=3, num_cols=4, border_size=4.0)
         jcfg = jconfig.TerrainCfg(num_rows=3, num_cols=4, border_size=4.0)
     else:
-        cfg, jcfg = treg.get_cfgs(name)[0].terrain, jreg.get_cfgs(name)[0].terrain
+        cfg = treg.get_cfgs(name)[0].terrain
+        jcfg = jreg.get_cfgs(name)[0].terrain
     assert _jax_native_ready()
     jt = jgen.Terrain(jcfg, seed=seed)
     tt = tgen.Terrain(cfg, seed=seed)

@@ -165,7 +165,7 @@ def test_kernel_staging_plan_reads_every_input(monkeypatch, transposed):
     """The wrapper's staging plans, read as csrc/rewards.cu reads them
     (each env's row word by word, the block's constants once), give back
     every input the terms read, on contiguous inputs and on the env's
-    transposed views; every term has a team lane."""
+    transposed views."""
     from deep_tracking_control_tpu_torch import cuda_build
     got = {}
     monkeypatch.setattr(cuda_build, "launch",
@@ -184,7 +184,7 @@ def test_kernel_staging_plan_reads_every_input(monkeypatch, transposed):
     cuda_rewards._launch(names, {k: 0.1 for k in names}, ctx, False, -0.5,
                          names + ["termination"],
                          torch.zeros((len(names) + 1, n)))
-    table, _, _, ip, offs, words, cwords, _, lanes, *_ = got["args"]
+    table, _, _, ip, offs, words, cwords, *_ = got["args"]
     S, C = ip[15], ip[19]
     lo, hi = ctx["soft_dof_pos_limits"]
     inputs = dict(ctx, soft_lo=lo, soft_hi=hi)
@@ -214,21 +214,3 @@ def test_kernel_staging_plan_reads_every_input(monkeypatch, transposed):
             np.testing.assert_array_equal(cst[-1 - o:-1 - o + size], want,
                                           err_msg=k)
     assert S <= cuda_rewards.MAX_WORDS and C <= cuda_rewards.MAX_CWORDS
-    assert sorted(set(lanes)) == list(range(cuda_rewards.TEAM))
-
-
-@pytest.mark.parametrize("team, envs", [(16, 16), (8, 16), (8, 32)])
-def test_lane_table_evens_out_the_warps(team, envs):
-    """Each term gets a lane of the team; the warps' summed costs differ
-    by at most one term's (lanes of one warp run their terms in turn)."""
-    names = tuple(trew.REWARD_FUNCTIONS)
-    lanes = cuda_rewards.lane_table(names, team, envs)
-    assert len(lanes) == len(names) and all(0 <= x < team for x in lanes)
-    per_warp = max(1, 32 // envs)
-    cost = {}
-    for name, lane in zip(names, lanes):
-        w = lane // per_warp
-        cost[w] = cost.get(w, 0.0) + cuda_rewards.TERM_COST.get(name, 1.2)
-    assert len(cost) == -(-team // per_warp)
-    assert max(cost.values()) - min(cost.values()) <= max(
-        cuda_rewards.TERM_COST.values()) + 1e-9
