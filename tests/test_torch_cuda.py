@@ -469,3 +469,7 @@ def test_new_wrappers_reject_bad_input(recorded):
     with pytest.raises(ValueError):                       # wrong shape
         cuda_rewards.compute_rewards_fused(names, scales, bad, *rest[:-1],
                                            rest[-1].clone())
+    bad = dict(ctx, dof_pos=ctx["dof_pos"].cpu())
+    with pytest.raises(ValueError):                       # on the CPU
+        cuda_rewards.compute_rewards_fused(names, scales, bad, *rest[:-1],
+                                           rest[-1].clone())
