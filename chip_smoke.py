@@ -41,12 +41,18 @@ Phases (each prints its own line; any failure ends the run non-zero):
      one timed collect with the route's launch counts; under strict parity
      learn(2) (float32 storage, sequential update, per-row gather); and a
      16-env step on the card against the CPU under the route;
-  8. a JSON line of the kernels, the nvidia-smi line, and the result line.
+  8. a check that no kernel reads under its bytes read over the memory
+     rate, a JSON line of the kernels, the nvidia-smi line, and the
+     result line.
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes (each input read once, each output written once)
 over 3.35 TB/s and its operations over 67 TFLOP/s (float32 off the
 tensor cores; the noise generator's 32-bit integer operations are counted
-at that rate too), both counted from this run's inputs.
+at that rate too), both counted from this run's inputs.  Every device
+time (kernel, plain version, library call) is of calls that each follow a
+read of 256 MB, which leaves none of their inputs in the 50 MB L2; a
+kernel may still read under its bound where its outputs stay in L2 when
+it ends, never under its bytes read over the memory rate (phase 8).
 Weights are random (seeded); nothing is downloaded.  Needs a CUDA device:
 without one it stops before printing any result.
 """
@@ -216,35 +222,119 @@ def is_symbol(key, symbol):
             or f"(anonymous namespace)::{symbol}<" in key)
 
 
-def device_profile(torch, fn, repeats=REPEATS):
-    """The device events of `repeats` fn() calls: one torch.profiler
-    session (CUDA activity only) around the calls, each followed by a
-    synchronize; a list of (name, self device us, count).  On the H100
-    host a session now and then records no device activity at all, mostly
-    right after a session of thousands of kernels: it is run again after
-    a pause of 1, 2 and 4 s, and the run fails if the last one is empty
-    too."""
+def _device_events(torch, calls):
+    """The device events of calls() in one torch.profiler session (CUDA
+    activity only), in the order they ran: a list of (name, device us).
+    On the H100 host a session now and then records no device activity at
+    all, mostly right after a session of thousands of kernels: it is run
+    again after a pause of 1, 2 and 4 s, and the run fails if the last
+    one is empty too."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
     for pause in (0, 1, 2, 4):
         time.sleep(pause)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(repeats):
-                fn()
-                torch.cuda.synchronize()
-        events = [(e.key, e.self_device_time_total, e.count)
-                  for e in prof.key_averages() if e.self_device_time_total > 0]
+            calls()
+        events = sorted((e.time_range.start, e.key, e.self_device_time_total)
+                        for e in prof.events()
+                        if e.device_type != DeviceType.CPU)
         if events:
-            return events
+            return [(k, us) for _, k, us in events]
     raise AssertionError("the profiler saw no device time in 4 sessions")
 
 
+_PROBES = {}
+EVICT_BYTES = 256 << 20       # five times the H100's 50 MB L2
+
+
+def _segments(events, mark):
+    """The runs of events between one `mark` event and the next (the
+    last run to the end)."""
+    at = [i for i, (k, _) in enumerate(events) if k == mark]
+    return [events[i + 1:j] for i, j in zip(at, at[1:] + [len(events)])]
+
+
+def timing_probes(torch):
+    """(evict, mark, the marker's event name, the eviction's event names
+    in order).  evict() reads a 256 MB buffer (a float32 sum, no cast),
+    so that a call timed after it finds none of its inputs in the 50 MB
+    L2, as the bounds assume; reading, not writing, leaves no dirty lines
+    whose write-back would slow the timed call.  mark() queues a spin kernel of
+    one cycle, which nothing else launches: the profile of a timed call
+    is the events between its marker and the next eviction."""
+    if not _PROBES:
+        buf = torch.ones(EVICT_BYTES // 4, dtype=torch.float32, device="cuda")
+
+        def evict():
+            buf.sum()
+
+        def mark():
+            torch.cuda._sleep(1)
+
+        def marks():
+            for _ in range(3):
+                mark()
+                torch.cuda.synchronize()
+        evict()
+        marks()
+        names = {k for k, _ in _device_events(torch, marks)}
+        if len(names) != 1:
+            raise AssertionError(f"the marker queues {sorted(names)}")
+        name = names.pop()
+
+        def evictions():
+            for _ in range(3):
+                mark()
+                evict()
+                torch.cuda.synchronize()
+            mark()
+            torch.cuda.synchronize()
+        runs = [[k for k, _ in r]
+                for r in _segments(_device_events(torch, evictions), name)]
+        if len(runs) < 3 or runs[-2] != runs[-3] or runs[-1]:
+            raise AssertionError(f"the eviction's events vary: {runs}")
+        _PROBES.update(evict=evict, mark=mark, name=name, pattern=runs[-2])
+    return (_PROBES["evict"], _PROBES["mark"], _PROBES["name"],
+            _PROBES["pattern"])
+
+
+def device_profile(torch, fn, repeats=REPEATS):
+    """(events, calls seen) of `repeats` fn() calls in one profiler
+    session: each call follows an L2 eviction and a marker
+    (`timing_probes`) and is followed by a synchronize; events are
+    (name, self device us, count), summed over the calls seen, the
+    eviction's and the markers' left out.  The session now and then
+    misses its first events: the calls seen are the markers seen."""
+    evict, mark, name, pattern = timing_probes(torch)
+
+    def calls():
+        for _ in range(repeats):
+            evict()
+            mark()
+            fn()
+            torch.cuda.synchronize()
+    fn()
+    torch.cuda.synchronize()
+    runs = _segments(_device_events(torch, calls), name)
+    if not runs or len(runs) > repeats:
+        raise AssertionError(f"{len(runs)} markers in {repeats} calls")
+    total = {}
+    for i, run in enumerate(runs):
+        if i + 1 < len(runs):       # the next call's eviction ends the run
+            if [k for k, _ in run[len(run) - len(pattern):]] != pattern:
+                raise AssertionError(f"call {i}: no eviction after it")
+            run = run[:len(run) - len(pattern)]
+        for k, us in run:
+            t, c = total.get(k, (0.0, 0))
+            total[k] = (t + us, c + 1)
+    return [(k, t, c) for k, (t, c) in total.items()], len(runs)
+
+
 def device_ms(torch, fn, repeats=REPEATS):
-    """Mean over `repeats` calls of the device time of all the work one
+    """Mean over the calls seen of the device time of all the work one
     fn() call queues (`device_profile`)."""
-    events = device_profile(torch, fn, repeats)
-    return sum(us for _, us, _ in events) / 1e3 / repeats
+    events, seen = device_profile(torch, fn, repeats)
+    return sum(us for _, us, _ in events) / 1e3 / seen
 
 
 def device_split(torch, fn, symbol, repeats=REPEATS):
@@ -256,7 +346,7 @@ def device_split(torch, fn, symbol, repeats=REPEATS):
     once, so the kernel's event count is the number of calls the session
     saw (now and then it misses the first one): the means are taken over
     that count."""
-    events = device_profile(torch, fn, repeats)
+    events, _ = device_profile(torch, fn, repeats)
     own = [(us, c) for k, us, c in events if is_symbol(k, symbol)]
     seen = sum(c for _, c in own)
     if not own or seen > repeats:
@@ -417,13 +507,17 @@ def count_ops(fn):
     return Counter.ops
 
 
-def bound(nbytes, ops):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the float32 rate."""
-    by_bytes = nbytes / PEAK_BYTES_S * 1e3
+def bound(read, written, ops):
+    """bound_ms and bound_by: the larger of the bytes read and written
+    over the memory rate and the operations over the float32 rate; and
+    read_ms, the bytes read alone over the memory rate: the least time of
+    a call whose inputs all come from HBM (the L2 may hold its outputs
+    when it ends and write them back after)."""
+    by_bytes = (read + written) / PEAK_BYTES_S * 1e3
     by_ops = ops / PEAK_F32_OPS_S * 1e3
-    return ((by_bytes, "bytes") if by_bytes >= by_ops
-            else (by_ops, "operations"))
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                read_ms=read / PEAK_BYTES_S * 1e3)
 
 
 def synthetic_ctx(N: int, seed: int, device):
@@ -599,11 +693,10 @@ def compare_kernels(calls, tables):
     # bytes: the arguments and results, and per env the 4 raw cells under
     # each of the 4 feet in each substep
     dec, n = args[3], args[6]["pos"].shape[-1]
-    nbytes = (tensor_bytes((args, kwargs), tables)
-              + tensor_bytes((phys, anchors, info)) + n * 4 * dec * 4 * 4)
     work["decimation_step"] = (
-        nbytes, lambda a=args, k=kw: cuda_substep.decimation_step_plain(*a, **k),
-        0)
+        tensor_bytes((args, kwargs), tables) + n * 4 * dec * 4 * 4,
+        tensor_bytes((phys, anchors, info)),
+        lambda a=args, k=kw: cuda_substep.decimation_step_plain(*a, **k), 0)
     results["decimation_step"] = dict(max_abs_err=err, **timings(
         torch, "decimation_step",
         lambda: cuda_substep.decimation_step(*args, **kwargs),
@@ -627,10 +720,10 @@ def compare_kernels(calls, tables):
     # bytes: the arguments and results, and per env one bf16 cell for each
     # nearest sample and 4 float32 cells for each bilinear one
     n = h.shape[0]
-    nbytes = (tensor_bytes(args, tables) + tensor_bytes((h, gx, gy))
-              + n * (near * 2 + cuda_sampler.Q_BIL * 4 * 4))
     work["sample_all"] = (
-        nbytes, lambda a=args: cuda_sampler.sample_all_plain(*a), 0)
+        tensor_bytes(args, tables) + n * (near * 2 + cuda_sampler.Q_BIL * 4 * 4),
+        tensor_bytes((h, gx, gy)),
+        lambda a=args: cuda_sampler.sample_all_plain(*a), 0)
     results["sample_all"] = dict(max_abs_err=err, **timings(
         torch, "sample_all", lambda: cuda_sampler.sample_all(*args),
         lambda: cuda_sampler.sample_all_plain(*args)))
@@ -652,9 +745,9 @@ def compare_kernels(calls, tables):
     differ = check_planner(got, want, scal, heights, stat, ny)
     frac = float(differ.float().mean())
     err = max_err([(got[~differ], want[~differ])]) if (~differ).any() else 0.0
-    nbytes = tensor_bytes((scal, heights, stat)) + tensor_bytes(got)
     work["plan_footholds"] = (
-        nbytes, lambda: cuda_planner.plan_plain(scal, heights, stat, ny), 0)
+        tensor_bytes((scal, heights, stat)), tensor_bytes(got),
+        lambda: cuda_planner.plan_plain(scal, heights, stat, ny), 0)
     results["plan_footholds"] = dict(max_abs_err=err, **timings(
         torch, "plan_footholds",
         lambda: cuda_planner.select_footholds(scal, heights, stat, ny),
@@ -686,9 +779,9 @@ def compare_kernels(calls, tables):
     rew, upd = cuda_rewards.compute_rewards_fused(*head, scratch.clone())
     # bytes: the step quantities (the height scan among them, read by the
     # kernel's plane fit), the sums read and written, the outputs
-    nbytes = tensor_bytes(args) + tensor_bytes((sums, rew, upd))
     work["compute_rewards"] = (
-        nbytes, lambda: cuda_rewards.rewards_plain(*head, scratch), 0)
+        tensor_bytes(args), tensor_bytes((sums, rew, upd)),
+        lambda: cuda_rewards.rewards_plain(*head, scratch), 0)
     results["compute_rewards"] = dict(max_abs_err=err, **timings(
         torch, "compute_rewards",
         lambda: cuda_rewards.compute_rewards_fused(*head, scratch),
@@ -728,9 +821,9 @@ def compare_kernels(calls, tables):
                                  f"version's draws are not the noise kernel's")
     err = max_err(list(zip(got, fed)))
     drawn = N * H + (N * num_obs if args[0].noise.add_noise else 0)
-    nbytes = tensor_bytes(args) + tensor_bytes(got)
     work["compute_observations"] = (
-        nbytes, lambda: cuda_obs.observations_plain(*args, **draws),
+        tensor_bytes(args), tensor_bytes(got),
+        lambda: cuda_obs.observations_plain(*args, **draws),
         PHILOX_OPS * drawn)
     results["compute_observations"] = dict(max_abs_err=err, **timings(
         torch, "compute_observations",
@@ -773,8 +866,7 @@ def compare_kernels(calls, tables):
                 lambda s=shape: cuda_rng.uniform_pm1(rseed, s),
                 lambda s=shape: cuda_rng.uniform_pm1_plain(rseed, s)))
         numel = shape[0] * shape[1]
-        res[shape].update(zip(("bound_ms", "bound_by"),
-                              bound(numel * 4 + 16, PHILOX_OPS * numel)))
+        res[shape].update(bound(16, numel * 4, PHILOX_OPS * numel))
         r = res[shape]
         say(3, f"uniform_pm1 at {shape}: device time per call, mean of "
                f"{REPEATS}: kernel call {r['ms']:.4f} ms (its CUDA kernel "
@@ -787,10 +879,11 @@ def compare_kernels(calls, tables):
 
     # operations are counted after all the timings: the counting mode
     # intercepts every op of the plain version
-    for k, (nbytes, plain, extra) in work.items():
+    for k, (read, written, plain, extra) in work.items():
         ops = count_ops(plain) + extra
-        results[k].update(zip(("bound_ms", "bound_by"), bound(nbytes, ops)))
-        say(3, f"{k}: {nbytes} bytes, {ops:.0f} operations")
+        results[k].update(bound(read, written, ops))
+        say(3, f"{k}: {read} bytes read, {written} written, {ops:.0f} "
+               f"operations")
     return results
 
 
@@ -835,13 +928,12 @@ def compare_route_kernels(calls, tables, results):
         # envs' slabs overlap), the output written once, the starts
         T = blocks.shape[0] if name == "extract_patches" else 1
         touched = int(torch.unique(b * blocks.shape[2] + r).numel())
-        nbytes = (T * touched * blocks.shape[3] * blocks.element_size()
-                  + tensor_bytes(got) + tensor_bytes(starts))
+        read = (T * touched * blocks.shape[3] * blocks.element_size()
+                + tensor_bytes(starts))
         say(7, f"{name}: {T} x {touched} distinct table rows touched, "
-               f"{nbytes} bytes")
+               f"{read} bytes read, {tensor_bytes(got)} written")
         results[name] = dict(
-            max_abs_err=0.0, **dict(zip(("bound_ms", "bound_by"),
-                                        bound(nbytes, 0))),
+            max_abs_err=0.0, **bound(read, tensor_bytes(got), 0),
             **timings(torch, name, lambda: fn(*args, **kwargs),
                       lambda: plain(*args, **kwargs)),
             library_ms=device_ms(torch, library),
@@ -878,12 +970,11 @@ def compare_route_kernels(calls, tables, results):
         return
     # bytes: as the fused kernel's, the window counted by the cells read
     dec, n = args[3], args[6]["pos"].shape[-1]
-    nbytes = (tensor_bytes((args, kwargs), tables | {id(window)})
-              + tensor_bytes(got) + n * 4 * dec * 4 * 4)
+    read = (tensor_bytes((args, kwargs), tables | {id(window)})
+            + n * 4 * dec * 4 * 4)
     ops = count_ops(lambda: cuda_substep.decimation_step_plain(*args, **kw))
     results["decimation_step_window"] = r = dict(
-        max_abs_err=err, **dict(zip(("bound_ms", "bound_by"),
-                                    bound(nbytes, ops))),
+        max_abs_err=err, **bound(read, tensor_bytes(got), ops),
         **timings(torch, "decimation_step_window",
                   lambda: cuda_substep.decimation_step(*args, **kwargs),
                   lambda: cuda_substep.decimation_step_plain(*args, **kw), 5))
@@ -1055,8 +1146,9 @@ def compare_gather(ppo, batch, gen):
         for v in views:
             torch.index_select(v, 0, perm)
     nbytes = 2 * tensor_bytes(flat) + tensor_bytes(perm)
-    res = dict(max_abs_err=0.0, **dict(zip(("bound_ms", "bound_by"),
-                                            bound(nbytes, 0))),
+    res = dict(max_abs_err=0.0,
+               **bound(tensor_bytes(flat) + tensor_bytes(perm),
+                       tensor_bytes(flat), 0),
                **timings(torch, "permute_groups",
                          lambda: cuda_gather.permute_groups(flat, perm, G),
                          lambda: cuda_gather.permute_groups_plain(flat, perm, G)),
@@ -1427,6 +1519,23 @@ def main():
                f"launches in its route's collect ({card})")
 
     # ---- 8: result lines ----------------------------------------------
+    # each timed call found its inputs in HBM (`timing_probes`): a kernel
+    # that reads under the time of its bytes read has them miscounted.
+    # Its outputs may stay in L2 when it ends, so that it may read under
+    # its bound: those rows are named.
+    under = {k: (r["kernel_ms"], r["read_ms"]) for k, r in results.items()
+             if r["kernel_ms"] < r["read_ms"]}
+    if under:
+        raise AssertionError(f"kernels under the time of their bytes read "
+                             f"(kernel ms, read ms): {under}")
+    for k, r in results.items():
+        for what in ("ms", "kernel_ms", "plain_ms", "library_ms"):
+            if r.get(what) is not None and r[what] < r["bound_ms"]:
+                say(8, f"{k}: {what} {r[what]:.4f} under the bound "
+                       f"{r['bound_ms']:.4f} ms (its bytes read alone "
+                       f"{r['read_ms']:.4f} ms)")
+    say(8, f"every kernel at or above the time of its bytes read; each "
+           f"timed call after an L2 eviction ({card})")
     kernels = [dict(name=k, route="cuda", source=KERNELS[k][0],
                     replaces=KERNELS[k][1], launches=launches[k],
                     max_abs_err=results[k]["max_abs_err"],

@@ -26,9 +26,9 @@
 // height scan the plane fit reads (11.4 MB), the step quantities (some
 // 300 float32 values an env) and the episode sums read and written, the
 // outputs; the work is some thousand float operations an env.  Design:
-// a block holds `envs` envs and a team of `team` lanes an env (at 4096
-// envs 256 blocks of 16 x 16 = 256 threads by default: every SM holds
-// blocks, 8 warps each).
+// a block holds ENVS = 16 envs and a team of TEAM = 16 lanes an env (at
+// 4096 envs 256 blocks of 256 threads: every SM holds blocks, 8 warps
+// each).
 //   1. The block stages its inputs into shared memory with asynchronous
 //      copies (cp.async), every copy of a thread in flight at once: its
 //      envs' scan rows (16-byte copies where aligned), the plane fit's
@@ -39,7 +39,7 @@
 //      tables, acceleration points) are staged once a block.
 //   2. A warp an env fits the plane from shared memory.
 //   3. The active terms are dealt out across the team's lanes (term k on
-//      lane k mod team): lane l of env e is thread l * envs + e, so that a
+//      lane k mod TEAM): lane l of env e is thread l * ENVS + e, so that a
 //      warp runs one term for adjacent envs (lanes of one warp run their
 //      terms one after the other).  Each term reads shared memory and
 //      writes its value there.
@@ -58,6 +58,13 @@ constexpr int MAX_FEET = 8;
 // the staging plans live in the kernel's parameters, which hold 4 KB
 constexpr int MAX_WORDS = 320;    // staged words an env
 constexpr int MAX_CWORDS = 160;   // staged constants a block
+constexpr int TEAM = 16;          // lanes an env
+constexpr int ENVS = 16;          // envs a block
+constexpr int THREADS = TEAM * ENVS;
+// the rows of the command and velocity buffers that the terms read: the
+// wrapper hands in the last BUFFER_ROWS of each
+constexpr int BUFFER_ROWS = 4;
+static_assert(THREADS % 32 == 0 && THREADS <= 1024, "whole warps a block");
 
 // term ids: the order of env/rewards.py REWARD_FUNCTIONS
 enum Term {
@@ -97,12 +104,10 @@ enum FParam {
 // the block's constant words;
 // I_W: the words of an env's row in shared memory (odd), I_OFF_PLANE and
 // I_OFF_VAL the offsets of its plane fit (3) and of its term values
-// (MAX_TERMS, then the termination term's and the total) there; I_TEAM
-// lanes an env, I_ENVS envs a block
+// (MAX_TERMS, then the termination term's and the total) there
 enum IParam {
-    I_N, I_NQ, I_NF, I_NPEN, I_NHIP, I_NPTS, I_LCMDB, I_LLVB, I_LAVB,
-    I_NTERMS, I_TERM_ON, I_TERM_ROW, I_ONLY_POS, I_NH, I_W, I_OFF_PLANE,
-    I_OFF_VAL, I_TEAM, I_ENVS, I_NC, N_I
+    I_N, I_NQ, I_NF, I_NPEN, I_NHIP, I_NPTS, I_NTERMS, I_TERM_ON, I_TERM_ROW,
+    I_ONLY_POS, I_NH, I_W, I_OFF_PLANE, I_OFF_VAL, I_NC, N_I
 };
 
 struct View {
@@ -418,10 +423,10 @@ struct Env {
         case SOFT_TRACKING_LIN_VEL: {
             // commands over the last 3 steps against the velocity 3 back
             const float m = f(LINMAX);
-            const int lc = a.i[I_LCMDB], r = a.i[I_LLVB] - 3;
+            const int r = BUFFER_ROWS - 3;
             const float v0 = f(LVB, r, 0), v1 = f(LVB, r, 1);
 #pragma unroll 1
-            for (int k = lc - 3; k < lc; ++k) {
+            for (int k = BUFFER_ROWS - 3; k < BUFFER_ROWS; ++k) {
                 const float e0 = __fdiv_rn(sub(f(CMDB, k, 0), v0), m);
                 const float e1 = __fdiv_rn(sub(f(CMDB, k, 1), v1), m);
                 s = add(s, expf(mul(-add(sq(e0), sq(e1)), fp[INV_SIGMA])));
@@ -429,10 +434,9 @@ struct Env {
             return mul(s, 1.0f / 3.0f);
         }
         case SOFT_TRACKING_ANG_VEL: {
-            const int lc = a.i[I_LCMDB], la = a.i[I_LAVB];
 #pragma unroll 1
-            for (int k = 0; k < 4; ++k) {
-                const float e = mul(sub(f(CMDB, lc - 4 + k, 2), f(AVB, la - 4 + k, 0)),
+            for (int k = BUFFER_ROWS - 4; k < BUFFER_ROWS; ++k) {
+                const float e = mul(sub(f(CMDB, k, 2), f(AVB, k, 0)),
                                     fp[INV_YAW_MAX]);
                 const float d = sq(e) <= 0.0225f ? 0.0f : 1.0f;
                 s = add(s, expf(mul(-d, fp[INV_SIGMA])));
@@ -468,25 +472,25 @@ __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-__global__ void rewards_kernel(const __grid_constant__ RewardArgs a) {
+__global__ void __launch_bounds__(THREADS) rewards_kernel(
+        const __grid_constant__ RewardArgs a) {
     extern __shared__ __align__(16) float sm[];
     const int N = a.i[I_N], NH = a.i[I_NH], W = a.i[I_W];
     const int S = a.i[I_OFF_PLANE];                     // staged words an env
-    const int team = a.i[I_TEAM], envs = a.i[I_ENVS];
-    const long long n0 = (long long)blockIdx.x * envs;
-    const int ne = (int)min((long long)envs, N - n0);   // envs of this block
+    const long long n0 = (long long)blockIdx.x * ENVS;
+    const int ne = (int)min((long long)ENVS, N - n0);   // envs of this block
     const int NHP = (NH + 3) & ~3;                      // 16-byte scan rows
-    float* scan = sm;                                   // (envs, NHP)
-    float* pinv = scan + envs * NHP;                    // (3, NH)
-    float* rows = pinv + 3 * NH;                        // (envs, W)
-    float* cst = rows + envs * W;                       // (I_NC)
+    float* scan = sm;                                   // (ENVS, NHP)
+    float* pinv = scan + ENVS * NHP;                    // (3, NH)
+    float* rows = pinv + 3 * NH;                        // (ENVS, W)
+    float* cst = rows + ENVS * W;                       // (I_NC)
 
     // 1. the block's inputs into shared memory, with asynchronous copies
     // (cp.async: no register round trip, every copy of a thread in flight
     // at once): the plane fit's pseudo-inverse and the envs' scan rows,
     // then the envs' rows of step quantities.
     // Thread (l, e) of the block (l = its lane in env e's team) copies env
-    // e's words l, l + team, ...; word w is element a.word[w] & 0xffffff
+    // e's words l, l + TEAM, ...; word w is element a.word[w] & 0xffffff
     // of input a.word[w] >> 24 past the env's first.  A warp's threads
     // take adjacent envs (the env's transposed views of the physics
     // outputs load coalesced) and two words, so its reads of the plan are
@@ -518,10 +522,10 @@ __global__ void rewards_kernel(const __grid_constant__ RewardArgs a) {
         }
     }
     {
-        const int l = threadIdx.x / envs, e = threadIdx.x - l * envs;
+        const int l = threadIdx.x / ENVS, e = threadIdx.x - l * ENVS;
         if (e < ne) {
             float* row = rows + e * W;
-            for (int w = l; w < S; w += team) {
+            for (int w = l; w < S; w += TEAM) {
                 const unsigned ent = a.word[w];
                 const int k = (int)(ent >> 24);
                 const View& v = a.in[k];
@@ -572,9 +576,9 @@ __global__ void rewards_kernel(const __grid_constant__ RewardArgs a) {
     __syncthreads();
 
     // 3. the terms, dealt out across the team's lanes: lane l of env e is
-    // thread l * envs + e, so that a warp's threads run one term for
+    // thread l * ENVS + e, so that a warp's threads run one term for
     // adjacent envs (a term per lane of one warp would serialize them)
-    const int lane = threadIdx.x / envs, e = threadIdx.x - lane * envs;
+    const int lane = threadIdx.x / ENVS, e = threadIdx.x - lane * ENVS;
     const int nt = a.i[I_NTERMS];
     float* row = rows + e * W;
     float* val = row + a.i[I_OFF_VAL];
@@ -582,7 +586,7 @@ __global__ void rewards_kernel(const __grid_constant__ RewardArgs a) {
             0.0f, 0.0f};
     if (e < ne) {
         env.cmd_norm = norm2(env.f(CMD, 0), env.f(CMD, 1));
-        for (int k = lane; k < nt; k += team) {
+        for (int k = lane; k < nt; k += TEAM) {
             val[k] = mul(env.term(a.id[k]), a.scale[k]);
         }
         // the pitch filter's state, from the lane(s) of the orientation
@@ -635,8 +639,8 @@ __global__ void rewards_kernel(const __grid_constant__ RewardArgs a) {
 // `off`); words, cwords: host uint32 [I_OFF_PLANE], [I_NC] (the staging
 // plans of an env's row and of the block's constants); ids,
 // rows (the episode-sum row of each term, -1 for none): host int32
-// [n_terms]; scales: host float32 [n_terms].  Shared memory: I_ENVS scan
-// rows (I_NH rounded up to 4), the pseudo-inverse (3 x I_NH), I_ENVS rows
+// [n_terms]; scales: host float32 [n_terms].  Shared memory: ENVS scan
+// rows (I_NH rounded up to 4), the pseudo-inverse (3 x I_NH), ENVS rows
 // of I_W words, the I_NC constants.
 DTC_EXPORT int dtc_compute_rewards(const void* views, const void* outs,
                                    const void* fparams, const void* iparams,
@@ -678,10 +682,8 @@ DTC_EXPORT int dtc_compute_rewards(const void* views, const void* outs,
         a.cword[c] = ((const unsigned*)cwords)[c];
         if ((int)(a.cword[c] >> 24) >= HSCAN) return (int)cudaErrorInvalidValue;
     }
-    const int nt = a.i[I_NTERMS], team = a.i[I_TEAM], envs = a.i[I_ENVS];
-    const int threads = team * envs;
+    const int nt = a.i[I_NTERMS];
     if (nt < 0 || nt > MAX_TERMS || a.i[I_NF] > MAX_FEET || a.i[I_N] < 0
-            || team <= 0 || envs <= 0 || threads % 32 != 0 || threads > 1024
             || a.i[I_W] < a.i[I_OFF_VAL] + MAX_TERMS + 2) {
         return (int)cudaErrorInvalidValue;
     }
@@ -694,8 +696,8 @@ DTC_EXPORT int dtc_compute_rewards(const void* views, const void* outs,
     a.term_scale = term_scale;
     const int N = a.i[I_N];
     const size_t NHP = ((size_t)a.i[I_NH] + 3) & ~(size_t)3;
-    const size_t smem = sizeof(float) * (3 * (size_t)a.i[I_NH] + envs * NHP
-                                         + (size_t)envs * a.i[I_W] + nc);
+    const size_t smem = sizeof(float) * (3 * (size_t)a.i[I_NH] + ENVS * NHP
+                                         + (size_t)ENVS * a.i[I_W] + nc);
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             rewards_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -703,7 +705,7 @@ DTC_EXPORT int dtc_compute_rewards(const void* views, const void* outs,
         if (err != cudaSuccess) return (int)err;
     }
     if (N > 0) {
-        rewards_kernel<<<(N + envs - 1) / envs, threads, smem,
+        rewards_kernel<<<(N + ENVS - 1) / ENVS, THREADS, smem,
                          (cudaStream_t)stream>>>(a);
     }
     return (int)cudaGetLastError();

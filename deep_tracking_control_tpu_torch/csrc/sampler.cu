@@ -21,13 +21,13 @@
 // bilinear one (7.4 MB, counted by the cells touched; the tables, 50.9 MB
 // at lite3_dtc's size, largely stay in L2).  Design: one thread per 4
 // consecutive queries of an env (Q_TOT = 736 = 184 x 4, so a row is 184
-// float4 and 16-byte aligned), float4 loads of qx/qy and float4 stores of the heights, a
-// warp covering 512 contiguous bytes of a row; the grid is N x 184
-// threads in blocks of `threads` (about 2.8 waves of 64 warps an SM at
-// 4096 envs), so that every SM holds enough warps to cover the scattered
-// table reads.  Each group of 4 lies in one section of the row (704, 712
-// and 736 are multiples of 4): a group either takes 4 nearest cells or 4
-// bilinear samples.
+// float4 and 16-byte aligned), float4 loads of qx/qy and float4 stores
+// of the heights, a warp covering 512 contiguous bytes of a row; the grid
+// is N x 184 threads in blocks of THREADS = 128 (about 2.8 waves of 64
+// warps an SM at 4096 envs), so that every SM holds enough warps to cover
+// the scattered table reads.  Each group of 4 lies in one section of the
+// row (704, 712 and 736 are multiples of 4): a group either takes 4
+// nearest cells or 4 bilinear samples.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -42,6 +42,7 @@ constexpr int G_TOT = Q_TOT / 4;                  // float4 groups a row
 constexpr int G_BIL = (Q_MIN3 + Q_MAX10) / 4;     // first bilinear group
 constexpr int PATCH_R = 64;
 constexpr int PATCH_C = 128;
+constexpr int THREADS = 128;                      // threads a block
 static_assert(Q_TOT % 4 == 0 && Q_MIN3 % 4 == 0 && Q_BIL % 4 == 0,
               "each float4 group lies in one section of the row");
 
@@ -53,7 +54,7 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
     return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-__global__ void sample_all_kernel(
+__global__ void __launch_bounds__(THREADS) sample_all_kernel(
         const float* __restrict__ raw,              // (B, Rp, 128) table 0
         const __nv_bfloat16* __restrict__ pooled,   // (2, B, Rp, 128)
         const int* __restrict__ starts,             // (N, 2) r0, block
@@ -131,19 +132,16 @@ __global__ void sample_all_kernel(
 
 // qx, qy, h_out, gx_out and gy_out 16-byte aligned (rows of Q_TOT and
 // Q_BIL floats keep every row aligned); origin 8-byte and starts 8-byte
-// aligned; threads a multiple of 32.
+// aligned.
 DTC_EXPORT int dtc_sample_all(const void* raw, const void* pooled,
                               const void* starts, const void* origin,
                               const void* qx, const void* qy, void* h_out,
                               void* gx_out, void* gy_out, int N, int B,
-                              int Rp, float inv_hs, int threads, void* stream) {
-    if (threads <= 0 || threads % 32 != 0 || threads > 1024) {
-        return (int)cudaErrorInvalidValue;
-    }
+                              int Rp, float inv_hs, void* stream) {
     if (N > 0) {
         const long long work = (long long)N * G_TOT;
-        const unsigned blocks = (unsigned)((work + threads - 1) / threads);
-        sample_all_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        const unsigned blocks = (unsigned)((work + THREADS - 1) / THREADS);
+        sample_all_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
             (const float*)raw, (const __nv_bfloat16*)pooled,
             (const int*)starts, (const float*)origin, (const float*)qx,
             (const float*)qy, (float*)h_out, (float*)gx_out, (float*)gy_out,

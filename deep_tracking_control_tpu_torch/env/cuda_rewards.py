@@ -17,10 +17,10 @@ those terms are active, as ctx["updates"] holds them.  The kernel reads
 every input through its strides, so the env's transposed views of the
 physics outputs go in without copies; it stages a block's per-env rows
 in shared memory and runs a team of lanes an env (`TEAM` lanes, `ENVS`
-envs a block).  The plane fit of the orientation terms is a matrix
-product in the plain version, as in the JAX package, and a reduction
-over the scan row inside the kernel: the card path queues the kernel
-alone.
+envs a block: constants of the kernel).  The plane fit of the
+orientation terms is a matrix product in the plain version, as in the
+JAX package, and a reduction over the scan row inside the kernel: the
+card path queues the kernel alone.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ MAX_TERMS = 40                    # csrc/rewards.cu
 MAX_FEET = 8
 MAX_WORDS = 320                   # staged words an env (csrc/rewards.cu)
 MAX_CWORDS = 160                  # staged constants a block
-TEAM = 16                         # lanes an env
+TEAM = 16                         # lanes an env (csrc/rewards.cu)
 ENVS = 16                         # envs a block (TEAM * ENVS threads)
 
 # the kernel's inputs in the order of csrc/rewards.cu `In`: ctx key, dtype
@@ -57,7 +57,7 @@ _I32 = ["terrain_levels"]
 _I64 = ["feet_idx", "penalised_idx", "hip_dof_idx"]
 # the plane fit's inputs, last in csrc/rewards.cu `In`
 _PLANE = ["measured_heights", "plane_pinv"]
-# the term buffers' rows the terms read: the last 4
+# the term buffers' rows the terms read: the last 4 (csrc/rewards.cu)
 BUFFER_ROWS = 4
 
 
@@ -226,12 +226,11 @@ def _launch(names, scales_dt, ctx, only_positive, termination_scale_dt,
         inv(ctx["ang_vel_yaw_max"]), ctx["soft_dof_vel_limit"],
         ctx["soft_torque_limit"], ctx["max_contact_force"], ctx["max_acc"],
         ctx["base_height_target"])
-    iparams = (ctypes.c_int * 20)(
+    iparams = (ctypes.c_int * 15)(
         N, nq, nf, shapes["penalised_idx"][0], shapes["hip_dof_idx"][0],
-        shapes["acc_points"][0], BUFFER_ROWS, BUFFER_ROWS, BUFFER_ROWS,
-        len(names), int(term_on), rows.get("termination", -1),
-        int(bool(only_positive)), H, row_words, off_plane, off_val, TEAM,
-        ENVS, n_cwords)
+        shapes["acc_points"][0], len(names), int(term_on),
+        rows.get("termination", -1), int(bool(only_positive)), H, row_words,
+        off_plane, off_val, n_cwords)
     n = max(len(names), 1)
     ids = (ctypes.c_int * n)(*[TERM_IDS[k] for k in names])
     term_rows = (ctypes.c_int * n)(*[rows.get(k, -1) for k in names])

@@ -1,28 +1,29 @@
 """Device time of the physics decimation kernel K1 (fused and window
-variants, on the same inputs), the terrain sampler K2, the planner K3 and
-the reward kernel K6 at the inputs of a real lite3_dtc step, at several
-launch shapes.
+variants, on the same inputs) at several block sizes, and of the terrain
+sampler K2, the planner K3 and the reward kernel K6, at the inputs of a
+real lite3_dtc step.
 
     python deep_tracking_control_tpu_torch/scripts/kernel_times.py \
-        [--threads 32 64 128] [--sampler_threads 128 256] \
-        [--reward_shapes 16x16 8x16] [--num_envs 4096] [--repeats 20] \
+        [--threads 32 64 128] [--num_envs 4096] [--repeats 20] \
         [--save FILE | --load FILE]
 
 Needs a CUDA device.  K1's block size is set on
-`physics.cuda_substep.THREADS`, K2's on `terrain.cuda_sampler.THREADS`,
-and K6's team (lanes an env) and envs a block on `env.cuda_rewards.TEAM`
-and `.ENVS` before their calls; a checkout whose wrapper lacks the
-attribute times its one shape.  Every result is held to its plain version
-before it is timed (K1 1e-4 + 1e-4 rel, contact forces 1e-2 N; the
-window variant bit for bit the fused one; K2 nearest exact, bilinear
-1e-5, slopes 1e-4; K3 at most 2% of envs differing, near-ties only; K6
-the budgets of chip_smoke.py).  Each row gives the call's device ms (all
-the work the wrapper queues) and its CUDA kernel's alone.  Then the plane
-fit of the orientation terms as the plain version's matrix product.
+`physics.cuda_substep.THREADS` before its calls; K2's and K6's launch
+shapes are constants of their kernels.  Every result is held to its
+plain version before it is timed (K1 1e-4 + 1e-4 rel, contact forces
+1e-2 N; the window variant bit for bit the fused one; K2 nearest exact,
+bilinear 1e-5, slopes 1e-4; K3 at most 2% of envs differing, near-ties
+only; K6 the budgets of chip_smoke.py).  Each row gives the call's device
+ms (all the work the wrapper queues) and its CUDA kernel's alone, each
+call after a read that evicts L2 (chip_smoke.py `device_profile`).  Then
+the plane fit of the orientation terms as the plain version's matrix
+product.
 
 `--save FILE` keeps the recorded step's kernel inputs (torch.save) and
-`--load FILE` times on inputs kept so, so that two checkouts (copy this
-file and chip_smoke.py into the other one) are timed on the same inputs.
+`--load FILE` times on inputs kept so: a kernel's redesign times its
+parent on the same inputs in the same call (copy this file and
+chip_smoke.py into the parent's checkout, then `--load` there the
+inputs this checkout saved).
 The helpers (inputs, checks, timing) come from chip_smoke.py at the root
 of this checkout.  Prints the card, the compiler's registers and stack of
 each kernel, one line per shape, and a JSON line last.
@@ -41,9 +42,6 @@ def main():
         os.path.abspath(__file__))))
     ap = argparse.ArgumentParser()
     ap.add_argument("--threads", type=int, nargs="*", default=None)
-    ap.add_argument("--sampler_threads", type=int, nargs="*", default=None)
-    ap.add_argument("--reward_shapes", nargs="*", default=None,
-                    help="LANESxENVS: lanes an env, envs a block")
     ap.add_argument("--num_envs", type=int, default=4096)
     ap.add_argument("--repeats", type=int, default=20)
     ap.add_argument("--save", default=None)
@@ -137,31 +135,24 @@ def main():
               f"{args.repeats}; {card})", flush=True)
     cuda_substep.THREADS = default
 
-    # K2 at each block size
+    # K2
     k2_args, _ = calls["sample_all"]
     ph, pgx, pgy = cuda_sampler.sample_all_plain(*k2_args)
     near = cuda_sampler.Q_MIN3 + cuda_sampler.Q_MAX10
-    default = getattr(cuda_sampler, "THREADS", None)
-    for threads in (args.sampler_threads or [default]) if default else [None]:
-        if threads:
-            cuda_sampler.THREADS = threads
-        h, gx, gy = cuda_sampler.sample_all(*k2_args)
-        torch.cuda.synchronize()
-        if not torch.equal(h[:, :near], ph[:, :near]):
-            raise AssertionError("K2: nearest samples differ")
-        cs.check_close("K2 bilinear", h[:, near:], ph[:, near:], 1e-5, 0.0)
-        cs.check_close("K2 gx", gx, pgx, 1e-4, 0.0)
-        cs.check_close("K2 gy", gy, pgy, 1e-4, 0.0)
-        row = dict(kernel="sample_all", threads=threads, **split(
-            "sample_all", lambda: cuda_sampler.sample_all(*k2_args)))
-        results.append(row)
-        print(f"[kernel_times] K2 at {threads or 'its'} threads a block: "
-              f"call {row['call_ms']:.4f} ms ({row['device_ops']:g} device "
-              f"ops), kernel alone {row['kernel_ms']:.4f} ms (device time, "
-              f"mean of {args.repeats}; {card}); other ops {row['others']}",
-              flush=True)
-    if default:
-        cuda_sampler.THREADS = default
+    h, gx, gy = cuda_sampler.sample_all(*k2_args)
+    torch.cuda.synchronize()
+    if not torch.equal(h[:, :near], ph[:, :near]):
+        raise AssertionError("K2: nearest samples differ")
+    cs.check_close("K2 bilinear", h[:, near:], ph[:, near:], 1e-5, 0.0)
+    cs.check_close("K2 gx", gx, pgx, 1e-4, 0.0)
+    cs.check_close("K2 gy", gy, pgy, 1e-4, 0.0)
+    row = dict(kernel="sample_all", **split(
+        "sample_all", lambda: cuda_sampler.sample_all(*k2_args)))
+    results.append(row)
+    print(f"[kernel_times] K2: call {row['call_ms']:.4f} ms "
+          f"({row['device_ops']:g} device ops), kernel alone "
+          f"{row['kernel_ms']:.4f} ms (device time, mean of {args.repeats};"
+          f" {card}); other ops {row['others']}", flush=True)
 
     # K3
     (scal, heights, stat, ny), _ = calls["plan_footholds"]
@@ -178,33 +169,20 @@ def main():
           f"{row['kernel_ms']:.4f}; {frac:.3%} of envs differ from plain; "
           f"{card})", flush=True)
 
-    # K6 at each team shape, on the step's inputs (the sums it adds to are
-    # a scratch copy)
+    # K6 on the step's inputs (the sums it adds to are a scratch copy)
     k6_args, _ = calls["compute_rewards"]
     *head, sums = k6_args
     scratch = sums.clone()
-    shapes = [None]
-    if hasattr(cuda_rewards, "TEAM"):
-        default = (cuda_rewards.TEAM, cuda_rewards.ENVS)
-        shapes = [tuple(int(v) for v in s.split("x"))
-                  for s in args.reward_shapes or []] or [default]
-    for shape in shapes:
-        if shape:
-            cuda_rewards.TEAM, cuda_rewards.ENVS = shape
-        err = cs.check_rewards("K6", k6_args)
-        row = dict(kernel="compute_rewards", shape=shape, max_abs_err=err,
-                   **split("compute_rewards", lambda: cuda_rewards
-                           .compute_rewards_fused(*head, scratch)))
-        results.append(row)
-        text = (f"{shape[0]} lanes an env, {shape[1]} envs a block"
-                if shape else "its shape")
-        print(f"[kernel_times] K6 at {text}: call {row['call_ms']:.4f} ms "
-              f"({row['device_ops']:g} device ops), kernel alone "
-              f"{row['kernel_ms']:.4f} ms; max abs err {err:.3e} (device "
-              f"time, mean of {args.repeats}; {card}); other ops "
-              f"{row['others']}", flush=True)
-    if shapes[0]:
-        cuda_rewards.TEAM, cuda_rewards.ENVS = default
+    err = cs.check_rewards("K6", k6_args)
+    row = dict(kernel="compute_rewards", max_abs_err=err,
+               **split("compute_rewards", lambda: cuda_rewards
+                       .compute_rewards_fused(*head, scratch)))
+    results.append(row)
+    print(f"[kernel_times] K6: call {row['call_ms']:.4f} ms "
+          f"({row['device_ops']:g} device ops), kernel alone "
+          f"{row['kernel_ms']:.4f} ms; max abs err {err:.3e} (device time, "
+          f"mean of {args.repeats}; {card}); other ops {row['others']}",
+          flush=True)
     # the plane fit of the orientation terms as the plain version computes
     # it: one matrix product on the step's scan view
     ctx = head[2]

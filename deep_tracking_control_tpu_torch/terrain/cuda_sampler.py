@@ -25,7 +25,7 @@ Q_MAX10 = 8           # 4 feet + padding
 Q_BIL = 24            # body points + padding
 Q_TOT = Q_MIN3 + Q_MAX10 + Q_BIL
 _BIL_ROW_MAX = PATCH_R - 1 - 1e-4
-THREADS = 128         # threads a block of the kernel, a multiple of 32
+THREADS = 128         # threads a block of the kernel (csrc/sampler.cu)
 
 
 def launch_shape(n: int) -> tuple:
@@ -117,8 +117,7 @@ def sample_all(src: PatchSource, starts, origin, qx, qy):
     cuda_build.launch(
         "dtc_sample_all", p(src.blocks), p(src.blocks16), p(starts),
         p(origin), p(qx), p(qy), p(h), p(gx), p(gy), N, B, Rp,
-        cuda_build.inv(src.horizontal_scale), THREADS,
-        cuda_build.stream_ptr(dev))
+        cuda_build.inv(src.horizontal_scale), cuda_build.stream_ptr(dev))
     _counter.launches += 1
     return h, gx, gy
 

@@ -126,6 +126,35 @@ def test_synthetic_ctx_is_make_ctx(seed):
             assert g == v, k
 
 
+def _enum(src, name):
+    """The names of enum `name` of a CUDA source, in order."""
+    body = re.search(r"enum %s \{(.*?)\};" % name, src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    return [t.strip() for t in body.split(",") if t.strip()]
+
+
+def _constant(src, name):
+    return int(re.search(r"constexpr int %s = (\d+);" % name, src).group(1))
+
+
+def test_kernel_constants_are_the_wrapper_s():
+    """The wrapper's copies of csrc/rewards.cu's constants (the launch
+    shape, the buffer rows, the table sizes) are the kernel's."""
+    src = SRC.read_text()
+    for name in ("TEAM", "ENVS", "BUFFER_ROWS", "MAX_TERMS", "MAX_FEET",
+                 "MAX_WORDS", "MAX_CWORDS"):
+        assert _constant(src, name) == getattr(cuda_rewards, name), name
+    assert re.search(r"constexpr int THREADS = TEAM \* ENVS;", src)
+
+
+def test_launch_shape_covers_the_card():
+    """16 lanes an env, 16 envs a block: at the published 4096 envs 256
+    blocks of 256 threads, on every one of the H100's 132 SMs."""
+    assert cuda_rewards.launch_shape(4096) == (256, 256, 16)
+    assert cuda_rewards.launch_shape(37) == (3, 256, 16)
+    assert cuda_rewards.launch_shape(1) == (1, 256, 16)
+
+
 def test_kernel_term_table_matches_the_plain_terms():
     """csrc/rewards.cu numbers the terms in the order of REWARD_FUNCTIONS
     and reads one input slot per name of cuda_rewards' table."""
@@ -185,7 +214,9 @@ def test_kernel_staging_plan_reads_every_input(monkeypatch, transposed):
                          names + ["termination"],
                          torch.zeros((len(names) + 1, n)))
     table, _, _, ip, offs, words, cwords, *_ = got["args"]
-    S, C = ip[15], ip[19]
+    iparam = _enum(SRC.read_text(), "IParam")
+    assert len(ip) == iparam.index("N_I")
+    S, C = ip[iparam.index("I_OFF_PLANE")], ip[iparam.index("I_NC")]
     lo, hi = ctx["soft_dof_pos_limits"]
     inputs = dict(ctx, soft_lo=lo, soft_hi=hi)
     for k in ("cmd_buffer", "lin_vel_buffer", "ang_vel_buffer"):

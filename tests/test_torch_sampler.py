@@ -7,6 +7,9 @@ kernel must reproduce terrain/pallas_sampler.py `sample_all` (run in
 interpret mode) at the JAX package's own budget: 1e-5 on heights, 1e-4 on
 slopes (tests/test_pallas_sampler.py:56-71).
 """
+import pathlib
+import re
+
 import numpy as np
 import pytest
 
@@ -114,3 +117,19 @@ def test_sample_all_plain_matches_pallas_kernel(world, spread):
                                atol=1e-5)
     np.testing.assert_allclose(tgx.numpy(), np.asarray(jgx), atol=1e-4)
     np.testing.assert_allclose(tgy.numpy(), np.asarray(jgy), atol=1e-4)
+
+
+def test_launch_shape_mirrors_the_kernel():
+    """The wrapper's block size is csrc/sampler.cu's; a thread per 4
+    queries: at the published 4096 envs 5,888 blocks of 128 threads, and
+    the ragged tail's last block part-filled."""
+    src = (pathlib.Path(tsmp.__file__).resolve().parents[1] / "csrc"
+           / "sampler.cu").read_text()
+    threads = int(re.search(r"constexpr int THREADS = (\d+);", src).group(1))
+    assert threads == tsmp.THREADS
+    for name in ("Q_MIN3", "Q_MAX10", "Q_BIL"):
+        got = re.search(r"constexpr int %s = (\d+);" % name, src).group(1)
+        assert int(got) == getattr(tsmp, name), name
+    assert tsmp.launch_shape(4096) == (5888, 128, 4)
+    assert tsmp.launch_shape(37) == (54, 128, 4)
+    assert tsmp.launch_shape(1) == (2, 128, 4)
