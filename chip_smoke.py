@@ -129,6 +129,9 @@ ROUTES = {
                               "plan_footholds")),
     "DTC_STRICT_PARITY=1": ({"DTC_STRICT_PARITY": "1"}, ("extract_patches",)),
 }
+# keys a kernel's entry of the JSON line carries where measured: K7's
+# launch shape and ptxas (registers, stack bytes), K8's launch floors
+EXTRA_KEYS = ("launch_shape", "ptxas", "floor_empty_ms", "floor_seed_ms")
 SWITCHES = ("DTC_FUSED_WINDOW", "DTC_PALLAS_SAMPLER", "DTC_PALLAS_PHYSICS",
             "DTC_PALLAS_PLANNER", "DTC_STRICT_PARITY")
 
@@ -616,6 +619,80 @@ def check_rewards(name, args):
     return max_err([(rew, prew), (s_k, s_p)])
 
 
+def check_observations(args):
+    """K7 against its plain version fed the noise kernel's draws for the
+    same seed (1e-6 + 1e-6 rel); the plain version's own draws must be
+    those draws.  Returns (max abs error, the kernel's outputs, the
+    draws)."""
+    import torch
+    from deep_tracking_control_tpu_torch.env import cuda_obs
+    from deep_tracking_control_tpu_torch.ops import cuda_rng
+    seed = args[-1]
+    N, H = args[10].shape
+    num_obs = args[14].shape[0]
+    got = cuda_obs.compute_observations_fused(*args)
+    draws = dict(height_noise=cuda_rng.uniform_pm1(seed, (N, H), 0),
+                 obs_noise=cuda_rng.uniform_pm1(seed, (N, num_obs), 1))
+    fed = cuda_obs.observations_plain(*args, **draws)
+    own = cuda_obs.observations_plain(*args)
+    for name, a, b, c in zip(("obs", "privileged", "history"), got, fed, own):
+        check_close(f"compute_observations {name}", a, b, 1e-6, 1e-6)
+        if not torch.equal(b, c):
+            raise AssertionError(f"compute_observations {name}: the plain "
+                                 f"version's draws are not the noise kernel's")
+    return max_err(list(zip(got, fed))), got, draws
+
+
+def ptxas_usage(symbol):
+    """{mangled name: (registers, stack bytes)} of each entry function
+    whose name holds `symbol`, from the ptxas lines of this process's
+    build (empty when the library was built by another process)."""
+    from deep_tracking_control_tpu_torch import cuda_build
+    found, name = {}, None
+    for line in cuda_build.build_log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if "'" in line else line
+            name = fn if symbol in fn else None
+            if name:
+                found[name] = [None, None]
+        elif name and "bytes stack frame" in line:
+            found[name][1] = int(line.split()[0])
+        elif name and "Used" in line and "registers" in line:
+            words = line.split()
+            found[name][0] = int(words[words.index("registers,") - 1]
+                                 if "registers," in words
+                                 else words[words.index("registers") - 1])
+    return {k: tuple(v) for k, v in found.items()}
+
+
+def uniform_launch_shape(numel):
+    """(blocks, threads a block) of the noise kernel (csrc/rng.cu): a
+    thread per 4 elements, 256 threads a block."""
+    threads = 256
+    return min((numel // 4 + (numel % 4 > 0) + threads - 1) // threads,
+               65535 * 32), threads
+
+
+# the launch-floor probes of csrc/probe.cu: an empty kernel, and one whose
+# threads only load the 16-byte seed
+PROBES = {"empty": (0, "empty_kernel"), "seed_load": (1, "seed_kernel")}
+
+
+def launch_floors(torch, seed, blocks, threads, repeats=REPEATS):
+    """{probe: device ms of its kernel} at the launch shape blocks x
+    threads, each call after an L2 eviction as every timed call here."""
+    from deep_tracking_control_tpu_torch import cuda_build
+    sink = torch.zeros(1, dtype=torch.int32, device=seed.device)
+    out = {}
+    for name, (what, symbol) in PROBES.items():
+        def probe(what=what):
+            cuda_build.launch("dtc_launch_floor", what, cuda_build.ptr(seed),
+                              cuda_build.ptr(sink), blocks, threads,
+                              cuda_build.stream_ptr(seed.device))
+        out[name] = device_split(torch, probe, symbol, repeats)[1]
+    return out
+
+
 def shape_text(shape):
     blocks, threads, envs = shape
     return (f"launch shape {blocks} blocks x {threads} threads, {envs} envs "
@@ -806,20 +883,9 @@ def compare_kernels(calls, tables):
     args, kwargs = calls["compute_observations"]
     if any(v is not None for v in kwargs.values()):
         raise AssertionError("the env handed noise arrays to the obs kernel")
-    seed = args[-1]
+    err, got, draws = check_observations(args)
     N, H = args[10].shape
     num_obs = args[14].shape[0]
-    got = cuda_obs.compute_observations_fused(*args)
-    draws = dict(height_noise=cuda_rng.uniform_pm1(seed, (N, H), 0),
-                 obs_noise=cuda_rng.uniform_pm1(seed, (N, num_obs), 1))
-    fed = cuda_obs.observations_plain(*args, **draws)
-    own = cuda_obs.observations_plain(*args)
-    for name, a, b, c in zip(("obs", "privileged", "history"), got, fed, own):
-        check_close(f"compute_observations {name}", a, b, 1e-6, 1e-6)
-        if not torch.equal(b, c):
-            raise AssertionError(f"compute_observations {name}: the plain "
-                                 f"version's draws are not the noise kernel's")
-    err = max_err(list(zip(got, fed)))
     drawn = N * H + (N * num_obs if args[0].noise.add_noise else 0)
     work["compute_observations"] = (
         tensor_bytes(args), tensor_bytes(got),
@@ -829,8 +895,19 @@ def compare_kernels(calls, tables):
         torch, "compute_observations",
         lambda: cuda_obs.compute_observations_fused(*args),
         lambda: cuda_obs.observations_plain(*args)))
+    # the call queues the kernel alone: the draws are made inside it
+    if results["compute_observations"]["others"]:
+        raise AssertionError(f"compute_observations queues more than its "
+                             f"kernel: {results['compute_observations']['others']}")
+    usage = ptxas_usage(SYMBOLS["compute_observations"])
+    shape = cuda_obs.launch_shape(N)
+    results["compute_observations"].update(
+        launch_shape=list(shape), ptxas=sorted(usage.values()))
     say(3, f"compute_observations vs plain fed the noise kernel's draws: max "
-           f"abs err {err:.3e} (budget 1e-6); the plain draws equal them")
+           f"abs err {err:.3e} (budget 1e-6); the plain draws equal them; "
+           f"{shape_text(shape)}; ptxas (registers, stack bytes) "
+           f"{sorted(usage.values()) or 'not in this build log'}; device "
+           f"{results['compute_observations']['ms']:.4f} ms a call")
 
     # K8: bit for bit at the obs shapes and at the reset's; moments; seeds
     (rseed, rshape), _ = calls["uniform_pm1"]
@@ -875,7 +952,17 @@ def compare_kernels(calls, tables):
                f"{r['wall_ms']:.4f} ms, plain {r['plain_wall_ms']:.4f} ms, "
                f"uniform_ {r['library_wall_ms']:.4f} ms; bound "
                f"{r['bound_ms']:.4f} ms by {r['bound_by']}")
-    results["uniform_pm1"] = res[tuple(rshape)]       # the main path's shape
+    results["uniform_pm1"] = r = res[tuple(rshape)]   # the main path's shape
+    # its launch floors: the same launch shape, an empty kernel and one
+    # that only loads the seed
+    blocks, threads = uniform_launch_shape(rshape[0] * rshape[1])
+    floors = launch_floors(torch, rseed, blocks, threads)
+    r.update(floor_empty_ms=floors["empty"], floor_seed_ms=floors["seed_load"])
+    say(3, f"uniform_pm1 at {tuple(rshape)}: its kernel alone "
+           f"{r['kernel_ms']:.4f} ms; at its launch shape ({blocks} blocks x "
+           f"{threads} threads) an empty kernel {floors['empty']:.4f} ms, a "
+           f"seed-load kernel {floors['seed_load']:.4f} ms: "
+           f"{r['kernel_ms'] / floors['seed_load']:.2f}x the seed-load floor")
 
     # operations are counted after all the timings: the counting mode
     # intercepts every op of the plain version
@@ -1543,7 +1630,9 @@ def main():
                     plain_ms=results[k]["plain_ms"],
                     bound_ms=results[k]["bound_ms"],
                     bound_by=results[k]["bound_by"],
-                    library_ms=results[k].get("library_ms"))
+                    library_ms=results[k].get("library_ms"),
+                    **{x: results[k][x] for x in EXTRA_KEYS
+                       if x in results[k]})
                for k in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -32,7 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lib = None
 build_seconds = None     # wall time of this process's nvcc run, if any
-build_log = ""           # nvcc/ptxas output of the last build
+build_log = ""           # nvcc/ptxas output of the library's build
 
 
 def _sources():
@@ -61,10 +61,14 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile csrc/*.cu into the shared library unless it is up to date:
-    one nvcc per source, all started together, then one link."""
+    one nvcc per source, all started together, then one link.  The
+    compiler's output is kept beside the library (`build_log`, also when
+    another process built it)."""
     global build_seconds, build_log
     out = library_path()
     if out.exists():
+        if not build_log and out.with_suffix(".log").exists():
+            build_log = out.with_suffix(".log").read_text()
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
@@ -90,6 +94,9 @@ def build() -> Path:
         build_seconds = time.perf_counter() - t0
         if failed:
             raise RuntimeError(f"nvcc failed ({failed}):\n{build_log}")
+        with open(os.path.join(tmpdir, "lib.log"), "w") as f:
+            f.write(build_log)
+        os.replace(os.path.join(tmpdir, "lib.log"), out.with_suffix(".log"))
         os.replace(lib, out)          # atomic: concurrent builds agree
     return out
 

@@ -29,6 +29,14 @@ from ..ops import cuda_rng
 
 F32 = torch.float32
 HEIGHT_STREAM, OBS_STREAM = 0, 1
+ENVS = 8              # envs a block of the kernel (csrc/obs.cu)
+THREADS = 128         # threads a block
+_SHAPE = 0            # sweep variant (0: ENVS x THREADS)
+
+
+def launch_shape(n: int) -> tuple:
+    """(blocks, threads a block, envs a block) of the kernel at n envs."""
+    return (n + ENVS - 1) // ENVS, THREADS, ENVS
 
 
 def observations_plain(cfg, has_foothold, base_ang_vel, projected_gravity,
@@ -164,7 +172,8 @@ def _launch(cfg, has_foothold, base_ang_vel, projected_gravity, commands, q,
         cfg.normalization.clip_observations)
     flags = (1 if has_foothold else 0) | (2 if cfg.noise.add_noise else 0)
     cuda_build.launch("dtc_observations", table, fparams, N, H, nq, na,
-                      num_obs, hist_w, flags, cuda_build.stream_ptr(dev))
+                      num_obs, hist_w, flags, cuda_build.stream_ptr(dev),
+                      _SHAPE)
     _counter.launches += 1
     return obs, priv, hist
 

@@ -1,11 +1,11 @@
 """Device time of the physics decimation kernel K1 (fused and window
 variants, on the same inputs) at several block sizes, and of the terrain
-sampler K2, the planner K3 and the reward kernel K6, at the inputs of a
-real lite3_dtc step.
+sampler K2, the planner K3, the reward kernel K6, the obs kernel K7 and
+the noise kernel K8, at the inputs of a real lite3_dtc step.
 
     python deep_tracking_control_tpu_torch/scripts/kernel_times.py \
-        [--threads 32 64 128] [--num_envs 4096] [--repeats 20] \
-        [--save FILE | --load FILE]
+        [--kernels K1 K2 K3 K6 K7 K8] [--threads 32 64 128] \
+        [--num_envs 4096] [--repeats 20] [--save FILE | --load FILE]
 
 Needs a CUDA device.  K1's block size is set on
 `physics.cuda_substep.THREADS` before its calls; K2's and K6's launch
@@ -13,11 +13,14 @@ shapes are constants of their kernels.  Every result is held to its
 plain version before it is timed (K1 1e-4 + 1e-4 rel, contact forces
 1e-2 N; the window variant bit for bit the fused one; K2 nearest exact,
 bilinear 1e-5, slopes 1e-4; K3 at most 2% of envs differing, near-ties
-only; K6 the budgets of chip_smoke.py).  Each row gives the call's device
+only; K6 the budgets of chip_smoke.py; K7 1e-6 against its plain
+version fed K8's draws for the step's seed; K8 bit for bit).  Each row gives the call's device
 ms (all the work the wrapper queues) and its CUDA kernel's alone, each
 call after a read that evicts L2 (chip_smoke.py `device_profile`).  Then
 the plane fit of the orientation terms as the plain version's matrix
-product.
+product (with K6), and K8 at the step's reset shape beside its launch
+floors: an empty kernel and one that only loads the seed, at K8's launch
+shape (csrc/probe.cu; skipped where the checkout has no probes).
 
 `--save FILE` keeps the recorded step's kernel inputs (torch.save) and
 `--load FILE` times on inputs kept so: a kernel's redesign times its
@@ -36,11 +39,17 @@ import os
 import sys
 import time
 
+KERNELS = ("K1", "K2", "K3", "K6", "K7", "K8")
+
 
 def main():
     own = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap = argparse.ArgumentParser()
+    ap.add_argument("--kernels", nargs="*", default=KERNELS,
+                    choices=KERNELS)
+    ap.add_argument("--obs_shapes", type=int, nargs="*", default=[0])
+    ap.add_argument("--obs_probes", type=int, nargs="*", default=[])
     ap.add_argument("--threads", type=int, nargs="*", default=None)
     ap.add_argument("--num_envs", type=int, default=4096)
     ap.add_argument("--repeats", type=int, default=20)
@@ -56,12 +65,8 @@ def main():
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     from deep_tracking_control_tpu_torch import cuda_build
-    from deep_tracking_control_tpu_torch.env import cuda_planner, cuda_rewards
     from deep_tracking_control_tpu_torch.env.legged_env import LeggedEnv
-    from deep_tracking_control_tpu_torch.ops import cuda_patch
-    from deep_tracking_control_tpu_torch.physics import cuda_substep
     from deep_tracking_control_tpu_torch.tasks import registry
-    from deep_tracking_control_tpu_torch.terrain import cuda_sampler
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.card_line()
     print(f"[kernel_times] card {card}; checkout {own}", flush=True)
@@ -91,13 +96,34 @@ def main():
           flush=True)
     results = []
 
-    def split(name, fn):
+    def split(name, fn, symbol=None):
         call, kernel, ops, others = cs.device_split(
-            torch, fn, cs.SYMBOLS[name], args.repeats)
+            torch, fn, symbol or cs.SYMBOLS[name], args.repeats)
         return dict(call_ms=call, kernel_ms=kernel, device_ops=ops,
                     others=[k[:80] for k in others])
 
-    # K1 and K1w at each block size
+    if "K1" in args.kernels:
+        k1_rows(cs, calls, args, split, results, card)
+    if "K2" in args.kernels:
+        k2_row(cs, calls, args, split, results, card)
+    if "K3" in args.kernels:
+        k3_row(cs, calls, split, results, card)
+    if "K6" in args.kernels:
+        k6_rows(cs, calls, args, split, results, card)
+    if "K7" in args.kernels:
+        k7_rows(cs, calls, args, split, results, card)
+    if "K8" in args.kernels:
+        k8_rows(cs, calls, args, split, results, card)
+    print(json.dumps(dict(card=card, checkout=own, inputs=source,
+                          results=results)))
+
+
+def k1_rows(cs, calls, args, split, results, card):
+    """K1 and K1w at each block size (the window variant on K1's inputs,
+    bit for bit K1)."""
+    import torch
+    from deep_tracking_control_tpu_torch.ops import cuda_patch
+    from deep_tracking_control_tpu_torch.physics import cuda_substep
     k1_args, k1_kw = calls["decimation_step"]
     plain_kw = {k: v for k, v in k1_kw.items() if k != "consts"}
     blocks, starts = k1_args[18], k1_args[19]
@@ -135,7 +161,10 @@ def main():
               f"{args.repeats}; {card})", flush=True)
     cuda_substep.THREADS = default
 
-    # K2
+
+def k2_row(cs, calls, args, split, results, card):
+    import torch
+    from deep_tracking_control_tpu_torch.terrain import cuda_sampler
     k2_args, _ = calls["sample_all"]
     ph, pgx, pgy = cuda_sampler.sample_all_plain(*k2_args)
     near = cuda_sampler.Q_MIN3 + cuda_sampler.Q_MAX10
@@ -154,7 +183,9 @@ def main():
           f"{row['kernel_ms']:.4f} ms (device time, mean of {args.repeats};"
           f" {card}); other ops {row['others']}", flush=True)
 
-    # K3
+
+def k3_row(cs, calls, split, results, card):
+    from deep_tracking_control_tpu_torch.env import cuda_planner
     (scal, heights, stat, ny), _ = calls["plan_footholds"]
     want3 = cuda_planner.plan_plain(scal, heights, stat, ny)
 
@@ -169,7 +200,12 @@ def main():
           f"{row['kernel_ms']:.4f}; {frac:.3%} of envs differ from plain; "
           f"{card})", flush=True)
 
-    # K6 on the step's inputs (the sums it adds to are a scratch copy)
+
+def k6_rows(cs, calls, args, split, results, card):
+    """K6 on the step's inputs (the sums it adds to are a scratch copy),
+    then the plane fit of its orientation terms as a matrix product."""
+    import torch
+    from deep_tracking_control_tpu_torch.env import cuda_rewards
     k6_args, _ = calls["compute_rewards"]
     *head, sums = k6_args
     scratch = sums.clone()
@@ -195,8 +231,70 @@ def main():
           f"{tuple(ctx['plane_pinv'].T.shape)}: {row['ms']:.4f} ms",
           flush=True)
 
-    print(json.dumps(dict(card=card, checkout=own, inputs=source,
-                          results=results)))
+
+def k7_rows(cs, calls, args, split, results, card):
+    """K7 on the step's inputs, held to its plain version fed K8's draws
+    before each timing; at each --obs_shapes variant where the checkout
+    has them (0: the kernel's own launch shape)."""
+    from deep_tracking_control_tpu_torch.env import cuda_obs
+    k7_args, _ = calls["compute_observations"]
+    n = k7_args[10].shape[0]
+    for variant in args.obs_shapes:
+        if hasattr(cuda_obs, "_SHAPE"):
+            cuda_obs._SHAPE = variant
+        elif variant:
+            continue
+        err = (None if variant in args.obs_probes
+               else cs.check_observations(k7_args)[0])
+        shape = (cuda_obs.launch_shape(n) if hasattr(cuda_obs, "launch_shape")
+                 else (n, 256, 1))
+        row = dict(kernel="compute_observations", variant=variant,
+                   max_abs_err=err, **split(
+                       "compute_observations",
+                       lambda: cuda_obs.compute_observations_fused(*k7_args),
+                       "obs_pipe_kernel" if variant >= 14 else None))
+        results.append(row)
+        print(f"[kernel_times] K7 (variant {variant}; the checkout's launch "
+              f"shape {shape}): call {row['call_ms']:.4f} ms "
+              f"({row['device_ops']:g} device ops), kernel alone "
+              f"{row['kernel_ms']:.4f} ms; max abs err "
+              f"{'(a timing probe: not checked)' if err is None else format(err, '.3e')} against "
+              f"the plain version fed K8's draws (device time, mean of "
+              f"{args.repeats}; {card}); other ops {row['others']}",
+              flush=True)
+    if hasattr(cuda_obs, "_SHAPE"):
+        cuda_obs._SHAPE = 0
+    for name, usage in cs.ptxas_usage(cs.SYMBOLS["compute_observations"]).items():
+        print(f"[kernel_times] K7 ptxas {name}: {usage[0]} registers, "
+              f"{usage[1]} bytes stack", flush=True)
+
+
+def k8_rows(cs, calls, args, split, results, card):
+    """K8 at the step's reset shape, bit for bit its plain version, beside
+    its launch floors where the checkout has the probes."""
+    import torch
+    from deep_tracking_control_tpu_torch import cuda_build
+    from deep_tracking_control_tpu_torch.ops import cuda_rng
+    (seed, shape), _ = calls["uniform_pm1"]
+    shape = tuple(shape)
+    if not torch.equal(cuda_rng.uniform_pm1(seed, shape),
+                       cuda_rng.uniform_pm1_plain(seed, shape)):
+        raise AssertionError(f"K8 {shape}: differs from plain")
+    row = dict(kernel="uniform_pm1", shape=list(shape), **split(
+        "uniform_pm1", lambda: cuda_rng.uniform_pm1(seed, shape)))
+    blocks, threads = cs.uniform_launch_shape(shape[0] * shape[1])
+    if hasattr(cuda_build.library(), "dtc_launch_floor"):
+        row.update(floors=cs.launch_floors(torch, seed, blocks, threads,
+                                           args.repeats))
+    results.append(row)
+    floors = row.get("floors")
+    print(f"[kernel_times] K8 at {shape} ({blocks} blocks x {threads} "
+          f"threads): call {row['call_ms']:.4f} ms, kernel alone "
+          f"{row['kernel_ms']:.4f} ms; launch floors "
+          + (f"empty {floors['empty']:.4f} ms, seed load "
+             f"{floors['seed_load']:.4f} ms ({row['kernel_ms'] / floors['seed_load']:.2f}x)"
+             if floors else "not in this checkout")
+          + f" (device time, mean of {args.repeats}; {card})", flush=True)
 
 
 if __name__ == "__main__":

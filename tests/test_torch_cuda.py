@@ -12,10 +12,12 @@ also on random inputs that switch on all 33 terms; the noise kernel bit
 for bit, and the obs kernel against its plain version fed that kernel's
 draws; the patch and window copies bit for bit, and the decimation
 kernel's window variant bit for bit against its fused variant.  The
-physics, sampler, planner and reward kernels also run on ragged n envs: a
-single env, a partial warp, a partial last block (the sampler with
-queries on cell edges and outside the patch, the reward kernel on all 33
-terms with and without the plane fit and the positive clip).
+physics, sampler, planner, reward and obs kernels also run on ragged n
+envs: a single env, a partial warp, a partial last block (the sampler
+with queries on cell edges and outside the patch, the reward kernel on
+all 33 terms with and without the plane fit and the positive clip, the
+obs kernel in the 45-dim layout, without obs noise, and on inputs laid
+out otherwise than the env's: a contiguous scan, a strided history).
 """
 import dataclasses
 
@@ -428,6 +430,56 @@ def test_obs_kernel_matches_plain_fed_its_draws(recorded):
         assert torch.equal(b, c)
     with pytest.raises(ValueError):
         cuda_obs.compute_observations_fused(*args, **draws)
+
+
+def _obs_case(args, n, layout):
+    """K7's recorded arguments cut to the first n envs (the env's views of
+    its state, strided where the env's are), in a layout: "env" as the
+    env hands them in; "contiguous_heights" the scan as a contiguous
+    (n, 693) tensor (rows not 16-byte aligned); "no_foothold" the 45-dim
+    layout with a contiguous 225-wide history, "no_foothold_view" with
+    the history a view of the first 225 of each 265-wide row; "quiet" no
+    obs noise."""
+    a = list(args)
+    for i in (2, 3, 4, 7, 8, 9, 10, 11, 12, 13):
+        a[i] = a[i][:n]
+    a[5], a[6] = a[5][:, :n], a[6][:, :n]
+    if layout == "contiguous_heights":
+        a[10] = a[10].contiguous()
+    elif layout.startswith("no_foothold"):
+        a[1] = False
+        a[14] = a[14][:45]
+        a[13] = a[13][:, :225]
+        if layout == "no_foothold":
+            a[13] = a[13].contiguous()
+    elif layout == "quiet":
+        a[0] = dataclasses.replace(a[0], noise=dataclasses.replace(
+            a[0].noise, add_noise=False))
+    return a
+
+
+@pytest.mark.parametrize("layout", ["env", "contiguous_heights",
+                                    "no_foothold", "no_foothold_view",
+                                    "quiet"])
+@pytest.mark.parametrize("n", [1, 3, 37, 45, N])
+def test_obs_kernel_ragged_envs_and_layouts(recorded, n, layout):
+    """K7 on the first n envs of the step (1, 3, 37, 45: not multiples of
+    its envs a block) in each layout, against its plain version fed the
+    noise kernel's draws (1e-6)."""
+    args = _obs_case(recorded[0]["k7"][0], n, layout)
+    seed = args[-1]
+    H, num_obs = args[10].shape[1], args[14].shape[0]
+    before = cuda_obs.compute_observations_fused.launches
+    got = cuda_obs.compute_observations_fused(*args)
+    assert cuda_obs.compute_observations_fused.launches == before + 1
+    draws = dict(height_noise=cuda_rng.uniform_pm1(seed, (n, H), 0),
+                 obs_noise=cuda_rng.uniform_pm1(seed, (n, num_obs), 1))
+    want = cuda_obs.observations_plain(*args, **draws)
+    torch.cuda.synchronize()
+    shapes = [(n, num_obs), (n, 2 * H + 3), (n, args[13].shape[1])]
+    for a, b, shape in zip(got, want, shapes):
+        assert tuple(a.shape) == shape
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("shape, stream", [((N, 693), 0), ((N, 53), 1),

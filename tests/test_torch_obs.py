@@ -11,6 +11,8 @@ DTC layout with the obs noise on and off, and the 45-dim layout.  One JAX
 run per case, shared by the module.
 """
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -27,6 +29,8 @@ from deep_tracking_control_tpu_torch.tasks.registry import get_cfgs
 from tests.test_pallas_obs import _env, _fake_inputs
 
 N = 128
+SRC = (Path(__file__).resolve().parent.parent / "deep_tracking_control_tpu_torch"
+       / "csrc" / "obs.cu")
 CASES = {"dtc_53_noise": ("lite3_dtc", True, 0),
          "dtc_53_quiet": ("lite3_dtc", False, 2),
          "rough_45": ("lite3_rough", True, 1)}
@@ -112,3 +116,22 @@ def test_plain_draws_are_the_noise_kernels():
         obs_noise=torch.zeros((N, 53)))
     assert not torch.equal(own[0], quiet[0])
     assert not torch.equal(own[1], quiet[1])
+
+
+def test_launch_shape_is_the_kernel_s():
+    """The wrapper's copy of csrc/obs.cu's launch shape (envs and threads
+    a block, compile-time constants) is the kernel's: at the published
+    4096 envs 512 blocks of 128 threads, 8 envs each; a ragged tail takes
+    one more block."""
+    src = SRC.read_text()
+
+    def constant(name):
+        return int(re.search(r"constexpr int %s = (\d+);" % name,
+                             src).group(1))
+    assert constant("ENVS") == cuda_obs.ENVS
+    assert constant("THREADS") == cuda_obs.THREADS
+    assert cuda_obs.ENVS % 4 == 0          # a block's spans start aligned
+    assert re.search(r"__launch_bounds__\(THREADS\) obs_kernel", src)
+    assert cuda_obs.launch_shape(4096) == (512, 128, 8)
+    assert cuda_obs.launch_shape(37) == (5, 128, 8)
+    assert cuda_obs.launch_shape(1) == (1, 128, 8)
