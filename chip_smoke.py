@@ -16,9 +16,12 @@ Phases (each prints its own line; any failure ends the run non-zero):
      with their launch shapes), the reward kernel (also on
      random inputs that switch on all 33 terms, with and without the
      positive clip), the obs kernel (against its plain version fed the
-     noise kernel's draws for the same seed) and the noise kernel (bit for
-     bit at (4096, 693) and (4096, 53) and at the reset's shape; moments;
-     two seeds differ; beside `uniform_` on a CUDA generator);
+     noise kernel's draws for the same seed; its launch shape and ptxas's
+     registers and stack) and the noise kernel (bit for bit at (4096,
+     693) and (4096, 53) and at the reset's shape; moments; two seeds
+     differ; beside `uniform_` on a CUDA generator, and at the reset's
+     shape beside its launch floors: an empty kernel and one that only
+     loads the seed, at its launch shape, from csrc/probe.cu);
   4. the collection path: LeggedEnv(lite3_dtc, 4096 envs) +
      ActorCriticDecoder + OnPolicyRunner, 3 collect() iterations of 24
      steps, every launch counted; the gather kernel against its plain

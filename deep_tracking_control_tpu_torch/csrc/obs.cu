@@ -20,36 +20,42 @@
 // Bound on the H100: bytes.  Per env 693 heights, the 265-wide history
 // and some 60 narrow values in (4,068 bytes), 1389 privileged, 265
 // history and 53 obs values out (6,828 bytes): 16.7 + 28.0 MB at 4096
-// envs, 13.3 us at 3.35 TB/s.  The Philox draws (about 180 blocks of 10
-// rounds an env) and the chain are a few microseconds of issue on 132
-// SMs, under the bytes.
+// envs, 13.3 us at 3.35 TB/s.  The Philox draws (some 190 blocks of 10
+// rounds an env) and the chain are a few microseconds of issue on the
+// card's 132 SMs, under the bytes if they overlap the loads.
 //
-// Design: a block holds ENVS consecutive envs (a multiple of 4).  Every
-// output row is 1 mod 4 floats wide, so no single row starts 16-byte
-// aligned; a block's span of rows, starting at env n0 = 0 mod 4, does,
-// and the kernel walks each span as flat float4 stores, the env and
-// column of each element tracked by a cursor (a division at its start,
-// none as it steps).  A float4
-// that lies in one env and one section takes a fast path; one that
-// straddles two envs or two sections is done lane by lane.
+// Design: a block holds ENVS consecutive envs (a multiple of 4), at 4096
+// envs 256 blocks of 512 threads: two blocks an SM, every block resident
+// at once.  Every output row is 1 mod 4 floats wide, so no single row
+// starts 16-byte aligned; a block's span of rows, starting at env n0 = 0
+// mod 4, does, and the kernel walks each span as flat float4 stores, the
+// env and column of each element tracked by a cursor (a division at its
+// start, none as it steps).  A float4 that lies in one env and one
+// section takes a fast path; one that straddles two envs or two sections
+// is done lane by lane.
 //   1. Before any arithmetic the block puts its big inputs in flight:
 //      each height row (16-byte aligned, as the sampler's 736-float rows
 //      are) and the block's span of the history, in 16-byte asynchronous
 //      copies (cp.async) into shared memory, a tail word by word; inputs
 //      laid out otherwise are copied word by word through their strides.
-//   2. While they arrive: the narrow state, a warp's threads on adjacent
-//      envs (the env hands in transposed views: E envs of one joint row
-//      are contiguous), into the obs rows in shared memory; the seed;
-//      the obs noise, one Philox block per float4 of the obs span (the
-//      span starts at element n0 * num_obs = 0 mod 4 of stream 1), added
-//      and clipped, stored as float4.
-//   3. Then the privileged span: a float4 of the noisy section needs one
-//      Philox block of stream 0 (its elements (n0 + e) * H + j lie 0 mod
-//      4 apart from its priv position when H = 1 mod 4; two blocks
-//      otherwise), read from the staged rows with two aligned 16-byte
-//      shared loads; and the history span: the rolled rows are the
-//      staged span shifted by num_obs floats, the new obs the block's
-//      finished obs rows.
+//   2. While they arrive: the block's height noise into shared memory,
+//      one Philox block of stream 0 a thread (the span starts at element
+//      n0 * H = 0 mod 4); the narrow state, a warp's threads on adjacent
+//      envs (the env hands in transposed views: the block's envs of one
+//      joint row are contiguous), into the obs rows in shared memory;
+//      the obs noise, one Philox block of stream 1 a float4 of the obs
+//      span (it starts at element n0 * num_obs = 0 mod 4), added,
+//      clipped and stored as float4.
+//   3. Then the privileged span (the staged rows and noise read with two
+//      aligned 16-byte shared loads a float4) and the history span (the
+//      rolled rows are the staged span shifted by num_obs floats, the new
+//      obs the block's finished obs rows).
+// Measured on the H100 (scripts/kernel_times.py, L2 evicted before each
+// call): drawing the height noise where it is used, after the loads had
+// arrived, cost 6 us a call; 16 x 512 was the fastest launch shape of the
+// 4 to 16 envs and 64 to 512 threads tried.  Staging the narrow state
+// with cp.async, or writing the spans of 4 envs as soon as their copies
+// arrived (commit groups), was slower.
 // A block past N (the ragged tail) stages and writes only its envs.
 #include <stdint.h>
 
@@ -58,8 +64,8 @@
 
 namespace {
 
-constexpr int ENVS = 8;          // envs a block (a multiple of 4)
-constexpr int THREADS = 128;     // threads a block
+constexpr int ENVS = 16;         // envs a block (a multiple of 4)
+constexpr int THREADS = 512;     // threads a block
 static_assert(ENVS % 4 == 0, "a block's spans start 16-byte aligned");
 static_assert(THREADS % 32 == 0 && THREADS <= 1024, "whole warps a block");
 constexpr int ENV_WORDS = 5;     // staged per env: z - target, offset, push
@@ -120,20 +126,6 @@ __device__ __forceinline__ float4 pm1x4(const PhiloxOut& r) {
                        bits_to_pm1(r.w[2]), bits_to_pm1(r.w[3]));
 }
 
-// the elements i .. i + 3 of a flat draw on `stream` (i >= -3; elements
-// before 0 are not used by the caller)
-__device__ __forceinline__ float4 noise4(long long i, uint32_t stream,
-                                         uint32_t k0, uint32_t k1) {
-    const long long b = i >> 2;
-    const int r = (int)(i & 3);
-    const float4 x = pm1x4(philox_block(b, stream, k0, k1));
-    if (r == 0) return x;
-    const float4 y = pm1x4(philox_block(b + 1, stream, k0, k1));
-    return r == 1 ? make_float4(x.y, x.z, x.w, y.x)
-         : r == 2 ? make_float4(x.z, x.w, y.x, y.y)
-                  : make_float4(x.w, y.x, y.y, y.z);
-}
-
 __device__ __forceinline__ float lane(const float4& v, int c) {
     return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
@@ -169,42 +161,21 @@ struct Cursor {
 // history span (ENVS x hist_w, + num_obs + 4), the obs rows (ENVS x
 // num_obs, +4), the per-env words (ENVS x ENV_WORDS), the height noise
 // (ENVS x H, +4)
-template <int ENVS, int MODE>
 __host__ __device__ __forceinline__ int smem_floats(int H, int num_obs,
                                                     int hist_w) {
-    return ENVS * round4(H) + 4
-           + (MODE != 4 ? round4(ENVS * hist_w + num_obs + 4) : 0)
+    return ENVS * round4(H) + 4 + round4(ENVS * hist_w + num_obs + 4)
            + round4(ENVS * num_obs + 4) + round4(ENVS * ENV_WORDS)
-           + (MODE >= 3 ? round4(ENVS * H) + 4 : 0);
+           + round4(ENVS * H) + 4;
 }
 
-// 4 floats of global memory from any float index a >= 0 of a 16-byte
-// aligned base, from two aligned 16-byte loads
-__device__ __forceinline__ float4 ldg4(const float* g, long long a) {
-    const int r = (int)(a & 3);
-    const float4* v = reinterpret_cast<const float4*>(g + (a - r));
-    const float4 x = __ldg(v);
-    if (r == 0) return x;
-    const float4 y = __ldg(v + 1);
-    return r == 1 ? make_float4(x.y, x.z, x.w, y.x)
-         : r == 2 ? make_float4(x.z, x.w, y.x, y.y)
-                  : make_float4(x.w, y.x, y.y, y.z);
-}
-
-// MODE (sweep): 0 the noise drawn where it is used; 1 (timing probe)
-// no height noise; 2 (timing probe) stop after the staging; 3 the height
-// noise drawn into shared memory while the loads fly; 4 as 3, the
-// history read where it lies
-template <int ENVS, int THREADS, int MODE>
 __global__ void __launch_bounds__(THREADS) obs_kernel(
         const __grid_constant__ ObsArgs a) {
-    constexpr bool NOISE_FIRST = MODE >= 3, STAGE_HIST = MODE != 4;
     extern __shared__ __align__(16) float sm[];
     const int H = a.H, NO = a.num_obs, HW = a.hist_w;
     const int HP = round4(H), P = 2 * H + 3, KEEP = HW - NO;
     float* sh = sm;                                     // height rows
     float* shist = sh + ENVS * HP + 4;                  // history span
-    float* sobs = shist + (STAGE_HIST ? round4(ENVS * HW + NO + 4) : 0);
+    float* sobs = shist + round4(ENVS * HW + NO + 4);   // obs rows
     float* senv = sobs + round4(ENVS * NO + 4);         // per-env words
     float* snoise = senv + round4(ENVS * ENV_WORDS);    // height noise
     const long long n0 = (long long)blockIdx.x * ENVS;
@@ -235,7 +206,7 @@ __global__ void __launch_bounds__(THREADS) obs_kernel(
             }
         }
     }
-    if (STAGE_HIST) {
+    {
         const float* hi = in[HIST] + n0 * a.s0[HIST];
         if (a.span16) {
             const int cnt = ne * HW, n16 = cnt >> 2;
@@ -254,17 +225,17 @@ __global__ void __launch_bounds__(THREADS) obs_kernel(
             }
         }
     }
-    if (NOISE_FIRST) {
-        // the block's height noise: elements [n0 H, (n0 + ne) H) of stream
-        // 0, a Philox block a thread (n0 H = 0 mod 4)
-        const long long b0 = (n0 * H) >> 2;
+    // 2. while they arrive: the block's height noise, elements
+    // [n0 H, (n0 + ne) H) of stream 0, a Philox block a thread
+    {
+        const long long b0 = (n0 * H) >> 2;             // n0 H = 0 mod 4
         for (int b = t; 4 * b < ne * H; b += THREADS) {
             *reinterpret_cast<float4*>(snoise + 4 * b) =
                 pm1x4(philox_block(b0 + b, 0u, k0, k1));
         }
     }
 
-    // 2. the narrow state into the obs rows (before the noise) and the
+    // the narrow state into the obs rows (before the noise) and the
     // per-env words; item (j, e) is thread e + ENVS * j, envs adjacent
     auto at = [&](int k, long long i, long long j) {
         return in[k][i * a.s0[k] + j * a.s1[k]];
@@ -336,7 +307,6 @@ __global__ void __launch_bounds__(THREADS) obs_kernel(
     }
     cp_async_wait_all();
     __syncthreads();
-    if (MODE == 2) return;
 
     // 3. the privileged span: [noisy heights | push | heights] an env
     {
@@ -358,10 +328,7 @@ __global__ void __launch_bounds__(THREADS) obs_kernel(
             if (j + 3 < H) {                            // noisy, one env
                 const float* w = senv + e * ENV_WORDS;
                 const float4 h = lds4(sh + e * HP, j);
-                const float4 z =
-                    MODE == 1 ? make_float4(0.f, 0.f, 0.f, 0.f)
-                    : NOISE_FIRST ? lds4(snoise, e * H + j)
-                                  : noise4((n0 + e) * H + j, 0u, k0, k1);
+                const float4 z = lds4(snoise, e * H + j);
                 v = make_float4(noisy(chain(w[0], h.x), z.x, w[1]),
                                 noisy(chain(w[0], h.y), z.y, w[1]),
                                 noisy(chain(w[0], h.z), z.z, w[1]),
@@ -373,16 +340,7 @@ __global__ void __launch_bounds__(THREADS) obs_kernel(
                                 clampf(chain(bz, h.y), -clip, clip),
                                 clampf(chain(bz, h.z), -clip, clip),
                                 clampf(chain(bz, h.w), -clip, clip));
-            } else {
-                // across a section or an env: the noisy lanes lie in one
-                // env (en), where lane l's element is (n0 + en) * H + j
-                // - (en - e) * P + l
-                const int en = j < H ? e : e + 1;
-                float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-                if (!NOISE_FIRST && MODE != 1 && (j < H || j + 3 >= P)) {
-                    z = noise4((n0 + en) * H + j - (long long)(en - e) * P,
-                               0u, k0, k1);
-                }
+            } else {                                    // lane by lane
                 float r[4];
                 for (int l = 0; l < 4; ++l) {
                     int ee = e, jj = j + l;
@@ -391,9 +349,8 @@ __global__ void __launch_bounds__(THREADS) obs_kernel(
                     if (l >= m) continue;
                     const float* w = senv + ee * ENV_WORDS;
                     if (jj < H) {
-                        const float zl = NOISE_FIRST ? snoise[ee * H + jj]
-                                                     : lane(z, l);
-                        r[l] = noisy(chain(w[0], sh[ee * HP + jj]), zl, w[1]);
+                        r[l] = noisy(chain(w[0], sh[ee * HP + jj]),
+                                     snoise[ee * H + jj], w[1]);
                     } else if (jj < H + 3) {
                         r[l] = w[2 + jj - H];
                     } else {
@@ -408,24 +365,17 @@ __global__ void __launch_bounds__(THREADS) obs_kernel(
     }
 
     // HistoryWrapper.step: drop the oldest obs, append this one; in the
-    // flat span the kept part of element i is element i + NO
+    // flat span the kept part of element i is staged element i + NO
     {
         const int cnt = ne * HW;
         float* out = a.out[HIST_OUT] + n0 * HW;
-        const float* hi = in[HIST] + n0 * a.s0[HIST];
-        const long long s0 = a.s0[HIST], s1 = a.s1[HIST];
-        auto kept = [&](int f, int ee, int jj) {
-            return STAGE_HIST ? shist[f + NO]
-                 : a.span16 ? hi[f + NO]
-                            : hi[ee * s0 + (jj + NO) * s1];
-        };
         Cursor c(4 * t, 4 * THREADS, HW);
         for (int i = 4 * t; i < cnt; i += 4 * THREADS, c.advance()) {
             const int e = c.row, j = c.col;
             const int m = min(4, cnt - i);
             float4 v;
-            if (j + 3 < KEEP && (STAGE_HIST || a.span16)) {
-                v = STAGE_HIST ? lds4(shist, i + NO) : ldg4(hi, i + NO);
+            if (j + 3 < KEEP) {
+                v = lds4(shist, i + NO);
             } else if (j >= KEEP && j + 3 < HW) {
                 v = lds4(sobs, e * NO + j - KEEP);
             } else {
@@ -434,7 +384,7 @@ __global__ void __launch_bounds__(THREADS) obs_kernel(
                     int ee = e, jj = j + l;
                     if (jj >= HW) { jj -= HW; ++ee; }
                     r[l] = l >= m ? 0.0f
-                         : jj < KEEP ? kept(i + l, ee, jj)
+                         : jj < KEEP ? shist[i + l + NO]
                                      : sobs[ee * NO + jj - KEEP];
                 }
                 v = make_float4(r[0], r[1], r[2], r[3]);
@@ -442,321 +392,6 @@ __global__ void __launch_bounds__(THREADS) obs_kernel(
             store4(out + i, v, m);
         }
     }
-}
-
-// the wait for all but the newest N commit groups of a thread's copies
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// shared memory (floats) of the pipelined kernel: the height rows
-// (ENVS x round4(H), +4), the history span (ENVS x hist_w, + num_obs +
-// 4), the narrow words (ENVS x (num_obs + ENV_WORDS)), the constants
-// (num_obs + nq + 3, +4), the obs rows (ENVS x num_obs, +4), the height
-// noise (ENVS x H, +4)
-template <int ENVS>
-__host__ __device__ __forceinline__ int pipe_floats(int H, int num_obs,
-                                                    int hist_w, int nq) {
-    return ENVS * round4(H) + 4 + round4(ENVS * hist_w + num_obs + 4)
-           + round4(ENVS * (num_obs + ENV_WORDS)) + round4(num_obs + nq + 7)
-           + round4(ENVS * num_obs + 4) + round4(ENVS * H) + 4;
-}
-
-// MODE 5 (sweep): every input staged with cp.async (the narrow words
-// too), the height noise drawn while they fly; with PIPE the height rows
-// and history come in commit groups of 4 envs, and each group's
-// privileged and history spans are written as soon as it has arrived
-template <int ENVS, int THREADS, bool PIPE>
-__global__ void __launch_bounds__(THREADS) obs_pipe_kernel(
-        const __grid_constant__ ObsArgs a) {
-    constexpr int G = PIPE ? ENVS / 4 : 1;              // commit groups
-    constexpr int GE = ENVS / G;                        // envs a group
-    extern __shared__ __align__(16) float sm[];
-    const int H = a.H, NO = a.num_obs, HW = a.hist_w, nq = a.nq;
-    const int HP = round4(H), P = 2 * H + 3, KEEP = HW - NO;
-    const int W = NO + ENV_WORDS;                       // words an env
-    float* sh = sm;                                     // height rows
-    float* shist = sh + ENVS * HP + 4;                  // history span
-    float* sw = shist + round4(ENVS * HW + NO + 4);     // narrow words
-    float* sc = sw + round4(ENVS * W);                  // constants
-    float* sobs = sc + round4(NO + nq + 7);             // obs rows
-    float* snoise = sobs + round4(ENVS * NO + 4);       // height noise
-    const long long n0 = (long long)blockIdx.x * ENVS;
-    const int ne = (int)min((long long)ENVS, (long long)a.N - n0);
-    const int t = threadIdx.x;
-    const float* const* in = a.in;
-    const long long* s0 = a.s0;
-    const long long* s1 = a.s1;
-    uint32_t k0, k1;
-    philox_key(reinterpret_cast<const long long*>(in[SEED]), k0, k1);
-    auto addr = [&](int k, long long i, long long j) {
-        return in[k] + i * s0[k] + j * s1[k];
-    };
-    const int base_w = 9 + 2 * nq + a.na;
-
-    // 1. in flight, before any arithmetic.  Group 0: the narrow words of
-    // every env (word (j, e) is thread e + ENVS * j, envs adjacent: E
-    // envs of one joint row are contiguous) and the constants
-    for (int i = t; i < W * ENVS; i += THREADS) {
-        const int j = i / ENVS, e = i - j * ENVS;
-        if (e >= ne) continue;
-        const long long n = n0 + e;
-        const float* src =
-            j < 3 ? addr(BAV, n, j)
-          : j < 6 ? addr(PG, n, j - 3)
-          : j < 9 ? addr(CMD, n, j - 6)
-          : j < 9 + nq ? addr(Q, j - 9, n)
-          : j < 9 + 2 * nq ? addr(QD, j - 9 - nq, n)
-          : j < base_w ? addr(ACT, n, j - 9 - 2 * nq)
-          : j < NO ? addr(FOOT, n, j - base_w)
-          : j == NO ? addr(BASE_Z, n, 0)
-          : j == NO + 1 ? addr(HNO, n, 0)
-                        : addr(PUSH, n, j - NO - 2);
-        cp_async4(sw + e * W + j, src);
-    }
-    for (int c = t; c < NO + nq + 3; c += THREADS) {
-        cp_async4(sc + c, c < NO ? addr(NSCALE, c, 0)
-                        : c < NO + nq ? addr(DEFQ, c - NO, 0)
-                                      : addr(CSCALE, c - NO - nq, 0));
-    }
-    // then each group's height rows and history span
-    const float* hrow = in[HEIGHTS] + n0 * s0[HEIGHTS];
-    const float* hist = in[HIST] + n0 * s0[HIST];
-    const int n16 = a.rows16 ? H >> 2 : 0, rest = H - 4 * n16;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-        const int e0 = g * GE, ge = min(GE, ne - e0);   // envs of the group
-        if (ge > 0) {
-            const float* h = hrow + e0 * s0[HEIGHTS];
-            float* d = sh + e0 * HP;
-            if (n16 > 0) {
-                Cursor c(t, THREADS, n16);
-                for (; c.row < ge; c.advance()) {
-                    cp_async16(d + c.row * HP + 4 * c.col,
-                               h + c.row * s0[HEIGHTS] + 4 * c.col);
-                }
-            }
-            if (rest > 0) {
-                Cursor c(t, THREADS, rest);
-                for (; c.row < ge; c.advance()) {
-                    const int j = 4 * n16 + c.col;
-                    cp_async4(d + c.row * HP + j,
-                              h + c.row * s0[HEIGHTS] + j * s1[HEIGHTS]);
-                }
-            }
-            float* dh = shist + e0 * HW;
-            if (a.span16) {
-                const float* src = hist + (long long)e0 * HW;
-                const int cnt = ge * HW, m16 = cnt >> 2;
-                for (int i = t; i < m16; i += THREADS) {
-                    cp_async16(dh + 4 * i, src + 4 * i);
-                }
-                for (int i = 4 * m16 + t; i < cnt; i += THREADS) {
-                    cp_async4(dh + i, src + i);
-                }
-            } else {
-                const float* src = hist + e0 * s0[HIST];
-                Cursor c(t, THREADS, HW);
-                for (; c.row < ge; c.advance()) {
-                    cp_async4(dh + c.row * HW + c.col,
-                              src + c.row * s0[HIST] + c.col * s1[HIST]);
-                }
-            }
-        }
-        cp_async_commit();
-    }
-
-    // 2. while they arrive: the block's height noise, elements
-    // [n0 H, (n0 + ne) H) of stream 0, a Philox block a thread
-    {
-        const long long b0 = (n0 * H) >> 2;             // n0 H = 0 mod 4
-        for (int b = t; 4 * b < ne * H; b += THREADS) {
-            *reinterpret_cast<float4*>(snoise + 4 * b) =
-                pm1x4(philox_block(b0 + b, 0u, k0, k1));
-        }
-    }
-    cp_async_wait<G - 1>();
-    __syncthreads();
-
-    // 3. the obs span from the narrow words: scale, noise (one Philox
-    // block of stream 1 a float4), clip, store
-    const float clip = a.f[CLIP];
-    {
-        const int cnt = ne * NO;
-        float* out = a.out[OBS] + n0 * NO;
-        const long long blk0 = (n0 * NO) >> 2;          // n0 NO = 0 mod 4
-        Cursor c(4 * t, 4 * THREADS, NO);
-        for (int i = 4 * t; i < cnt; i += 4 * THREADS, c.advance()) {
-            float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-            if (a.add_noise) z = pm1x4(philox_block(blk0 + (i >> 2), 1u, k0, k1));
-            float v[4];
-            for (int l = 0; l < 4; ++l) {
-                int e = c.row, j = c.col + l;
-                if (j >= NO) { j -= NO; ++e; }
-                const float x = e < ne ? sw[e * W + j] : 0.0f;
-                float y;
-                if (j < 3) {
-                    y = __fmul_rn(x, a.f[S_ANG]);
-                } else if (j < 6) {
-                    y = x;
-                } else if (j < 9) {
-                    y = __fmul_rn(x, sc[NO + nq + j - 6]);
-                } else if (j < 9 + nq) {
-                    y = __fmul_rn(__fsub_rn(x, sc[NO + j - 9]), a.f[S_POS]);
-                } else if (j < 9 + 2 * nq) {
-                    y = __fmul_rn(x, a.f[S_VEL]);
-                } else {
-                    y = x;
-                }
-                if (a.add_noise) y = __fadd_rn(y, __fmul_rn(lane(z, l), sc[j]));
-                v[l] = clampf(y, -clip, clip);
-            }
-            const int m = min(4, cnt - i);
-            for (int l = 0; l < m; ++l) sobs[i + l] = v[l];
-            store4(out + i, make_float4(v[0], v[1], v[2], v[3]), m);
-        }
-    }
-    __syncthreads();
-
-    // 4. each group, once it has arrived: its privileged span [noisy
-    // heights | push | heights] and its history span (HistoryWrapper.
-    // step: drop the oldest obs, append this one; in the flat span the
-    // kept part of element i is staged element i + NO), as one index
-    // space of float4s.  A group's spans start 16-byte aligned, so no
-    // float4 straddles two groups.
-    const float scale = a.f[S_HEIGHT];
-    auto chain = [&](float bz, float h) {
-        return __fmul_rn(clampf(__fsub_rn(bz, h), -1.0f, 1.0f), scale);
-    };
-    auto noisy = [&](float hc, float z, float hno) {
-        return clampf(__fadd_rn(__fadd_rn(hc, __fmul_rn(z, 0.1f)), hno),
-                      -clip, clip);
-    };
-    auto bz_of = [&](int e) { return __fsub_rn(sw[e * W + NO], a.f[TARGET]); };
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-        if (g > 0) {
-            if (G - 1 - g == 2) cp_async_wait<2>();
-            else if (G - 1 - g == 1) cp_async_wait<1>();
-            else cp_async_wait<0>();
-            __syncthreads();
-        }
-        const int e0 = g * GE, ge = min(GE, ne - e0);
-        if (ge <= 0) continue;
-        const int pc = ge * P, hc = ge * HW;            // floats of the spans
-        const int np = (pc + 3) >> 2, nh = (hc + 3) >> 2;
-        float* pout = a.out[PRIV] + (n0 + e0) * P;
-        float* hout = a.out[HIST_OUT] + (n0 + e0) * HW;
-        int q = t;
-        {
-            Cursor c(4 * q, 4 * THREADS, P);
-            for (; q < np; q += THREADS, c.advance()) {
-                const int i = 4 * q, e = e0 + c.row, j = c.col;
-                const int m = min(4, pc - i);
-                float4 v;
-                if (j + 3 < H) {                        // noisy, one env
-                    const float bz = bz_of(e), hno = sw[e * W + NO + 1];
-                    const float4 h = lds4(sh + e * HP, j);
-                    const float4 z = lds4(snoise, e * H + j);
-                    v = make_float4(noisy(chain(bz, h.x), z.x, hno),
-                                    noisy(chain(bz, h.y), z.y, hno),
-                                    noisy(chain(bz, h.z), z.z, hno),
-                                    noisy(chain(bz, h.w), z.w, hno));
-                } else if (j >= H + 3 && j + 3 < P) {   // clean, one env
-                    const float bz = bz_of(e);
-                    const float4 h = lds4(sh + e * HP, j - H - 3);
-                    v = make_float4(clampf(chain(bz, h.x), -clip, clip),
-                                    clampf(chain(bz, h.y), -clip, clip),
-                                    clampf(chain(bz, h.z), -clip, clip),
-                                    clampf(chain(bz, h.w), -clip, clip));
-                } else {                                // lane by lane
-                    float r[4];
-                    for (int l = 0; l < 4; ++l) {
-                        int ee = e, jj = j + l;
-                        if (jj >= P) { jj -= P; ++ee; }
-                        r[l] = 0.0f;
-                        if (l >= m) continue;
-                        const float bz = bz_of(ee);
-                        if (jj < H) {
-                            r[l] = noisy(chain(bz, sh[ee * HP + jj]),
-                                         snoise[ee * H + jj], sw[ee * W + NO + 1]);
-                        } else if (jj < H + 3) {
-                            r[l] = clampf(__fmul_rn(sw[ee * W + NO + 2 + jj - H],
-                                                    a.f[S_FORCE]), -clip, clip);
-                        } else {
-                            r[l] = clampf(chain(bz, sh[ee * HP + jj - H - 3]),
-                                          -clip, clip);
-                        }
-                    }
-                    v = make_float4(r[0], r[1], r[2], r[3]);
-                }
-                store4(pout + i, v, m);
-            }
-        }
-        {
-            Cursor c(4 * (q - np), 4 * THREADS, HW);
-            for (; q < np + nh; q += THREADS, c.advance()) {
-                const int i = 4 * (q - np), e = e0 + c.row, j = c.col;
-                const int f = e0 * HW + i;              // in the block's span
-                const int m = min(4, hc - i);
-                float4 v;
-                if (j + 3 < KEEP) {
-                    v = lds4(shist, f + NO);
-                } else if (j >= KEEP && j + 3 < HW) {
-                    v = lds4(sobs, e * NO + j - KEEP);
-                } else {
-                    float r[4];
-                    for (int l = 0; l < 4; ++l) {
-                        int ee = e, jj = j + l;
-                        if (jj >= HW) { jj -= HW; ++ee; }
-                        r[l] = l >= m ? 0.0f
-                             : jj < KEEP ? shist[f + l + NO]
-                                         : sobs[ee * NO + jj - KEEP];
-                    }
-                    v = make_float4(r[0], r[1], r[2], r[3]);
-                }
-                store4(hout + i, v, m);
-            }
-        }
-    }
-}
-
-template <int ENVS, int THREADS, bool PIPE>
-int launch_pipe(const ObsArgs& a, cudaStream_t stream) {
-    const size_t smem = sizeof(float) * (size_t)pipe_floats<ENVS>(
-        a.H, a.num_obs, a.hist_w, a.nq);
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            obs_pipe_kernel<ENVS, THREADS, PIPE>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    if (a.N > 0) {
-        obs_pipe_kernel<ENVS, THREADS, PIPE><<<(a.N + ENVS - 1) / ENVS,
-                                               THREADS, smem, stream>>>(a);
-    }
-    return (int)cudaGetLastError();
-}
-
-template <int ENVS, int THREADS, int MODE>
-int launch_obs(const ObsArgs& a, cudaStream_t stream) {
-    const size_t smem = sizeof(float) * (size_t)smem_floats<ENVS, MODE>(
-        a.H, a.num_obs, a.hist_w);
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            obs_kernel<ENVS, THREADS, MODE>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    if (a.N > 0) {
-        obs_kernel<ENVS, THREADS, MODE><<<(a.N + ENVS - 1) / ENVS, THREADS,
-                                          smem, stream>>>(a);
-    }
-    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -767,7 +402,7 @@ int launch_obs(const ObsArgs& a, cudaStream_t stream) {
 // noise.  Launch: ceil(N / ENVS) blocks of THREADS threads.
 DTC_EXPORT int dtc_observations(const void* ptrs, const void* fparams, int N,
                                 int H, int nq, int na, int num_obs, int hist_w,
-                                int flags, void* stream, int shape) {
+                                int flags, void* stream) {
     const long long* p = (const long long*)ptrs;
     ObsArgs a;
     for (int i = 0; i < N_IN; ++i) {
@@ -798,29 +433,15 @@ DTC_EXPORT int dtc_observations(const void* ptrs, const void* fparams, int N,
                && aligned(a.in[HEIGHTS]);
     a.span16 = a.s1[HIST] == 1 && (a.s0[HIST] == hist_w || N == 1)
                && aligned(a.in[HIST]);
-    cudaStream_t st = (cudaStream_t)stream;
-    switch (shape) {
-        case 0: return launch_obs<ENVS, THREADS, 0>(a, st);
-        case 1: return launch_obs<16, 512, 0>(a, st);
-        case 2: return launch_obs<16, 512, 1>(a, st);
-        case 3: return launch_obs<16, 512, 2>(a, st);
-        case 4: return launch_obs<16, 512, 3>(a, st);
-        case 5: return launch_obs<16, 512, 4>(a, st);
-        case 6: return launch_obs<8, 256, 3>(a, st);
-        case 7: return launch_obs<8, 256, 4>(a, st);
-        case 8: return launch_obs<4, 128, 3>(a, st);
-        case 9: return launch_obs<4, 128, 4>(a, st);
-        case 10: return launch_obs<8, 512, 4>(a, st);
-        case 11: return launch_obs<4, 256, 4>(a, st);
-        case 12: return launch_obs<4, 128, 0>(a, st);
-        case 13: return launch_obs<8, 512, 0>(a, st);
-        case 14: return launch_pipe<16, 512, true>(a, st);
-        case 15: return launch_pipe<16, 512, false>(a, st);
-        case 16: return launch_pipe<16, 256, true>(a, st);
-        case 17: return launch_pipe<8, 256, true>(a, st);
-        case 18: return launch_pipe<16, 1024, true>(a, st);
-        case 19: return launch_pipe<4, 128, false>(a, st);
-        default: break;
+    const size_t smem = sizeof(float) * (size_t)smem_floats(H, num_obs, hist_w);
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            obs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
     }
-    return (int)cudaErrorInvalidValue;
+    if (N > 0) {
+        obs_kernel<<<(N + ENVS - 1) / ENVS, THREADS, smem,
+                     (cudaStream_t)stream>>>(a);
+    }
+    return (int)cudaGetLastError();
 }

@@ -17,6 +17,12 @@ layout, drawn inside the kernel.  The plain version may instead be given
 the two draws as arrays (tests feed it the JAX package's); the kernel
 takes only the seed.  Outside the noise the two versions compute the same
 float32 operations in the same order and agree exactly.
+
+The kernel runs ENVS envs a block of THREADS threads (constants of
+csrc/obs.cu, mirrored here by `launch_shape`): it stages the block's
+height rows and history span with asynchronous copies, draws the height
+noise while they arrive, and writes each output's span of rows as
+16-byte stores.
 """
 from __future__ import annotations
 
@@ -29,9 +35,8 @@ from ..ops import cuda_rng
 
 F32 = torch.float32
 HEIGHT_STREAM, OBS_STREAM = 0, 1
-ENVS = 8              # envs a block of the kernel (csrc/obs.cu)
-THREADS = 128         # threads a block
-_SHAPE = 0            # sweep variant (0: ENVS x THREADS)
+ENVS = 16             # envs a block of the kernel (csrc/obs.cu)
+THREADS = 512         # threads a block
 
 
 def launch_shape(n: int) -> tuple:
@@ -172,8 +177,7 @@ def _launch(cfg, has_foothold, base_ang_vel, projected_gravity, commands, q,
         cfg.normalization.clip_observations)
     flags = (1 if has_foothold else 0) | (2 if cfg.noise.add_noise else 0)
     cuda_build.launch("dtc_observations", table, fparams, N, H, nq, na,
-                      num_obs, hist_w, flags, cuda_build.stream_ptr(dev),
-                      _SHAPE)
+                      num_obs, hist_w, flags, cuda_build.stream_ptr(dev))
     _counter.launches += 1
     return obs, priv, hist
 

@@ -48,8 +48,6 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--kernels", nargs="*", default=KERNELS,
                     choices=KERNELS)
-    ap.add_argument("--obs_shapes", type=int, nargs="*", default=[0])
-    ap.add_argument("--obs_probes", type=int, nargs="*", default=[])
     ap.add_argument("--threads", type=int, nargs="*", default=None)
     ap.add_argument("--num_envs", type=int, default=4096)
     ap.add_argument("--repeats", type=int, default=20)
@@ -96,9 +94,9 @@ def main():
           flush=True)
     results = []
 
-    def split(name, fn, symbol=None):
+    def split(name, fn):
         call, kernel, ops, others = cs.device_split(
-            torch, fn, symbol or cs.SYMBOLS[name], args.repeats)
+            torch, fn, cs.SYMBOLS[name], args.repeats)
         return dict(call_ms=call, kernel_ms=kernel, device_ops=ops,
                     others=[k[:80] for k in others])
 
@@ -234,39 +232,27 @@ def k6_rows(cs, calls, args, split, results, card):
 
 def k7_rows(cs, calls, args, split, results, card):
     """K7 on the step's inputs, held to its plain version fed K8's draws
-    before each timing; at each --obs_shapes variant where the checkout
-    has them (0: the kernel's own launch shape)."""
+    before it is timed; its launch shape and ptxas's registers and stack
+    (a parent's checkout without `launch_shape` ran a block an env)."""
     from deep_tracking_control_tpu_torch.env import cuda_obs
     k7_args, _ = calls["compute_observations"]
     n = k7_args[10].shape[0]
-    for variant in args.obs_shapes:
-        if hasattr(cuda_obs, "_SHAPE"):
-            cuda_obs._SHAPE = variant
-        elif variant:
-            continue
-        err = (None if variant in args.obs_probes
-               else cs.check_observations(k7_args)[0])
-        shape = (cuda_obs.launch_shape(n) if hasattr(cuda_obs, "launch_shape")
-                 else (n, 256, 1))
-        row = dict(kernel="compute_observations", variant=variant,
-                   max_abs_err=err, **split(
-                       "compute_observations",
-                       lambda: cuda_obs.compute_observations_fused(*k7_args),
-                       "obs_pipe_kernel" if variant >= 14 else None))
-        results.append(row)
-        print(f"[kernel_times] K7 (variant {variant}; the checkout's launch "
-              f"shape {shape}): call {row['call_ms']:.4f} ms "
-              f"({row['device_ops']:g} device ops), kernel alone "
-              f"{row['kernel_ms']:.4f} ms; max abs err "
-              f"{'(a timing probe: not checked)' if err is None else format(err, '.3e')} against "
-              f"the plain version fed K8's draws (device time, mean of "
-              f"{args.repeats}; {card}); other ops {row['others']}",
-              flush=True)
-    if hasattr(cuda_obs, "_SHAPE"):
-        cuda_obs._SHAPE = 0
-    for name, usage in cs.ptxas_usage(cs.SYMBOLS["compute_observations"]).items():
-        print(f"[kernel_times] K7 ptxas {name}: {usage[0]} registers, "
-              f"{usage[1]} bytes stack", flush=True)
+    err = cs.check_observations(k7_args)[0]
+    shape = (cuda_obs.launch_shape(n) if hasattr(cuda_obs, "launch_shape")
+             else (n, 256, 1))
+    usage = sorted(cs.ptxas_usage(cs.SYMBOLS["compute_observations"]).values())
+    row = dict(kernel="compute_observations", launch_shape=list(shape),
+               ptxas=usage, max_abs_err=err, **split(
+                   "compute_observations",
+                   lambda: cuda_obs.compute_observations_fused(*k7_args)))
+    results.append(row)
+    print(f"[kernel_times] K7: call {row['call_ms']:.4f} ms "
+          f"({row['device_ops']:g} device ops), kernel alone "
+          f"{row['kernel_ms']:.4f} ms; max abs err {err:.3e} against the "
+          f"plain version fed K8's draws (budget 1e-6); "
+          f"{cs.shape_text(shape)}; ptxas (registers, stack bytes) "
+          f"{usage or 'not in the build log'} (device time, mean of "
+          f"{args.repeats}; {card}); other ops {row['others']}", flush=True)
 
 
 def k8_rows(cs, calls, args, split, results, card):

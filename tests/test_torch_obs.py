@@ -121,8 +121,8 @@ def test_plain_draws_are_the_noise_kernels():
 def test_launch_shape_is_the_kernel_s():
     """The wrapper's copy of csrc/obs.cu's launch shape (envs and threads
     a block, compile-time constants) is the kernel's: at the published
-    4096 envs 512 blocks of 128 threads, 8 envs each; a ragged tail takes
-    one more block."""
+    4096 envs 256 blocks of 512 threads, 16 envs each, two blocks on each
+    of the H100's 132 SMs; a ragged tail takes one more block."""
     src = SRC.read_text()
 
     def constant(name):
@@ -132,6 +132,6 @@ def test_launch_shape_is_the_kernel_s():
     assert constant("THREADS") == cuda_obs.THREADS
     assert cuda_obs.ENVS % 4 == 0          # a block's spans start aligned
     assert re.search(r"__launch_bounds__\(THREADS\) obs_kernel", src)
-    assert cuda_obs.launch_shape(4096) == (512, 128, 8)
-    assert cuda_obs.launch_shape(37) == (5, 128, 8)
-    assert cuda_obs.launch_shape(1) == (1, 128, 8)
+    assert cuda_obs.launch_shape(4096) == (256, 512, 16)
+    assert cuda_obs.launch_shape(37) == (3, 512, 16)
+    assert cuda_obs.launch_shape(1) == (1, 512, 16)
