@@ -648,23 +648,21 @@ def check_observations(args):
 
 def ptxas_usage(symbol):
     """{mangled name: (registers, stack bytes)} of each entry function
-    whose name holds `symbol`, from the ptxas lines of this process's
-    build (empty when the library was built by another process)."""
+    whose name holds `symbol`, from ptxas's lines in the library's build
+    log (empty if the log is not at hand)."""
+    import re
     from deep_tracking_control_tpu_torch import cuda_build
     found, name = {}, None
     for line in cuda_build.build_log.splitlines():
-        if "Compiling entry function" in line:
-            fn = line.split("'")[1] if "'" in line else line
-            name = fn if symbol in fn else None
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name = entry.group(1) if symbol in entry.group(1) else None
             if name:
                 found[name] = [None, None]
-        elif name and "bytes stack frame" in line:
-            found[name][1] = int(line.split()[0])
-        elif name and "Used" in line and "registers" in line:
-            words = line.split()
-            found[name][0] = int(words[words.index("registers,") - 1]
-                                 if "registers," in words
-                                 else words[words.index("registers") - 1])
+        elif name and (m := re.search(r"(\d+) bytes stack frame", line)):
+            found[name][1] = int(m.group(1))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            found[name][0] = int(m.group(1))
     return {k: tuple(v) for k, v in found.items()}
 
 

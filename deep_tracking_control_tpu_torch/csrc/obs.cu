@@ -50,10 +50,10 @@
 //      aligned 16-byte shared loads a float4) and the history span (the
 //      rolled rows are the staged span shifted by num_obs floats, the new
 //      obs the block's finished obs rows).
-// Measured on the H100 (scripts/kernel_times.py, L2 evicted before each
-// call): drawing the height noise where it is used, after the loads had
-// arrived, cost 6 us a call; 16 x 512 was the fastest launch shape of the
-// 4 to 16 envs and 64 to 512 threads tried.  Staging the narrow state
+// Measured on NVIDIA H100 80GB HBM3, 700.00 W (scripts/kernel_times.py,
+// L2 evicted before each call): drawing the height noise where it is
+// used, after the loads had arrived, cost 6 us a call; 16 x 512 was the
+// fastest launch shape of the 4 to 32 envs and 64 to 512 threads tried.  Staging the narrow state
 // with cp.async, or writing the spans of 4 envs as soon as their copies
 // arrived (commit groups), was slower.
 // A block past N (the ragged tail) stages and writes only its envs.

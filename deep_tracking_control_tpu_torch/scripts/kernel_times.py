@@ -4,8 +4,8 @@ sampler K2, the planner K3, the reward kernel K6, the obs kernel K7 and
 the noise kernel K8, at the inputs of a real lite3_dtc step.
 
     python deep_tracking_control_tpu_torch/scripts/kernel_times.py \
-        [--kernels K1 K2 K3 K6 K7 K8] [--threads 32 64 128] \
-        [--num_envs 4096] [--repeats 20] [--save FILE | --load FILE]
+        [--threads 32 64 128] [--num_envs 4096] [--repeats 20] \
+        [--save FILE | --load FILE]
 
 Needs a CUDA device.  K1's block size is set on
 `physics.cuda_substep.THREADS` before its calls; K2's and K6's launch
@@ -18,9 +18,9 @@ version fed K8's draws for the step's seed; K8 bit for bit).  Each row gives the
 ms (all the work the wrapper queues) and its CUDA kernel's alone, each
 call after a read that evicts L2 (chip_smoke.py `device_profile`).  Then
 the plane fit of the orientation terms as the plain version's matrix
-product (with K6), and K8 at the step's reset shape beside its launch
-floors: an empty kernel and one that only loads the seed, at K8's launch
-shape (csrc/probe.cu; skipped where the checkout has no probes).
+product, and K8 at the step's reset shape beside its launch floors: an
+empty kernel and one that only loads the seed, at K8's launch shape
+(csrc/probe.cu; left out where the checkout has no probes).
 
 `--save FILE` keeps the recorded step's kernel inputs (torch.save) and
 `--load FILE` times on inputs kept so: a kernel's redesign times its
@@ -39,15 +39,11 @@ import os
 import sys
 import time
 
-KERNELS = ("K1", "K2", "K3", "K6", "K7", "K8")
-
 
 def main():
     own = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernels", nargs="*", default=KERNELS,
-                    choices=KERNELS)
     ap.add_argument("--threads", type=int, nargs="*", default=None)
     ap.add_argument("--num_envs", type=int, default=4096)
     ap.add_argument("--repeats", type=int, default=20)
@@ -63,8 +59,13 @@ def main():
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     from deep_tracking_control_tpu_torch import cuda_build
+    from deep_tracking_control_tpu_torch.env import (cuda_obs, cuda_planner,
+                                                     cuda_rewards)
     from deep_tracking_control_tpu_torch.env.legged_env import LeggedEnv
+    from deep_tracking_control_tpu_torch.ops import cuda_patch, cuda_rng
+    from deep_tracking_control_tpu_torch.physics import cuda_substep
     from deep_tracking_control_tpu_torch.tasks import registry
+    from deep_tracking_control_tpu_torch.terrain import cuda_sampler
     torch.backends.cuda.matmul.allow_tf32 = False
     card = cs.card_line()
     print(f"[kernel_times] card {card}; checkout {own}", flush=True)
@@ -100,28 +101,7 @@ def main():
         return dict(call_ms=call, kernel_ms=kernel, device_ops=ops,
                     others=[k[:80] for k in others])
 
-    if "K1" in args.kernels:
-        k1_rows(cs, calls, args, split, results, card)
-    if "K2" in args.kernels:
-        k2_row(cs, calls, args, split, results, card)
-    if "K3" in args.kernels:
-        k3_row(cs, calls, split, results, card)
-    if "K6" in args.kernels:
-        k6_rows(cs, calls, args, split, results, card)
-    if "K7" in args.kernels:
-        k7_rows(cs, calls, args, split, results, card)
-    if "K8" in args.kernels:
-        k8_rows(cs, calls, args, split, results, card)
-    print(json.dumps(dict(card=card, checkout=own, inputs=source,
-                          results=results)))
-
-
-def k1_rows(cs, calls, args, split, results, card):
-    """K1 and K1w at each block size (the window variant on K1's inputs,
-    bit for bit K1)."""
-    import torch
-    from deep_tracking_control_tpu_torch.ops import cuda_patch
-    from deep_tracking_control_tpu_torch.physics import cuda_substep
+    # K1 and K1w at each block size
     k1_args, k1_kw = calls["decimation_step"]
     plain_kw = {k: v for k, v in k1_kw.items() if k != "consts"}
     blocks, starts = k1_args[18], k1_args[19]
@@ -159,10 +139,7 @@ def k1_rows(cs, calls, args, split, results, card):
               f"{args.repeats}; {card})", flush=True)
     cuda_substep.THREADS = default
 
-
-def k2_row(cs, calls, args, split, results, card):
-    import torch
-    from deep_tracking_control_tpu_torch.terrain import cuda_sampler
+    # K2
     k2_args, _ = calls["sample_all"]
     ph, pgx, pgy = cuda_sampler.sample_all_plain(*k2_args)
     near = cuda_sampler.Q_MIN3 + cuda_sampler.Q_MAX10
@@ -181,9 +158,7 @@ def k2_row(cs, calls, args, split, results, card):
           f"{row['kernel_ms']:.4f} ms (device time, mean of {args.repeats};"
           f" {card}); other ops {row['others']}", flush=True)
 
-
-def k3_row(cs, calls, split, results, card):
-    from deep_tracking_control_tpu_torch.env import cuda_planner
+    # K3
     (scal, heights, stat, ny), _ = calls["plan_footholds"]
     want3 = cuda_planner.plan_plain(scal, heights, stat, ny)
 
@@ -198,12 +173,7 @@ def k3_row(cs, calls, split, results, card):
           f"{row['kernel_ms']:.4f}; {frac:.3%} of envs differ from plain; "
           f"{card})", flush=True)
 
-
-def k6_rows(cs, calls, args, split, results, card):
-    """K6 on the step's inputs (the sums it adds to are a scratch copy),
-    then the plane fit of its orientation terms as a matrix product."""
-    import torch
-    from deep_tracking_control_tpu_torch.env import cuda_rewards
+    # K6 on the step's inputs (the sums it adds to are a scratch copy)
     k6_args, _ = calls["compute_rewards"]
     *head, sums = k6_args
     scratch = sums.clone()
@@ -229,12 +199,9 @@ def k6_rows(cs, calls, args, split, results, card):
           f"{tuple(ctx['plane_pinv'].T.shape)}: {row['ms']:.4f} ms",
           flush=True)
 
-
-def k7_rows(cs, calls, args, split, results, card):
-    """K7 on the step's inputs, held to its plain version fed K8's draws
-    before it is timed; its launch shape and ptxas's registers and stack
-    (a parent's checkout without `launch_shape` ran a block an env)."""
-    from deep_tracking_control_tpu_torch.env import cuda_obs
+    # K7 on the step's inputs, with its launch shape and ptxas's registers
+    # and stack (a parent's checkout without `launch_shape` ran a block an
+    # env)
     k7_args, _ = calls["compute_observations"]
     n = k7_args[10].shape[0]
     err = cs.check_observations(k7_args)[0]
@@ -254,13 +221,7 @@ def k7_rows(cs, calls, args, split, results, card):
           f"{usage or 'not in the build log'} (device time, mean of "
           f"{args.repeats}; {card}); other ops {row['others']}", flush=True)
 
-
-def k8_rows(cs, calls, args, split, results, card):
-    """K8 at the step's reset shape, bit for bit its plain version, beside
-    its launch floors where the checkout has the probes."""
-    import torch
-    from deep_tracking_control_tpu_torch import cuda_build
-    from deep_tracking_control_tpu_torch.ops import cuda_rng
+    # K8 at the step's reset shape, beside its launch floors
     (seed, shape), _ = calls["uniform_pm1"]
     shape = tuple(shape)
     if not torch.equal(cuda_rng.uniform_pm1(seed, shape),
@@ -269,18 +230,22 @@ def k8_rows(cs, calls, args, split, results, card):
     row = dict(kernel="uniform_pm1", shape=list(shape), **split(
         "uniform_pm1", lambda: cuda_rng.uniform_pm1(seed, shape)))
     blocks, threads = cs.uniform_launch_shape(shape[0] * shape[1])
+    floors = None
     if hasattr(cuda_build.library(), "dtc_launch_floor"):
-        row.update(floors=cs.launch_floors(torch, seed, blocks, threads,
-                                           args.repeats))
+        floors = row["floors"] = cs.launch_floors(torch, seed, blocks,
+                                                  threads, args.repeats)
     results.append(row)
-    floors = row.get("floors")
     print(f"[kernel_times] K8 at {shape} ({blocks} blocks x {threads} "
           f"threads): call {row['call_ms']:.4f} ms, kernel alone "
           f"{row['kernel_ms']:.4f} ms; launch floors "
           + (f"empty {floors['empty']:.4f} ms, seed load "
-             f"{floors['seed_load']:.4f} ms ({row['kernel_ms'] / floors['seed_load']:.2f}x)"
+             f"{floors['seed_load']:.4f} ms (the kernel "
+             f"{row['kernel_ms'] / floors['seed_load']:.2f}x the seed load)"
              if floors else "not in this checkout")
           + f" (device time, mean of {args.repeats}; {card})", flush=True)
+
+    print(json.dumps(dict(card=card, checkout=own, inputs=source,
+                          results=results)))
 
 
 if __name__ == "__main__":
