@@ -21,8 +21,8 @@
 // and some 60 narrow values in (4,068 bytes), 1389 privileged, 265
 // history and 53 obs values out (6,828 bytes): 16.7 + 28.0 MB at 4096
 // envs, 13.3 us at 3.35 TB/s.  The Philox draws (some 190 blocks of 10
-// rounds an env) and the chain are a few microseconds of issue on the
-// card's 132 SMs, under the bytes if they overlap the loads.
+// rounds an env) and the chain take the card's 132 SMs a few
+// microseconds, under the bytes if they overlap the loads.
 //
 // Design: a block holds ENVS consecutive envs (a multiple of 4), at 4096
 // envs 256 blocks of 512 threads: two blocks an SM, every block resident
