@@ -11,17 +11,19 @@ Phases (each prints its own line; any failure ends the run non-zero):
      version on the inputs of a real lite3_dtc step at 4096 envs, with the
      kernel and plain times (a kernel row's device time twice: the call's,
      all the work its wrapper queues, and its CUDA kernel's alone, found
-     by the kernel's symbol in the profiler's events): the
-     physics, sampler and planner kernels (the physics and planner kernels
-     with their launch shapes), the reward kernel (also on
+     by the kernel's symbol in the profiler's events, and its launch as
+     the profiler recorded it: grid, block and registers a thread, held to
+     the shape the wrapper states): the
+     physics, sampler and planner kernels, the reward kernel (also on
      random inputs that switch on all 33 terms, with and without the
      positive clip), the obs kernel (against its plain version fed the
-     noise kernel's draws for the same seed; its launch shape and ptxas's
-     registers and stack) and the noise kernel (bit for bit at (4096,
-     693) and (4096, 53) and at the reset's shape; moments; two seeds
-     differ; beside `uniform_` on a CUDA generator, and at the reset's
-     shape beside its launch floors: an empty kernel and one that only
-     loads the seed, at its launch shape, from csrc/probe.cu);
+     noise kernel's draws for the same seed; ptxas's registers and stack
+     from the build log, in the text) and the noise kernel (bit for bit
+     at (4096, 693) and (4096, 53) and at the reset's shape; moments; two
+     seeds differ; beside `uniform_` on a CUDA generator, and at the
+     reset's shape beside its launch floors: an empty kernel and one that
+     only loads the seed, at its recorded launch shape, from
+     csrc/probe.cu);
   4. the collection path: LeggedEnv(lite3_dtc, 4096 envs) +
      ActorCriticDecoder + OnPolicyRunner, 3 collect() iterations of 24
      steps, every launch counted; the gather kernel against its plain
@@ -132,9 +134,9 @@ ROUTES = {
                               "plan_footholds")),
     "DTC_STRICT_PARITY=1": ({"DTC_STRICT_PARITY": "1"}, ("extract_patches",)),
 }
-# keys a kernel's entry of the JSON line carries where measured: K7's
-# launch shape and ptxas (registers, stack bytes), K8's launch floors
-EXTRA_KEYS = ("launch_shape", "ptxas", "floor_empty_ms", "floor_seed_ms")
+# keys a kernel's entry of the JSON line carries where measured: K8's
+# launch floors
+EXTRA_KEYS = ("floor_empty_ms", "floor_seed_ms")
 SWITCHES = ("DTC_FUSED_WINDOW", "DTC_PALLAS_SAMPLER", "DTC_PALLAS_PHYSICS",
             "DTC_PALLAS_PLANNER", "DTC_STRICT_PARITY")
 
@@ -228,9 +230,29 @@ def is_symbol(key, symbol):
             or f"(anonymous namespace)::{symbol}<" in key)
 
 
-def _device_events(torch, calls):
+def _launch_records(prof):
+    """{kernel name: set of (grid, block, registers a thread)} of a
+    profiler session's kernel launches, from the trace it exports (the
+    CUDA profiling interface's record of each launch)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    out = {}
+    for e in trace.get("traceEvents", []):
+        a = e.get("args") or {}
+        if e.get("cat") == "kernel" and "grid" in a and "block" in a:
+            out.setdefault(e["name"], set()).add(
+                (tuple(a["grid"]), tuple(a["block"]),
+                 a.get("registers per thread")))
+    return out
+
+
+def _device_events(torch, calls, launches=None):
     """The device events of calls() in one torch.profiler session (CUDA
-    activity only), in the order they ran: a list of (name, device us).
+    activity only), in the order they ran: a list of (name, device us);
+    `launches`, a dict, takes the session's `_launch_records`.
     On the H100 host a session now and then records no device activity at
     all, mostly right after a session of thousands of kernels: it is run
     again after a pause of 1, 2 and 4 s, and the run fails if the last
@@ -245,6 +267,8 @@ def _device_events(torch, calls):
                         for e in prof.events()
                         if e.device_type != DeviceType.CPU)
         if events:
+            if launches is not None:
+                launches.update(_launch_records(prof))
             return [(k, us) for _, k, us in events]
     raise AssertionError("the profiler saw no device time in 4 sessions")
 
@@ -304,13 +328,14 @@ def timing_probes(torch):
             _PROBES["pattern"])
 
 
-def device_profile(torch, fn, repeats=REPEATS):
+def device_profile(torch, fn, repeats=REPEATS, launches=None):
     """(events, calls seen) of `repeats` fn() calls in one profiler
     session: each call follows an L2 eviction and a marker
     (`timing_probes`) and is followed by a synchronize; events are
     (name, self device us, count), summed over the calls seen, the
     eviction's and the markers' left out.  The session now and then
-    misses its first events: the calls seen are the markers seen."""
+    misses its first events: the calls seen are the markers seen.
+    `launches`: as `_device_events`."""
     evict, mark, name, pattern = timing_probes(torch)
 
     def calls():
@@ -321,7 +346,7 @@ def device_profile(torch, fn, repeats=REPEATS):
             torch.cuda.synchronize()
     fn()
     torch.cuda.synchronize()
-    runs = _segments(_device_events(torch, calls), name)
+    runs = _segments(_device_events(torch, calls, launches), name)
     if not runs or len(runs) > repeats:
         raise AssertionError(f"{len(runs)} markers in {repeats} calls")
     total = {}
@@ -344,32 +369,52 @@ def device_ms(torch, fn, repeats=REPEATS):
 
 
 def device_split(torch, fn, symbol, repeats=REPEATS):
-    """(call ms, kernel ms, device ops a call, the other ops' names) of
-    one fn() call, one profiler session over `repeats` calls: the device
-    time of all the work the call queues, that of the CUDA kernel
-    `symbol` alone, the number of device ops the call queues, and the
-    names of the ops other than the kernel.  The call launches the kernel
-    once, so the kernel's event count is the number of calls the session
-    saw (now and then it misses the first one): the means are taken over
-    that count."""
-    events, _ = device_profile(torch, fn, repeats)
+    """(call ms, kernel ms, device ops a call, the other ops' names,
+    launch) of one fn() call, one profiler session over `repeats` calls:
+    the device time of all the work the call queues, that of the CUDA
+    kernel `symbol` alone, the number of device ops the call queues, the
+    names of the ops other than the kernel, and the kernel's launch as the
+    session recorded it, {"grid", "block", "registers"} (None where the
+    trace holds none).  The call launches the kernel once, so the kernel's
+    event count is the number of calls the session saw (now and then it
+    misses the first one): the means are taken over that count."""
+    launches = {}
+    events, _ = device_profile(torch, fn, repeats, launches)
     own = [(us, c) for k, us, c in events if is_symbol(k, symbol)]
     seen = sum(c for _, c in own)
     if not own or seen > repeats:
         raise AssertionError(f"{seen} events of {symbol} in {repeats} calls "
                              f"among {[k[:60] for k, _, _ in events]}")
+    shapes = set().union(*(v for k, v in launches.items()
+                           if is_symbol(k, symbol)))
+    if len(shapes) > 1:
+        raise AssertionError(f"{symbol} launched as {sorted(shapes)}")
+    launch = (dict(zip(("grid", "block", "registers"), shapes.pop()))
+              if shapes else None)
     return (sum(us for _, us, _ in events) / 1e3 / seen,
             sum(us for us, _ in own) / 1e3 / seen,
             sum(c for _, _, c in events) / seen,
-            sorted(k for k, _, _ in events if not is_symbol(k, symbol)))
+            sorted(k for k, _, _ in events if not is_symbol(k, symbol)),
+            launch)
+
+
+def check_launch(name, launch, blocks, threads):
+    """Raise unless a kernel's recorded launch (`device_split`) was
+    `blocks` x `threads`, one-dimensional: the shape its wrapper states."""
+    want = dict(grid=(blocks, 1, 1), block=(threads, 1, 1))
+    if launch is None or any(launch[k] != v for k, v in want.items()):
+        raise AssertionError(f"{name}: launched as {launch}, its wrapper "
+                             f"states {want}")
 
 
 def timings(torch, name, kernel, plain, plain_repeats=REPEATS):
     """Kernel row `name`: the call's device ms (`ms`), its CUDA kernel's
     alone (`kernel_ms`), the device ops a call queues, the plain version's
     device ms, and both stream times."""
-    ms, kernel_ms, ops, others = device_split(torch, kernel, SYMBOLS[name])
+    ms, kernel_ms, ops, others, launch = device_split(torch, kernel,
+                                                      SYMBOLS[name])
     return dict(ms=ms, kernel_ms=kernel_ms, device_ops=ops, others=others,
+                launch=launch,
                 plain_ms=device_ms(torch, plain, plain_repeats),
                 wall_ms=wall_ms(torch, kernel),
                 plain_wall_ms=wall_ms(torch, plain, plain_repeats))
@@ -666,14 +711,6 @@ def ptxas_usage(symbol):
     return {k: tuple(v) for k, v in found.items()}
 
 
-def uniform_launch_shape(numel):
-    """(blocks, threads a block) of the noise kernel (csrc/rng.cu): a
-    thread per 4 elements, 256 threads a block."""
-    threads = 256
-    return min((numel // 4 + (numel % 4 > 0) + threads - 1) // threads,
-               65535 * 32), threads
-
-
 # the launch-floor probes of csrc/probe.cu: an empty kernel, and one whose
 # threads only load the 16-byte seed
 PROBES = {"empty": (0, "empty_kernel"), "seed_load": (1, "seed_kernel")}
@@ -681,7 +718,8 @@ PROBES = {"empty": (0, "empty_kernel"), "seed_load": (1, "seed_kernel")}
 
 def launch_floors(torch, seed, blocks, threads, repeats=REPEATS):
     """{probe: device ms of its kernel} at the launch shape blocks x
-    threads, each call after an L2 eviction as every timed call here."""
+    threads (each probe's recorded launch held to it), each call after an
+    L2 eviction as every timed call here."""
     from deep_tracking_control_tpu_torch import cuda_build
     sink = torch.zeros(1, dtype=torch.int32, device=seed.device)
     out = {}
@@ -690,7 +728,9 @@ def launch_floors(torch, seed, blocks, threads, repeats=REPEATS):
             cuda_build.launch("dtc_launch_floor", what, cuda_build.ptr(seed),
                               cuda_build.ptr(sink), blocks, threads,
                               cuda_build.stream_ptr(seed.device))
-        out[name] = device_split(torch, probe, symbol, repeats)[1]
+        split = device_split(torch, probe, symbol, repeats)
+        check_launch(symbol, split[4], blocks, threads)
+        out[name] = split[1]
     return out
 
 
@@ -779,6 +819,8 @@ def compare_kernels(calls, tables):
         torch, "decimation_step",
         lambda: cuda_substep.decimation_step(*args, **kwargs),
         lambda: cuda_substep.decimation_step_plain(*args, **kw), 5))
+    check_launch("decimation_step", results["decimation_step"]["launch"],
+                 *cuda_substep.launch_shape(n)[:2])
     say(3, f"decimation_step vs plain: max abs err {err:.3e} "
            f"(budget 1e-4 + 1e-4 rel; contact forces 1e-2 N); "
            f"{shape_text(cuda_substep.launch_shape(n))}, device "
@@ -811,6 +853,8 @@ def compare_kernels(calls, tables):
         raise AssertionError(f"sample_all queues more than its kernel: "
                              f"{results['sample_all']['others']}")
     blocks, threads, _ = cuda_sampler.launch_shape(n)
+    check_launch("sample_all", results["sample_all"]["launch"], blocks,
+                 threads)
     say(3, f"sample_all vs plain: nearest exact, max abs err {err:.3e} "
            f"(budget 1e-5 heights, 1e-4 slopes); one device op a call; "
            f"launch shape {blocks} blocks x {threads} threads, 4 queries a "
@@ -830,6 +874,8 @@ def compare_kernels(calls, tables):
         torch, "plan_footholds",
         lambda: cuda_planner.select_footholds(scal, heights, stat, ny),
         lambda: cuda_planner.plan_plain(scal, heights, stat, ny)))
+    check_launch("plan_footholds", results["plan_footholds"]["launch"],
+                 *cuda_planner.launch_shape(got.shape[0])[:2])
     say(3, f"plan_footholds vs plain: {frac:.3%} of envs differ (budget 2%, "
            f"near-ties only); max abs err elsewhere {err:.3e}; "
            f"{shape_text(cuda_planner.launch_shape(got.shape[0]))}, device "
@@ -870,6 +916,8 @@ def compare_kernels(calls, tables):
         raise AssertionError(f"compute_rewards queues more than its kernel: "
                              f"{results['compute_rewards']['others']}")
     blocks, threads, envs = cuda_rewards.launch_shape(rew.shape[0])
+    check_launch("compute_rewards", results["compute_rewards"]["launch"],
+                 blocks, threads)
     if blocks < torch.cuda.get_device_properties(0).multi_processor_count:
         raise AssertionError(f"compute_rewards: {blocks} blocks leave SMs "
                              f"idle")
@@ -900,13 +948,16 @@ def compare_kernels(calls, tables):
     if results["compute_observations"]["others"]:
         raise AssertionError(f"compute_observations queues more than its "
                              f"kernel: {results['compute_observations']['others']}")
-    usage = ptxas_usage(SYMBOLS["compute_observations"])
+    # its launch as the timing session recorded it, held to the shape the
+    # wrapper states; the build log's ptxas lines for the text alone
+    launch = results["compute_observations"]["launch"]
     shape = cuda_obs.launch_shape(N)
-    results["compute_observations"].update(
-        launch_shape=list(shape), ptxas=sorted(usage.values()))
+    check_launch("compute_observations", launch, *shape[:2])
+    usage = ptxas_usage(SYMBOLS["compute_observations"])
     say(3, f"compute_observations vs plain fed the noise kernel's draws: max "
            f"abs err {err:.3e} (budget 1e-6); the plain draws equal them; "
-           f"{shape_text(shape)}; ptxas (registers, stack bytes) "
+           f"recorded launch {launch}, the wrapper's {shape_text(shape)}; "
+           f"build log's ptxas (registers, stack bytes) "
            f"{sorted(usage.values()) or 'not in this build log'}; device "
            f"{results['compute_observations']['ms']:.4f} ms a call")
 
@@ -954,15 +1005,17 @@ def compare_kernels(calls, tables):
                f"uniform_ {r['library_wall_ms']:.4f} ms; bound "
                f"{r['bound_ms']:.4f} ms by {r['bound_by']}")
     results["uniform_pm1"] = r = res[tuple(rshape)]   # the main path's shape
-    # its launch floors: the same launch shape, an empty kernel and one
-    # that only loads the seed
-    blocks, threads = uniform_launch_shape(rshape[0] * rshape[1])
+    # its launch floors: an empty kernel and one that only loads the seed,
+    # at the launch shape its timing session recorded
+    blocks, threads = cuda_rng.launch_shape(rshape[0] * rshape[1])
+    check_launch("uniform_pm1", r["launch"], blocks, threads)
     floors = launch_floors(torch, rseed, blocks, threads)
     r.update(floor_empty_ms=floors["empty"], floor_seed_ms=floors["seed_load"])
     say(3, f"uniform_pm1 at {tuple(rshape)}: its kernel alone "
-           f"{r['kernel_ms']:.4f} ms; at its launch shape ({blocks} blocks x "
-           f"{threads} threads) an empty kernel {floors['empty']:.4f} ms, a "
-           f"seed-load kernel {floors['seed_load']:.4f} ms: "
+           f"{r['kernel_ms']:.4f} ms; at its recorded launch shape ({blocks} "
+           f"blocks x {threads} threads) an empty kernel "
+           f"{floors['empty']:.4f} ms, a seed-load kernel "
+           f"{floors['seed_load']:.4f} ms: "
            f"{r['kernel_ms'] / floors['seed_load']:.2f}x the seed-load floor")
 
     # operations are counted after all the timings: the counting mode
@@ -1632,6 +1685,7 @@ def main():
                     bound_ms=results[k]["bound_ms"],
                     bound_by=results[k]["bound_by"],
                     library_ms=results[k].get("library_ms"),
+                    **(results[k].get("launch") or {}),
                     **{x: results[k][x] for x in EXTRA_KEYS
                        if x in results[k]})
                for k in KERNELS]

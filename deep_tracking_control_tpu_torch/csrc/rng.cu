@@ -19,9 +19,12 @@
 
 namespace {
 
-__global__ void uniform_kernel(const long long* __restrict__ seed,
-                               float* __restrict__ out, long long numel,
-                               uint32_t stream) {
+constexpr int THREADS = 256;                      // threads a block
+constexpr long long MAX_BLOCKS = 65535LL * 32;    // the grid-stride cap
+
+__global__ void __launch_bounds__(THREADS) uniform_kernel(
+        const long long* __restrict__ seed, float* __restrict__ out,
+        long long numel, uint32_t stream) {
     uint32_t k0, k1;
     philox_key(seed, k0, k1);
     const long long nblk = (numel + 3) / 4;
@@ -52,10 +55,9 @@ DTC_EXPORT int dtc_uniform_pm1(const void* seed, void* out, int numel,
     }
     const long long nblk = ((long long)numel + 3) / 4;
     if (nblk > 0) {
-        const int threads = 256;
-        const long long blocks = (nblk + threads - 1) / threads;
-        uniform_kernel<<<(unsigned)(blocks < 65535 * 32 ? blocks : 65535 * 32),
-                         threads, 0, (cudaStream_t)cuda_stream>>>(
+        const long long blocks = (nblk + THREADS - 1) / THREADS;
+        uniform_kernel<<<(unsigned)(blocks < MAX_BLOCKS ? blocks : MAX_BLOCKS),
+                         THREADS, 0, (cudaStream_t)cuda_stream>>>(
             (const long long*)seed, (float*)out, (long long)numel,
             (uint32_t)stream);
     }

@@ -26,6 +26,16 @@ M0, M1 = 0xD2511F53, 0xCD9E8D57          # Philox4x32 multipliers
 W0, W1 = 0x9E3779B9, 0xBB67AE85          # Weyl key increments
 ROUNDS = 10
 _MASK = 0xFFFFFFFF
+# the kernel's launch shape (csrc/rng.cu constants): a thread per 4
+# elements, THREADS threads a block, at most MAX_BLOCKS blocks
+THREADS = 256
+MAX_BLOCKS = 65535 * 32
+
+
+def launch_shape(numel: int) -> tuple:
+    """(blocks, threads a block) of the kernel for `numel` elements."""
+    blocks = ((numel + 3) // 4 + THREADS - 1) // THREADS
+    return min(blocks, MAX_BLOCKS), THREADS
 
 
 def _mulhilo(m: int, x):

@@ -20,7 +20,8 @@ call after a read that evicts L2 (chip_smoke.py `device_profile`).  Then
 the plane fit of the orientation terms as the plain version's matrix
 product, and K8 at the step's reset shape beside its launch floors: an
 empty kernel and one that only loads the seed, at K8's launch shape
-(csrc/probe.cu; left out where the checkout has no probes).
+(csrc/probe.cu).  K7's and K8's launches, as the profiler recorded them,
+must be the shapes their wrappers state (`launch_shape`).
 
 `--save FILE` keeps the recorded step's kernel inputs (torch.save) and
 `--load FILE` times on inputs kept so: a kernel's redesign times its
@@ -96,10 +97,10 @@ def main():
     results = []
 
     def split(name, fn):
-        call, kernel, ops, others = cs.device_split(
+        call, kernel, ops, others, launch = cs.device_split(
             torch, fn, cs.SYMBOLS[name], args.repeats)
         return dict(call_ms=call, kernel_ms=kernel, device_ops=ops,
-                    others=[k[:80] for k in others])
+                    others=[k[:80] for k in others], launch=launch)
 
     # K1 and K1w at each block size
     k1_args, k1_kw = calls["decimation_step"]
@@ -199,25 +200,25 @@ def main():
           f"{tuple(ctx['plane_pinv'].T.shape)}: {row['ms']:.4f} ms",
           flush=True)
 
-    # K7 on the step's inputs, with its launch shape and ptxas's registers
-    # and stack (a parent's checkout without `launch_shape` ran a block an
-    # env)
+    # K7 on the step's inputs, with its launch as the timing session
+    # recorded it (held to the wrapper's shape) and ptxas's registers and
+    # stack from the build log
     k7_args, _ = calls["compute_observations"]
     n = k7_args[10].shape[0]
     err = cs.check_observations(k7_args)[0]
-    shape = (cuda_obs.launch_shape(n) if hasattr(cuda_obs, "launch_shape")
-             else (n, 256, 1))
+    shape = cuda_obs.launch_shape(n)
     usage = sorted(cs.ptxas_usage(cs.SYMBOLS["compute_observations"]).values())
-    row = dict(kernel="compute_observations", launch_shape=list(shape),
-               ptxas=usage, max_abs_err=err, **split(
-                   "compute_observations",
-                   lambda: cuda_obs.compute_observations_fused(*k7_args)))
+    row = dict(kernel="compute_observations", ptxas=usage, max_abs_err=err,
+               **split("compute_observations",
+                       lambda: cuda_obs.compute_observations_fused(*k7_args)))
+    cs.check_launch("K7", row["launch"], *shape[:2])
     results.append(row)
     print(f"[kernel_times] K7: call {row['call_ms']:.4f} ms "
           f"({row['device_ops']:g} device ops), kernel alone "
           f"{row['kernel_ms']:.4f} ms; max abs err {err:.3e} against the "
-          f"plain version fed K8's draws (budget 1e-6); "
-          f"{cs.shape_text(shape)}; ptxas (registers, stack bytes) "
+          f"plain version fed K8's draws (budget 1e-6); recorded launch "
+          f"{row['launch']}, the wrapper's {cs.shape_text(shape)}; build "
+          f"log's ptxas (registers, stack bytes) "
           f"{usage or 'not in the build log'} (device time, mean of "
           f"{args.repeats}; {card}); other ops {row['others']}", flush=True)
 
@@ -229,20 +230,18 @@ def main():
         raise AssertionError(f"K8 {shape}: differs from plain")
     row = dict(kernel="uniform_pm1", shape=list(shape), **split(
         "uniform_pm1", lambda: cuda_rng.uniform_pm1(seed, shape)))
-    blocks, threads = cs.uniform_launch_shape(shape[0] * shape[1])
-    floors = None
-    if hasattr(cuda_build.library(), "dtc_launch_floor"):
-        floors = row["floors"] = cs.launch_floors(torch, seed, blocks,
-                                                  threads, args.repeats)
+    blocks, threads = cuda_rng.launch_shape(shape[0] * shape[1])
+    cs.check_launch("K8", row["launch"], blocks, threads)
+    floors = row["floors"] = cs.launch_floors(torch, seed, blocks, threads,
+                                              args.repeats)
     results.append(row)
-    print(f"[kernel_times] K8 at {shape} ({blocks} blocks x {threads} "
-          f"threads): call {row['call_ms']:.4f} ms, kernel alone "
-          f"{row['kernel_ms']:.4f} ms; launch floors "
-          + (f"empty {floors['empty']:.4f} ms, seed load "
-             f"{floors['seed_load']:.4f} ms (the kernel "
-             f"{row['kernel_ms'] / floors['seed_load']:.2f}x the seed load)"
-             if floors else "not in this checkout")
-          + f" (device time, mean of {args.repeats}; {card})", flush=True)
+    print(f"[kernel_times] K8 at {shape} (recorded launch {blocks} blocks x "
+          f"{threads} threads): call {row['call_ms']:.4f} ms, kernel alone "
+          f"{row['kernel_ms']:.4f} ms; launch floors empty "
+          f"{floors['empty']:.4f} ms, seed load {floors['seed_load']:.4f} ms "
+          f"(the kernel {row['kernel_ms'] / floors['seed_load']:.2f}x the "
+          f"seed load) (device time, mean of {args.repeats}; {card})",
+          flush=True)
 
     print(json.dumps(dict(card=card, checkout=own, inputs=source,
                           results=results)))

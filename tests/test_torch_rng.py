@@ -7,8 +7,12 @@ independent implementation on Python integers; the JAX kernel
 (experimental/pallas_rng.py) in interpret mode draws all-zero bits, which
 pins the bits-to-float mapping.  Then the range, the counter layout (a draw
 does not depend on its shape), determinism per seed, distinct streams and
-seeds, and the moments.
+seeds, and the moments.  Last, the wrapper's copy of the kernel's launch
+shape against the constants of csrc/rng.cu.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -19,6 +23,7 @@ from deep_tracking_control_tpu.experimental import pallas_rng
 from deep_tracking_control_tpu_torch.ops import cuda_rng
 
 MASK = 0xFFFFFFFF
+SRC = (Path(cuda_rng.__file__).resolve().parent.parent / "csrc" / "rng.cu")
 
 
 def _philox_ints(ctr, key):
@@ -126,3 +131,24 @@ def test_wrapper_checks_and_cpu_counts_no_launch():
     seed = cuda_rng.draw_seed(torch.Generator().manual_seed(1), "cpu")
     assert seed.dtype == torch.int64 and seed.shape == (2,)
     assert 0 <= int(seed.min()) and int(seed.max()) < 2 ** 32
+
+
+def test_launch_shape_is_the_kernel_s():
+    """The wrapper's copy of csrc/rng.cu's launch shape (threads a block
+    and the grid's cap, compile-time constants) is the kernel's: a thread
+    per 4 elements, so the env's reset draw (4096, 20) takes 80 blocks of
+    256 threads; a ragged tail takes one more thread; a draw past the cap
+    is strided over MAX_BLOCKS blocks."""
+    src = SRC.read_text()
+    threads = int(re.search(r"constexpr int THREADS = (\d+);", src).group(1))
+    cap = re.search(r"constexpr long long MAX_BLOCKS = (\d+)LL \* (\d+);",
+                    src)
+    assert threads == cuda_rng.THREADS
+    assert int(cap.group(1)) * int(cap.group(2)) == cuda_rng.MAX_BLOCKS
+    assert re.search(r"__launch_bounds__\(THREADS\) uniform_kernel", src)
+    assert re.search(r"uniform_kernel<<<\(unsigned\)\(blocks < MAX_BLOCKS "
+                     r"\? blocks : MAX_BLOCKS\),\s+THREADS,", src)
+    assert cuda_rng.launch_shape(4096 * 20) == (80, 256)
+    assert cuda_rng.launch_shape(1) == (1, 256)
+    assert cuda_rng.launch_shape(4 * 256 + 1) == (2, 256)
+    assert cuda_rng.launch_shape(2 ** 31 - 1) == (65535 * 32, 256)
