@@ -46,9 +46,22 @@ Phases (each prints its own line; any failure ends the run non-zero):
      one timed collect with the route's launch counts; under strict parity
      learn(2) (float32 storage, sequential update, per-row gather); and a
      16-env step on the card against the CPU under the route;
-  8. a check that no kernel reads under its bytes read over the memory
-     rate, a JSON line of the kernels, the nvidia-smi line, and the
-     result line.
+  8. the other registry tasks, each at its registry width: lite3_rough
+     (2048 envs, 45-dim obs, no planner), x30_rough (2048, the X30 at 0.1
+     m a cell, 53-dim obs with a zero foothold block, the positive clip),
+     x30_dtc and x30_dtc_descent (4096, the planner) and lite3_fast
+     (4096, a plane: the plain decimation loop over sim_step, as in the
+     JAX package); for each, its kernels against their plain versions on
+     a recorded step of the task (rows "kernel (task)"), one collect and
+     one learn(1) with the route's launch counts (no planner kernel
+     without the planner; no decimation or sampler kernel on the plane)
+     and a profiled collect; then the staged X30 protocol at 4096 envs:
+     x30_rough learn(2) and its checkpoint, loaded by an x30_dtc runner
+     (policy and optimizers carried, env state kept fresh), x30_dtc
+     learn(2);
+  9. a check that no kernel reads under its bytes read over the memory
+     rate, a JSON line of the kernels (the main path's, then each at the
+     other tasks' shapes), the nvidia-smi line, and the result line.
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes (each input read once, each output written once)
 over 3.35 TB/s and its operations over 67 TFLOP/s (float32 off the
@@ -57,7 +70,7 @@ at that rate too), both counted from this run's inputs.  Every device
 time (kernel, plain version, library call) is of calls that each follow a
 read of 256 MB, which leaves none of their inputs in the 50 MB L2; a
 kernel may still read under its bound where its outputs stay in L2 when
-it ends, never under its bytes read over the memory rate (phase 8).
+it ends, never under its bytes read over the memory rate (phase 9).
 Weights are random (seeded); nothing is downloaded.  Needs a CUDA device:
 without one it stops before printing any result.
 """
@@ -134,6 +147,15 @@ ROUTES = {
                               "plan_footholds")),
     "DTC_STRICT_PARITY=1": ({"DTC_STRICT_PARITY": "1"}, ("extract_patches",)),
 }
+# the other registry tasks, each at its registry width (phase 8): task ->
+# the kernels its route launches once a step beside EVERY_ROUTE.  Without
+# the DTC planner no K3; a plane (lite3_fast) has no terrain tables, so no
+# K1 or K2 either: the plain decimation loop over sim_step on the flat
+# grid, as in the JAX package
+NO_PLANNER = ("decimation_step", "sample_all")
+TASKS = {"lite3_rough": NO_PLANNER, "x30_rough": NO_PLANNER,
+         "x30_dtc": DEFAULT_ROUTE, "x30_dtc_descent": DEFAULT_ROUTE,
+         "lite3_fast": ()}
 # keys a kernel's entry of the JSON line carries where measured: K8's
 # launch floors
 EXTRA_KEYS = ("floor_empty_ms", "floor_seed_ms")
@@ -477,6 +499,54 @@ def check_close(name, got, want, atol, rtol):
             f"{rtol}, max abs err {float((got - want).abs().max())}")
 
 
+def plain_float64(fn, args, kwargs):
+    """fn(*args, **kwargs) with every float32 tensor of the arguments (in
+    tuples, lists and dicts) taken to float64, and float64 as the default
+    dtype for the tensors fn makes: a plain version in double precision."""
+    import torch
+
+    def wide(x):
+        if isinstance(x, torch.Tensor) and x.dtype == torch.float32:
+            return x.double()
+        if isinstance(x, dict):
+            return {k: wide(v) for k, v in x.items()}
+        if isinstance(x, (tuple, list)):
+            return type(x)(wide(v) for v in x)
+        return x
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        return fn(*wide(args), **wide(kwargs))
+    finally:
+        torch.set_default_dtype(old)
+
+
+def check_close_f64(name, got, want, want64, atol, rtol):
+    """Raise unless `got` is within atol + rtol |want| of the plain float32
+    version `want` everywhere or, where the float32 arithmetic itself
+    departs from the float64 plain version `want64` by more than that,
+    unless got's largest departure from want64, in units of that budget,
+    is at most one budget past want's largest.  Returns (the elements
+    beyond the first budget, and got's and want's largest departures
+    from want64 in units of that budget)."""
+    import torch
+    near = (got - want).abs() <= atol + rtol * want.abs()
+    budget = atol + rtol * want64.abs()
+    e_got = (got.double() - want64).abs()
+    e_want = (want.double() - want64).abs()
+    worst_got = float((e_got / budget).max())
+    worst_want = float((e_want / budget).max())
+    if (not bool(torch.isfinite(got).all())
+            or not (bool(near.all()) or worst_got <= worst_want + 1.0)):
+        raise AssertionError(
+            f"{name}: {int((~near).sum())} elements beyond atol {atol} rtol "
+            f"{rtol} of the plain version, max abs err "
+            f"{float((got - want).abs().max())}; from the float64 run at "
+            f"worst {worst_got:.2f} budgets, the plain float32 version "
+            f"{worst_want:.2f}")
+    return int((~near).sum()), worst_got, worst_want
+
+
 def tensor_bytes(tree, skip=()):
     """Bytes of every tensor in a nest of tuples, lists, dicts and
     dataclasses, each counted once; tensors whose id is in `skip` (the
@@ -775,10 +845,14 @@ def check_planner(got, want, scal, heights, stat, ny):
     return differ
 
 
-def compare_kernels(calls, tables):
-    """Phase 3: each kernel vs its plain version on recorded inputs, with
-    its bound from the same inputs (tables: the ids of the terrain tables,
-    counted by the cells the queries touch)."""
+def compare_kernels(calls, tables, phase=3, main_path=True):
+    """Each kernel that the recorded step ran (`calls`) vs its plain
+    version on its inputs, with its bound from the same inputs (tables:
+    the ids of the terrain tables, counted by the cells the queries
+    touch).  On the main path (phase 3) also the reward kernel on all 33
+    terms, its grid against the SM count at 4096 envs, and the noise
+    kernel's checks and library time; on another task's step (phase 8)
+    the kernels of that step alone."""
     import torch
     from deep_tracking_control_tpu_torch.env import (cuda_obs, cuda_planner,
                                                      cuda_rewards)
@@ -791,95 +865,120 @@ def compare_kernels(calls, tables):
     # and the operations counted apart: the generator's)
     work = {}
 
-    # K1: one policy step of physics.  Budget 1e-4: FMA contraction and
-    # rsqrtf in the kernel round differently from the plain op chain, and
-    # four substeps of stiff contact carry the difference.
-    args, kwargs = calls["decimation_step"]
-    kw = {k: v for k, v in kwargs.items() if k != "consts"}
-    phys, anchors, info = cuda_substep.decimation_step(*args, **kwargs)
-    pphys, panchors, pinfo = cuda_substep.decimation_step_plain(*args, **kw)
-    for k in phys:
-        check_close(f"decimation_step {k}", phys[k], pphys[k], 1e-4, 1e-4)
-    check_close("decimation_step anchors", anchors, panchors, 1e-4, 1e-4)
-    for k in ("foot_pos", "foot_vel", "thigh_pos", "body_pts", "torques"):
-        check_close(f"decimation_step {k}", info[k], pinfo[k], 1e-4, 1e-4)
-    # contact forces come from 12 kN/m springs: 1e-6 m is 1e-2 N
-    check_close("decimation_step contact_forces", info["contact_forces"],
-                pinfo["contact_forces"], 1e-2, 1e-4)
-    err = max_err([(phys[k], pphys[k]) for k in phys]
-                  + [(anchors, panchors)])
-    # bytes: the arguments and results, and per env the 4 raw cells under
-    # each of the 4 feet in each substep
-    dec, n = args[3], args[6]["pos"].shape[-1]
-    work["decimation_step"] = (
-        tensor_bytes((args, kwargs), tables) + n * 4 * dec * 4 * 4,
-        tensor_bytes((phys, anchors, info)),
-        lambda a=args, k=kw: cuda_substep.decimation_step_plain(*a, **k), 0)
-    results["decimation_step"] = dict(max_abs_err=err, **timings(
-        torch, "decimation_step",
-        lambda: cuda_substep.decimation_step(*args, **kwargs),
-        lambda: cuda_substep.decimation_step_plain(*args, **kw), 5))
-    check_launch("decimation_step", results["decimation_step"]["launch"],
-                 *cuda_substep.launch_shape(n)[:2])
-    say(3, f"decimation_step vs plain: max abs err {err:.3e} "
-           f"(budget 1e-4 + 1e-4 rel; contact forces 1e-2 N); "
-           f"{shape_text(cuda_substep.launch_shape(n))}, device "
-           f"{results['decimation_step']['ms']:.4f} ms a call")
+    if "decimation_step" in calls:
+        # K1: one policy step of physics.  Budget 1e-4: FMA contraction and
+        # rsqrtf in the kernel round differently from the plain op chain, and
+        # four substeps of stiff contact carry the difference.
+        args, kwargs = calls["decimation_step"]
+        kw = {k: v for k, v in kwargs.items() if k != "consts"}
+        phys, anchors, info = cuda_substep.decimation_step(*args, **kwargs)
+        pphys, panchors, pinfo = cuda_substep.decimation_step_plain(*args, **kw)
+        # contact forces come from 12 kN/m springs: 1e-6 m is 1e-2 N
+        outs = [(k, phys[k], pphys[k], 1e-4) for k in phys] + [
+            ("anchors", anchors, panchors, 1e-4)] + [
+            (k, info[k], pinfo[k], 1e-2 if k == "contact_forces" else 1e-4)
+            for k in ("foot_pos", "foot_vel", "thigh_pos", "body_pts",
+                      "torques", "contact_forces")]
+        if main_path:
+            for k, got, want, atol in outs:
+                check_close(f"decimation_step {k}", got, want, atol, 1e-4)
+            note = ""
+        else:
+            # another robot's physics may be conditioned past the budget
+            # in float32 itself (the X30's): where kernel and plain float32
+            # versions part, the plain version in float64 arbitrates, and
+            # the kernel may depart from it no more than the plain float32
+            # version does (plus one budget)
+            p64 = plain_float64(cuda_substep.decimation_step_plain, args, kw)
+            ref = {**p64[0], "anchors": p64[1], **p64[2]}
+            beyond, k64, p64_err = 0, 0.0, 0.0
+            for k, got, want, atol in outs:
+                b, ek, ep = check_close_f64(f"decimation_step {k}", got,
+                                            want, ref[k], atol, 1e-4)
+                beyond, k64, p64_err = (beyond + b, max(k64, ek),
+                                        max(p64_err, ep))
+            note = (f"; {beyond} elements beyond it, where float32 itself "
+                    f"departs from the float64 plain version: from it at "
+                    f"worst, in budgets, the kernel {k64:.2f}, the plain "
+                    f"float32 version {p64_err:.2f}")
+        err = max_err([(phys[k], pphys[k]) for k in phys]
+                      + [(anchors, panchors)])
+        # bytes: the arguments and results, and per env the 4 raw cells under
+        # each of the 4 feet in each substep
+        dec, n = args[3], args[6]["pos"].shape[-1]
+        work["decimation_step"] = (
+            tensor_bytes((args, kwargs), tables) + n * 4 * dec * 4 * 4,
+            tensor_bytes((phys, anchors, info)),
+            lambda a=args, k=kw: cuda_substep.decimation_step_plain(*a, **k), 0)
+        results["decimation_step"] = dict(max_abs_err=err, **timings(
+            torch, "decimation_step",
+            lambda: cuda_substep.decimation_step(*args, **kwargs),
+            lambda: cuda_substep.decimation_step_plain(*args, **kw), 5))
+        check_launch("decimation_step", results["decimation_step"]["launch"],
+                     *cuda_substep.launch_shape(n)[:2])
+        say(phase, f"decimation_step vs plain: max abs err {err:.3e} "
+                   f"(budget 1e-4 + 1e-4 rel; contact forces 1e-2 N{note}); "
+                   f"{shape_text(cuda_substep.launch_shape(n))}, device "
+                   f"{results['decimation_step']['ms']:.4f} ms a call")
 
-    # K2: nearest samples are bf16 cells (exact); bilinear 1e-5, slope 1e-4
-    args, _ = calls["sample_all"]
-    h, gx, gy = cuda_sampler.sample_all(*args)
-    ph, pgx, pgy = cuda_sampler.sample_all_plain(*args)
-    near = cuda_sampler.Q_MIN3 + cuda_sampler.Q_MAX10
-    if not torch.equal(h[:, :near], ph[:, :near]):
-        raise AssertionError("sample_all: nearest samples differ")
-    check_close("sample_all bilinear", h[:, near:], ph[:, near:], 1e-5, 0.0)
-    check_close("sample_all gx", gx, pgx, 1e-4, 0.0)
-    check_close("sample_all gy", gy, pgy, 1e-4, 0.0)
-    err = max_err([(h, ph), (gx, pgx), (gy, pgy)])
-    # bytes: the arguments and results, and per env one bf16 cell for each
-    # nearest sample and 4 float32 cells for each bilinear one
-    n = h.shape[0]
-    work["sample_all"] = (
-        tensor_bytes(args, tables) + n * (near * 2 + cuda_sampler.Q_BIL * 4 * 4),
-        tensor_bytes((h, gx, gy)),
-        lambda a=args: cuda_sampler.sample_all_plain(*a), 0)
-    results["sample_all"] = dict(max_abs_err=err, **timings(
-        torch, "sample_all", lambda: cuda_sampler.sample_all(*args),
-        lambda: cuda_sampler.sample_all_plain(*args)))
-    # the card path queues the kernel and nothing else (the patch
-    # coordinates are made inside it)
-    if results["sample_all"]["others"]:
-        raise AssertionError(f"sample_all queues more than its kernel: "
-                             f"{results['sample_all']['others']}")
-    blocks, threads, _ = cuda_sampler.launch_shape(n)
-    check_launch("sample_all", results["sample_all"]["launch"], blocks,
-                 threads)
-    say(3, f"sample_all vs plain: nearest exact, max abs err {err:.3e} "
-           f"(budget 1e-5 heights, 1e-4 slopes); one device op a call; "
-           f"launch shape {blocks} blocks x {threads} threads, 4 queries a "
-           f"thread, device {results['sample_all']['ms']:.4f} ms a call")
+    if "sample_all" in calls:
+        # K2: nearest samples are bf16 cells (exact); bilinear 1e-5, slope 1e-4
+        args, _ = calls["sample_all"]
+        h, gx, gy = cuda_sampler.sample_all(*args)
+        ph, pgx, pgy = cuda_sampler.sample_all_plain(*args)
+        near = cuda_sampler.Q_MIN3 + cuda_sampler.Q_MAX10
+        if not torch.equal(h[:, :near], ph[:, :near]):
+            raise AssertionError("sample_all: nearest samples differ")
+        check_close("sample_all bilinear", h[:, near:], ph[:, near:], 1e-5, 0.0)
+        check_close("sample_all gx", gx, pgx, 1e-4, 0.0)
+        check_close("sample_all gy", gy, pgy, 1e-4, 0.0)
+        err = max_err([(h, ph), (gx, pgx), (gy, pgy)])
+        # bytes: the arguments and results, and per env one bf16 cell for each
+        # nearest sample and 4 float32 cells for each bilinear one
+        n = h.shape[0]
+        work["sample_all"] = (
+            tensor_bytes(args, tables)
+            + n * (near * 2 + cuda_sampler.Q_BIL * 4 * 4),
+            tensor_bytes((h, gx, gy)),
+            lambda a=args: cuda_sampler.sample_all_plain(*a), 0)
+        results["sample_all"] = dict(max_abs_err=err, **timings(
+            torch, "sample_all", lambda: cuda_sampler.sample_all(*args),
+            lambda: cuda_sampler.sample_all_plain(*args)))
+        # the card path queues the kernel and nothing else (the patch
+        # coordinates are made inside it)
+        if results["sample_all"]["others"]:
+            raise AssertionError(f"sample_all queues more than its kernel: "
+                                 f"{results['sample_all']['others']}")
+        blocks, threads, _ = cuda_sampler.launch_shape(n)
+        check_launch("sample_all", results["sample_all"]["launch"], blocks,
+                     threads)
+        say(phase, f"sample_all vs plain: nearest exact, max abs err {err:.3e} "
+                   f"(budget 1e-5 heights, 1e-4 slopes); one device op a call; "
+                   f"launch shape {blocks} blocks x {threads} threads, 4 queries a "
+                   f"thread, device {results['sample_all']['ms']:.4f} ms a call")
 
-    # K3: selections may differ in <= 2% of envs, and only at near-ties
-    (scal, heights, stat, ny), _ = calls["plan_footholds"]
-    got = cuda_planner.select_footholds(scal, heights, stat, ny)
-    want = cuda_planner.plan_plain(scal, heights, stat, ny)
-    differ = check_planner(got, want, scal, heights, stat, ny)
-    frac = float(differ.float().mean())
-    err = max_err([(got[~differ], want[~differ])]) if (~differ).any() else 0.0
-    work["plan_footholds"] = (
-        tensor_bytes((scal, heights, stat)), tensor_bytes(got),
-        lambda: cuda_planner.plan_plain(scal, heights, stat, ny), 0)
-    results["plan_footholds"] = dict(max_abs_err=err, **timings(
-        torch, "plan_footholds",
-        lambda: cuda_planner.select_footholds(scal, heights, stat, ny),
-        lambda: cuda_planner.plan_plain(scal, heights, stat, ny)))
-    check_launch("plan_footholds", results["plan_footholds"]["launch"],
-                 *cuda_planner.launch_shape(got.shape[0])[:2])
-    say(3, f"plan_footholds vs plain: {frac:.3%} of envs differ (budget 2%, "
-           f"near-ties only); max abs err elsewhere {err:.3e}; "
-           f"{shape_text(cuda_planner.launch_shape(got.shape[0]))}, device "
-           f"{results['plan_footholds']['ms']:.4f} ms a call")
+    if "plan_footholds" in calls:
+        # K3: selections may differ in <= 2% of envs, and only at near-ties
+        (scal, heights, stat, ny), _ = calls["plan_footholds"]
+        got = cuda_planner.select_footholds(scal, heights, stat, ny)
+        want = cuda_planner.plan_plain(scal, heights, stat, ny)
+        differ = check_planner(got, want, scal, heights, stat, ny)
+        frac = float(differ.float().mean())
+        err = max_err([(got[~differ], want[~differ])]) if (~differ).any() else 0.0
+        work["plan_footholds"] = (
+            tensor_bytes((scal, heights, stat)), tensor_bytes(got),
+            lambda: cuda_planner.plan_plain(scal, heights, stat, ny), 0)
+        results["plan_footholds"] = dict(max_abs_err=err, **timings(
+            torch, "plan_footholds",
+            lambda: cuda_planner.select_footholds(scal, heights, stat, ny),
+            lambda: cuda_planner.plan_plain(scal, heights, stat, ny)))
+        check_launch("plan_footholds", results["plan_footholds"]["launch"],
+                     *cuda_planner.launch_shape(got.shape[0])[:2])
+        say(phase, f"plan_footholds vs plain: {frac:.3%} of envs differ "
+                   f"(budget 2%, "
+                   f"near-ties only); max abs err elsewhere {err:.3e}; "
+                   f"{shape_text(cuda_planner.launch_shape(got.shape[0]))}, device "
+                   f"{results['plan_footholds']['ms']:.4f} ms a call")
 
     # K6: the reward stack on the real step, then on random inputs that
     # switch on all 33 terms, with and without the positive clip
@@ -888,7 +987,7 @@ def compare_kernels(calls, tables):
     names = list(rew_mod.REWARD_FUNCTIONS)
     scales = {n: 0.01 * (i + 1) * (-1) ** i for i, n in enumerate(names)}
     g = torch.Generator("cuda").manual_seed(11)
-    for only_positive in (False, True):
+    for only_positive in ((False, True) if main_path else ()):
         ctx = synthetic_ctx(NUM_ENVS, 3 + only_positive, "cuda")
         sums = torch.randn((len(names) + 1, NUM_ENVS), device="cuda",
                            generator=g)
@@ -896,8 +995,8 @@ def compare_kernels(calls, tables):
             f"compute_rewards (33 terms, only_positive={only_positive})",
             (names, scales, ctx, only_positive, -0.5, names + ["termination"],
              sums))
-        say(3, f"compute_rewards vs plain, all 33 terms at {NUM_ENVS} envs, "
-               f"only_positive={only_positive}: max abs err {e33:.3e}")
+        say(phase, f"compute_rewards vs plain, all 33 terms at {NUM_ENVS} envs, "
+                   f"only_positive={only_positive}: max abs err {e33:.3e}")
     *head, sums = args
     scratch = sums.clone()            # the timed calls add to it
     rew, upd = cuda_rewards.compute_rewards_fused(*head, scratch.clone())
@@ -918,14 +1017,17 @@ def compare_kernels(calls, tables):
     blocks, threads, envs = cuda_rewards.launch_shape(rew.shape[0])
     check_launch("compute_rewards", results["compute_rewards"]["launch"],
                  blocks, threads)
-    if blocks < torch.cuda.get_device_properties(0).multi_processor_count:
+    # at 4096 envs the grid covers the SMs (2048 envs fill 128 of 132)
+    if main_path and (blocks < torch.cuda.get_device_properties(0)
+                      .multi_processor_count):
         raise AssertionError(f"compute_rewards: {blocks} blocks leave SMs "
                              f"idle")
-    say(3, f"compute_rewards vs plain on the step: {len(head[0])} terms + "
-           f"termination, max abs err {err:.3e} (budget 1e-5 + 2e-5 rel; "
-           f"feet_air_time 1e-7 + 1e-6 rel, pitch_est 1e-6 + 1e-5 rel, the "
-           f"stumble ring exact); {shape_text((blocks, threads, envs))}, "
-           f"device {results['compute_rewards']['ms']:.4f} ms a call")
+    say(phase, f"compute_rewards vs plain on the step: {len(head[0])} terms + "
+               f"termination (only_positive={head[3]}), max abs err "
+               f"{err:.3e} (budget 1e-5 + 2e-5 rel; "
+               f"feet_air_time 1e-7 + 1e-6 rel, pitch_est 1e-6 + 1e-5 rel, the "
+               f"stumble ring exact); {shape_text((blocks, threads, envs))}, "
+               f"device {results['compute_rewards']['ms']:.4f} ms a call")
 
     # K7: against the plain version fed the noise kernel's draws for the
     # same seed (1e-6); the plain version's own draws must be those draws
@@ -954,77 +1056,79 @@ def compare_kernels(calls, tables):
     shape = cuda_obs.launch_shape(N)
     check_launch("compute_observations", launch, *shape[:2])
     usage = ptxas_usage(SYMBOLS["compute_observations"])
-    say(3, f"compute_observations vs plain fed the noise kernel's draws: max "
-           f"abs err {err:.3e} (budget 1e-6); the plain draws equal them; "
-           f"recorded launch {launch}, the wrapper's {shape_text(shape)}; "
-           f"build log's ptxas (registers, stack bytes) "
-           f"{sorted(usage.values()) or 'not in this build log'}; device "
-           f"{results['compute_observations']['ms']:.4f} ms a call")
+    say(phase, f"compute_observations vs plain fed the noise kernel's draws "
+               f"({num_obs}-dim obs, {N} envs): max "
+               f"abs err {err:.3e} (budget 1e-6); the plain draws equal them; "
+               f"recorded launch {launch}, the wrapper's {shape_text(shape)}; "
+               f"build log's ptxas (registers, stack bytes) "
+               f"{sorted(usage.values()) or 'not in this build log'}; device "
+               f"{results['compute_observations']['ms']:.4f} ms a call")
 
-    # K8: bit for bit at the obs shapes and at the reset's; moments; seeds
-    (rseed, rshape), _ = calls["uniform_pm1"]
-    g = torch.Generator("cuda").manual_seed(12)
-    seed, other = cuda_rng.draw_seed(g, "cuda"), cuda_rng.draw_seed(g, "cuda")
-    for shape, stream in (((NUM_ENVS, H), 0), ((NUM_ENVS, num_obs), 1),
-                          (tuple(rshape), 0)):
-        u = cuda_rng.uniform_pm1(seed, shape, stream)
-        if not torch.equal(u, cuda_rng.uniform_pm1_plain(seed, shape, stream)):
-            raise AssertionError(f"uniform_pm1 {shape}: differs from plain")
-    u = cuda_rng.uniform_pm1(seed, (NUM_ENVS, H)).double()
-    mean, var = float(u.mean()), float(u.var())
-    lo, hi = float(u.min()), float(u.max())
-    if not (abs(mean) < 0.01 and abs(var - 1 / 3) < 0.01 and lo >= -1.0
-            and hi < 1.0):
-        raise AssertionError(f"uniform_pm1 moments: mean {mean} var {var} "
-                             f"min {lo} max {hi}")
-    if torch.equal(cuda_rng.uniform_pm1(other, (NUM_ENVS, H)), u.float()):
-        raise AssertionError("uniform_pm1: two seeds drew the same values")
-    say(3, f"uniform_pm1 vs plain: bit-exact at {(NUM_ENVS, H)}, "
-           f"{(NUM_ENVS, num_obs)} and the reset's {tuple(rshape)}; over "
-           f"{NUM_ENVS}x{H}: mean {mean:.3e}, variance {var:.6f} (1/3 "
-           f"+- 0.01), min {lo}, max {hi}; another seed differs")
-    res = {}
-    for shape in ((NUM_ENVS, H), tuple(rshape)):
-        def library(shape=shape):
-            return torch.empty(shape, device="cuda").uniform_(-1.0, 1.0,
-                                                              generator=g)
-        res[shape] = dict(
-            max_abs_err=0.0, library_ms=device_ms(torch, library),
-            library_wall_ms=wall_ms(torch, library), **timings(
-                torch, "uniform_pm1",
-                lambda s=shape: cuda_rng.uniform_pm1(rseed, s),
-                lambda s=shape: cuda_rng.uniform_pm1_plain(rseed, s)))
-        numel = shape[0] * shape[1]
-        res[shape].update(bound(16, numel * 4, PHILOX_OPS * numel))
-        r = res[shape]
-        say(3, f"uniform_pm1 at {shape}: device time per call, mean of "
-               f"{REPEATS}: kernel call {r['ms']:.4f} ms (its CUDA kernel "
-               f"alone {r['kernel_ms']:.4f} ms), plain {r['plain_ms']:.4f}"
-               f" ms, uniform_ {r['library_ms']:.4f} ms; stream time: kernel "
-               f"{r['wall_ms']:.4f} ms, plain {r['plain_wall_ms']:.4f} ms, "
-               f"uniform_ {r['library_wall_ms']:.4f} ms; bound "
-               f"{r['bound_ms']:.4f} ms by {r['bound_by']}")
-    results["uniform_pm1"] = r = res[tuple(rshape)]   # the main path's shape
-    # its launch floors: an empty kernel and one that only loads the seed,
-    # at the launch shape its timing session recorded
-    blocks, threads = cuda_rng.launch_shape(rshape[0] * rshape[1])
-    check_launch("uniform_pm1", r["launch"], blocks, threads)
-    floors = launch_floors(torch, rseed, blocks, threads)
-    r.update(floor_empty_ms=floors["empty"], floor_seed_ms=floors["seed_load"])
-    say(3, f"uniform_pm1 at {tuple(rshape)}: its kernel alone "
-           f"{r['kernel_ms']:.4f} ms; at its recorded launch shape ({blocks} "
-           f"blocks x {threads} threads) an empty kernel "
-           f"{floors['empty']:.4f} ms, a seed-load kernel "
-           f"{floors['seed_load']:.4f} ms: "
-           f"{r['kernel_ms'] / floors['seed_load']:.2f}x the seed-load floor")
+    if main_path:
+        # K8: bit for bit at the obs shapes and at the reset's; moments; seeds
+        (rseed, rshape), _ = calls["uniform_pm1"]
+        g = torch.Generator("cuda").manual_seed(12)
+        seed, other = cuda_rng.draw_seed(g, "cuda"), cuda_rng.draw_seed(g, "cuda")
+        for shape, stream in (((NUM_ENVS, H), 0), ((NUM_ENVS, num_obs), 1),
+                              (tuple(rshape), 0)):
+            u = cuda_rng.uniform_pm1(seed, shape, stream)
+            if not torch.equal(u, cuda_rng.uniform_pm1_plain(seed, shape, stream)):
+                raise AssertionError(f"uniform_pm1 {shape}: differs from plain")
+        u = cuda_rng.uniform_pm1(seed, (NUM_ENVS, H)).double()
+        mean, var = float(u.mean()), float(u.var())
+        lo, hi = float(u.min()), float(u.max())
+        if not (abs(mean) < 0.01 and abs(var - 1 / 3) < 0.01 and lo >= -1.0
+                and hi < 1.0):
+            raise AssertionError(f"uniform_pm1 moments: mean {mean} var {var} "
+                                 f"min {lo} max {hi}")
+        if torch.equal(cuda_rng.uniform_pm1(other, (NUM_ENVS, H)), u.float()):
+            raise AssertionError("uniform_pm1: two seeds drew the same values")
+        say(phase, f"uniform_pm1 vs plain: bit-exact at {(NUM_ENVS, H)}, "
+                   f"{(NUM_ENVS, num_obs)} and the reset's {tuple(rshape)}; over "
+                   f"{NUM_ENVS}x{H}: mean {mean:.3e}, variance {var:.6f} (1/3 "
+                   f"+- 0.01), min {lo}, max {hi}; another seed differs")
+        res = {}
+        for shape in ((NUM_ENVS, H), tuple(rshape)):
+            def library(shape=shape):
+                return torch.empty(shape, device="cuda").uniform_(-1.0, 1.0,
+                                                                  generator=g)
+            res[shape] = dict(
+                max_abs_err=0.0, library_ms=device_ms(torch, library),
+                library_wall_ms=wall_ms(torch, library), **timings(
+                    torch, "uniform_pm1",
+                    lambda s=shape: cuda_rng.uniform_pm1(rseed, s),
+                    lambda s=shape: cuda_rng.uniform_pm1_plain(rseed, s)))
+            numel = shape[0] * shape[1]
+            res[shape].update(bound(16, numel * 4, PHILOX_OPS * numel))
+            r = res[shape]
+            say(phase, f"uniform_pm1 at {shape}: device time per call, mean of "
+                       f"{REPEATS}: kernel call {r['ms']:.4f} ms (its CUDA kernel "
+                       f"alone {r['kernel_ms']:.4f} ms), plain {r['plain_ms']:.4f}"
+                       f" ms, uniform_ {r['library_ms']:.4f} ms; stream time: kernel "
+                       f"{r['wall_ms']:.4f} ms, plain {r['plain_wall_ms']:.4f} ms, "
+                       f"uniform_ {r['library_wall_ms']:.4f} ms; bound "
+                       f"{r['bound_ms']:.4f} ms by {r['bound_by']}")
+        results["uniform_pm1"] = r = res[tuple(rshape)]   # the main path's shape
+        # its launch floors: an empty kernel and one that only loads the seed,
+        # at the launch shape its timing session recorded
+        blocks, threads = cuda_rng.launch_shape(rshape[0] * rshape[1])
+        check_launch("uniform_pm1", r["launch"], blocks, threads)
+        floors = launch_floors(torch, rseed, blocks, threads)
+        r.update(floor_empty_ms=floors["empty"], floor_seed_ms=floors["seed_load"])
+        say(phase, f"uniform_pm1 at {tuple(rshape)}: its kernel alone "
+                   f"{r['kernel_ms']:.4f} ms; at its recorded launch shape ({blocks} "
+                   f"blocks x {threads} threads) an empty kernel "
+                   f"{floors['empty']:.4f} ms, a seed-load kernel "
+                   f"{floors['seed_load']:.4f} ms: "
+                   f"{r['kernel_ms'] / floors['seed_load']:.2f}x the seed-load floor")
 
     # operations are counted after all the timings: the counting mode
     # intercepts every op of the plain version
     for k, (read, written, plain, extra) in work.items():
         ops = count_ops(plain) + extra
         results[k].update(bound(read, written, ops))
-        say(3, f"{k}: {read} bytes read, {written} written, {ops:.0f} "
-               f"operations")
+        say(phase, f"{k}: {read} bytes read, {written} written, {ops:.0f} "
+                   f"operations")
     return results
 
 
@@ -1123,6 +1227,14 @@ def compare_route_kernels(calls, tables, results):
            f", device {r['ms']:.4f} ms a call")
 
 
+def check_rows(name, rows):
+    """Raise unless every stat of every learn iteration is finite."""
+    for i, row in enumerate(rows):
+        bad = [k for k, v in row.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{name} iteration {i}: {bad} not finite")
+
+
 def route_collect(name, runner, kernels, card):
     """One warm-up collect and one timed collect on a route: finite batch,
     the route's launch counts, and under strict parity the float32
@@ -1182,11 +1294,7 @@ def strict_learn(runner, card, iters=2):
     if counts != want:
         raise AssertionError(f"strict learn({iters}): launches {counts}, "
                              f"expected {want}")
-    for i, row in enumerate(rows):
-        bad = [k for k, v in row.items() if not math.isfinite(v)]
-        if bad:
-            raise AssertionError(f"strict learn iteration {i}: {bad} not "
-                                 f"finite")
+    check_rows("strict learn", rows)
     if all(torch.equal(a, b) for a, b in zip(before, runner.net.parameters())):
         raise AssertionError("strict learn: the params did not move")
     coll = sum(r["collection_time"] for r in rows)
@@ -1321,10 +1429,7 @@ def train_path(runner, card):
     if launches != want:
         raise AssertionError(f"learn({ITERS}): launches {launches}, "
                              f"expected {want}")
-    for i, row in enumerate(rows):
-        bad = [k for k, v in row.items() if not math.isfinite(v)]
-        if bad:
-            raise AssertionError(f"learn iteration {i}: {bad} not finite")
+    check_rows("learn", rows)
     if all(torch.equal(a, b) for a, b in zip(before, runner.net.parameters())):
         raise AssertionError("learn: the params did not move")
     lr = float(runner.ppo.learning_rate)
@@ -1345,33 +1450,184 @@ def train_path(runner, card):
     return launches
 
 
-def profile_phases(runner, card, top=6):
-    """Device time of one collect and of one update, each in its own
-    torch.profiler session (CUDA activity only) around a synchronized
-    run: the busy share (device time over the phase's wall time), the
-    number of device ops and the largest items."""
+def device_busy(fn):
+    """fn() in one torch.profiler session (CUDA activity only) around a
+    synchronized run: (its wall ms, its device ms, its device ops, the
+    profiler's events with device time, largest first, and fn's
+    result)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return wall, busy, sum(e.count for e in events), events, out
+
+
+def profile_phases(runner, card, top=6):
+    """Device time of one collect and of one update, each in its own
+    profiler session (`device_busy`): the busy share (device time over
+    the phase's wall time), the number of device ops and the largest
+    items."""
     batch = None
     for phase in ("collect", "update"):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            if phase == "collect":
-                batch, _ = runner.collect()
-            else:
-                runner.ppo.update(batch, runner.generator)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-        busy = sum(e.self_device_time_total for e in events) / 1e3
-        ops = sum(e.count for e in events)
-        events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        if phase == "collect":
+            wall, busy, ops, events, (batch, _) = device_busy(runner.collect)
+        else:
+            wall, busy, ops, events, _ = device_busy(
+                lambda: runner.ppo.update(batch, runner.generator))
         items = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.2f} ms"
                           f" x{e.count}" for e in events[:top])
         say(5, f"profiled {phase}: wall {wall:.1f} ms, device {busy:.2f} ms "
                f"(busy share {busy / wall:.3f}), {ops} device ops; largest: "
                f"{items} ({card})")
+
+
+def other_task(name, registry, LeggedEnv, OnPolicyRunner, card):
+    """Phase 8: `name` at its registry width.  Its env's kernels against
+    their plain versions on a recorded step of the task (the budgets of
+    phase 3); one collect and one learn(1), every launch counted from
+    zero and held to the task's route (TASKS); a profiled collect for its
+    device time.  Returns the kernel rows, labelled "kernel (task)", each
+    with its launches in the collect."""
+    import torch
+    route = TASKS[name]
+    task, train = registry.get_cfgs(name)
+    t0 = time.perf_counter()
+    env = LeggedEnv(task, device="cuda")
+    runner = OnPolicyRunner(env, train)
+    N, T = env.num_envs, train.runner.num_steps_per_env
+    if env.terrain is None:
+        world = "a plane"
+    else:
+        world = (f"terrain {tuple(env.grid.height.shape)} at "
+                 f"{env.grid.horizontal_scale} m a cell from the "
+                 f"{env.terrain.backend} generator")
+        if env.terrain.backend != "native":
+            raise AssertionError(f"{name}: terrain backend "
+                                 f"{env.terrain.backend!r}, expected 'native'")
+    say(8, f"{name}: {N} envs, {env.num_obs}-dim obs, robot "
+           f"{task.asset.robot}, planner {task.use_dtc_planner}, {world}; "
+           f"set up in {time.perf_counter() - t0:.1f} s")
+    calls, runner.env_state = record_kernel_inputs(
+        env, runner.env_params, runner.env_state, runner.generator, steps=2)
+    ran = set(calls) - {"uniform_pm1"}
+    if ran != set(route) | {"compute_rewards", "compute_observations"}:
+        raise AssertionError(f"{name}: the step ran {sorted(ran)}")
+    tables = (set() if env.patch_src is None
+              else {id(env.patch_src.blocks), id(env.patch_src.blocks16)})
+    results = compare_kernels(calls, tables, phase=8, main_path=False)
+    del calls
+
+    zero_launches()
+    t0 = time.perf_counter()
+    batch, aux = runner.collect()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if counts != expected_launches(route, T):
+        raise AssertionError(f"{name} collect: launches {counts}, expected "
+                             f"{expected_launches(route, T)}")
+    for k, v in batch.items():
+        if not bool(torch.isfinite(v.float()).all()):
+            raise AssertionError(f"{name} collect: batch[{k}] not finite")
+    if batch["obs"].shape != (T, N, env.num_obs):
+        raise AssertionError(f"{name}: obs {tuple(batch['obs'].shape)}")
+    del batch
+    pwall, busy, ops, _, _ = device_busy(runner.collect)
+    zero_launches()
+    rows = runner.learn(1)
+    torch.cuda.synchronize()
+    learn_counts = launch_counts()
+    if learn_counts != expected_launches(route, T, 1):
+        raise AssertionError(f"{name} learn(1): launches {learn_counts}")
+    check_rows(f"{name} learn", rows)
+    say(8, f"{name}: collect of {T} steps x {N} envs: {wall:.3f} s, "
+           f"{T * N / wall:.1f} env-steps/s; launches {counts}; a profiled "
+           f"collect: wall {pwall:.1f} ms, device {busy:.2f} ms (busy share "
+           f"{busy / pwall:.3f}), {ops} device ops; learn(1): "
+           f"{rows[0]['collection_time'] + rows[0]['learning_time']:.3f} s, "
+           f"value loss {rows[0]['value_loss']:.4g}, the route's launches "
+           f"and one gather ({card})")
+    del runner, env
+    torch.cuda.empty_cache()
+    return {f"{k} ({name})": dict(r, launches=counts[k])
+            for k, r in results.items()}
+
+
+def staged_protocol(registry, LeggedEnv, OnPolicyRunner, card, iters=2):
+    """Phase 8: the staged X30 protocol at 4096 envs
+    (deep_tracking_control_tpu_torch/scripts/train_x30_staged.sh): an
+    x30_rough runner learns `iters` iterations and saves its checkpoint;
+    an x30_dtc runner loads it (params, both optimizers, the learning
+    rate and the iteration transfer; the env state stays the runner's
+    fresh one, as its episode-sum rows differ) and learns `iters`
+    iterations, every launch counted."""
+    import torch
+
+    def runner(name, **kw):
+        task, train = registry.get_cfgs(name)
+        task = dataclasses.replace(
+            task, env=dataclasses.replace(task.env, num_envs=NUM_ENVS))
+        return OnPolicyRunner(LeggedEnv(task, device="cuda"), train, **kw)
+    with tempfile.TemporaryDirectory(dir=HERE) as d:
+        rough = runner("x30_rough", log_dir=d)
+        T = rough.cfg.runner.num_steps_per_env
+        zero_launches()
+        check_rows("x30_rough learn", rough.learn(iters))
+        counts = launch_counts()
+        if counts != expected_launches(NO_PLANNER, iters * T, iters):
+            raise AssertionError(f"x30_rough learn({iters}): launches "
+                                 f"{counts}")
+        dtc = runner("x30_dtc")
+        fresh = dtc.env_state
+        kept = {k: v.clone() for k, v in fresh.items()
+                if isinstance(v, torch.Tensor)}
+        dtc.load(os.path.join(d, f"model_{iters}.pt"))
+    if dtc.env_state is not fresh or any(
+            not torch.equal(v, fresh[k]) for k, v in kept.items()):
+        raise AssertionError("staged: the x30_dtc env state was not kept")
+    sums = (rough.env_state["episode_sums"].shape[0],
+            fresh["episode_sums"].shape[0])
+    pairs = [(f"params {k}", v, dtc.net.state_dict()[k])
+             for k, v in rough.net.state_dict().items()]
+    for opt in ("optimizer", "vae_optimizer"):
+        a, b = getattr(rough.ppo, opt), getattr(dtc.ppo, opt)
+        pairs += [(f"{opt} {m}", getattr(a, m), getattr(b, m))
+                  for m in ("mu", "nu", "count")]
+    pairs.append(("lr", rough.ppo.learning_rate, dtc.ppo.learning_rate))
+    for what, a, b in pairs:
+        if not torch.equal(a, b):
+            raise AssertionError(f"staged: {what} not carried over")
+    if dtc.current_learning_iteration != iters:
+        raise AssertionError("staged: the iteration was not carried over")
+    del rough
+    before = [p.detach().clone() for p in dtc.net.parameters()]
+    zero_launches()
+    t0 = time.perf_counter()
+    rows = dtc.learn(iters)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if counts != expected_launches(DEFAULT_ROUTE, iters * T, iters):
+        raise AssertionError(f"x30_dtc learn({iters}): launches {counts}")
+    check_rows("x30_dtc learn", rows)
+    if all(torch.equal(a, b) for a, b in zip(before, dtc.net.parameters())):
+        raise AssertionError("staged: the params did not move")
+    say(8, f"staged x30_rough -> x30_dtc at {NUM_ENVS} envs: x30_rough "
+           f"learn({iters}) and its checkpoint; x30_dtc loaded it: {len(pairs)}"
+           f" tensors carried, iteration {iters}, env state kept fresh "
+           f"(episode-sum rows {sums[0]} -> {sums[1]}); x30_dtc learn({iters}):"
+           f" {iters * T * NUM_ENVS / wall:.1f} train-iteration env-steps/s, "
+           f"launches {counts}, value loss {rows[-1]['value_loss']:.4g} "
+           f"({card})")
+    del dtc
+    torch.cuda.empty_cache()
 
 
 def small_update_check():
@@ -1659,7 +1915,13 @@ def main():
                f"{r['bound_ms']:.4f} ms by {r['bound_by']}; {launches[k]} "
                f"launches in its route's collect ({card})")
 
-    # ---- 8: result lines ----------------------------------------------
+    # ---- 8: the other tasks, and the staged X30 protocol ----------------
+    for name in TASKS:
+        results.update(other_task(name, registry, LeggedEnv, OnPolicyRunner,
+                                  card))
+    staged_protocol(registry, LeggedEnv, OnPolicyRunner, card)
+
+    # ---- 9: result lines ----------------------------------------------
     # each timed call found its inputs in HBM (`timing_probes`): a kernel
     # that reads under the time of its bytes read has them miscounted.
     # Its outputs may stay in L2 when it ends, so that it may read under
@@ -1672,13 +1934,17 @@ def main():
     for k, r in results.items():
         for what in ("ms", "kernel_ms", "plain_ms", "library_ms"):
             if r.get(what) is not None and r[what] < r["bound_ms"]:
-                say(8, f"{k}: {what} {r[what]:.4f} under the bound "
+                say(9, f"{k}: {what} {r[what]:.4f} under the bound "
                        f"{r['bound_ms']:.4f} ms (its bytes read alone "
                        f"{r['read_ms']:.4f} ms)")
-    say(8, f"every kernel at or above the time of its bytes read; each "
+    say(9, f"every kernel at or above the time of its bytes read; each "
            f"timed call after an L2 eviction ({card})")
-    kernels = [dict(name=k, route="cuda", source=KERNELS[k][0],
-                    replaces=KERNELS[k][1], launches=launches[k],
+    # the main path's kernels, then each kernel at another task's shapes
+    # ("kernel (task)", with its launches in that task's collect)
+    rows = list(KERNELS) + [k for k in results if k not in KERNELS]
+    kernels = [dict(name=k, route="cuda", source=KERNELS[base][0],
+                    replaces=KERNELS[base][1],
+                    launches=results[k].get("launches", launches.get(k)),
                     max_abs_err=results[k]["max_abs_err"],
                     ms=results[k]["ms"], kernel_ms=results[k]["kernel_ms"],
                     plain_ms=results[k]["plain_ms"],
@@ -1688,7 +1954,7 @@ def main():
                     **(results[k].get("launch") or {}),
                     **{x: results[k][x] for x in EXTRA_KEYS
                        if x in results[k]})
-               for k in KERNELS]
+               for k in rows for base in [k.split(" (")[0]]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

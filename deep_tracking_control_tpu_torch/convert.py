@@ -103,9 +103,15 @@ def env_from_jax(env_params, env_state, grid_height, env,
     results; grid_height: the JAX env's heightfield (grid.height, meters);
     env: this package's LeggedEnv, for the terrain geometry and device;
     terrain_origins: the JAX env's (rows, cols, 3) tile origins (the resets
-    respawn there; default: env's own).  Returns (params, state)."""
+    respawn there; default: env's own).  A plane world has no tables and
+    no tile origins (both None in params; the env steps its own flat grid),
+    so grid_height and terrain_origins may be None there.  Returns
+    (params, state)."""
     dev = env.device
     params = {k: _to_torch(v, dev) for k, v in env_params.items()}
+    if env.terrain is None:
+        params.update(terrain=None, terrain_origins=None)
+        return params, _to_torch(env_state, dev)
     cfg = env.cfg.terrain
     grid = TerrainGrid(height=_to_torch(grid_height, dev),
                        horizontal_scale=cfg.horizontal_scale,

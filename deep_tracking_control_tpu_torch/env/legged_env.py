@@ -27,12 +27,22 @@ switches read at the same points (utils/flags.py):
     planner.
 The reward, obs and noise kernels (K6-K8) run on every route.
 
+Every registry task steps here.  Tasks without the DTC planner
+(lite3_rough, x30_rough, lite3_fast) launch no planner kernel: their
+foothold obs are zero (45-dim obs omit the block) and they terminate by
+the base-height checks of the non-DTC env (legged_robot.py:178-198).  A
+plane task (lite3_fast) has no blocked tables, as in the JAX package:
+the plain decimation loop over `sim_step` on the flat grid, zero height
+scans, origins on the env_spacing grid and no reset offset; so it
+launches no decimation or sampler kernel either.
+
 Layout as in the JAX package: the physics core is env-trailing (k, N);
 everything obs/reward-facing is env-leading (N, D).
 
 `params` holds what stays fixed through a run: the per-env inertias, mass,
 friction and restitution, and the world — the blocked terrain tables
-(`terrain`, a PatchSource) and the tile origins (`terrain_origins`).
+(`terrain`, a PatchSource) and the tile origins (`terrain_origins`), both
+None on a plane.
 Random draws come from an explicit torch.Generator on the env's device;
 `draws` can inject named draws instead (tests feed the JAX package's).
 The obs noise and the reset's uniforms are Philox streams keyed by seeds
@@ -55,6 +65,7 @@ from ..physics import sim as psim
 from ..robot import quadrupeds
 from ..robot.model import RobotModel, load_urdf
 from ..terrain import cuda_sampler
+from ..terrain import grid as tgrid
 from ..terrain import patch as tpatch
 from ..terrain.generator import DESCENT_FAMILIES, Terrain, column_families
 from ..terrain.grid import TerrainGrid
@@ -84,27 +95,30 @@ class LeggedEnv:
             self.model = quadrupeds.get_robot(cfg.asset.robot)
         m = self.model
         self.geom = psim.default_contact_geometry(m)
-        if cfg.terrain.mesh_type not in ("heightfield", "trimesh"):
-            raise NotImplementedError(
-                "this package steps heightfield terrain only (plane tasks "
-                "are not ported yet)")
         if quadruped.quad_layout(m) is None or cfg.sim.substeps != 1:
             raise NotImplementedError(
-                "the decimation step needs a quadruped model and one substep")
-        if not (cfg.terrain.measure_heights and cfg.use_dtc_planner):
-            raise NotImplementedError(
-                "only DTC tasks with a height scan are ported yet")
+                "the physics steps quadruped models with one substep only "
+                "(generic FK/ABA is not ported yet)")
 
         # --- terrain (the native generator where g++ builds it, as the JAX
-        # package's env: Terrain's backend="auto") -------------------------
-        self.terrain = Terrain(cfg.terrain, seed=terrain_seed)
-        self.grid = TerrainGrid(
-            height=torch.as_tensor(self.terrain.heights_meters(), device=dev),
-            horizontal_scale=cfg.terrain.horizontal_scale,
-            border_size=cfg.terrain.border_size)
-        self.terrain_origins = torch.as_tensor(self.terrain.env_origins,
-                                               dtype=F32, device=dev)
-        self.patch_src = self.make_patch_source(self.grid)
+        # package's env: Terrain's backend="auto"); a plane task steps a
+        # flat grid, has no tile origins and no blocked tables ------------
+        if cfg.terrain.mesh_type in ("heightfield", "trimesh"):
+            self.terrain = Terrain(cfg.terrain, seed=terrain_seed)
+            self.grid = TerrainGrid(
+                height=torch.as_tensor(self.terrain.heights_meters(),
+                                       device=dev),
+                horizontal_scale=cfg.terrain.horizontal_scale,
+                border_size=cfg.terrain.border_size)
+            self.terrain_origins = torch.as_tensor(self.terrain.env_origins,
+                                                   dtype=F32, device=dev)
+            self.patch_src = self.make_patch_source(self.grid)
+        else:
+            self.terrain = None
+            self.grid = tgrid.flat_grid(2 * cfg.terrain.border_size,
+                                        cfg.terrain.horizontal_scale, dev)
+            self.terrain_origins = None
+            self.patch_src = None
 
         # --- joint constants (legged_robot.py:872-888, 495-508) ----------
         jn = m.joint_names
@@ -167,8 +181,8 @@ class LeggedEnv:
              cfg.normalization.obs_scales.lin_vel,
              cfg.normalization.obs_scales.ang_vel], dtype=np.float32)
         self._descent_cols = None
-        if (cfg.commands.descent_clamp > 0.0 and cfg.terrain.curriculum
-                and not cfg.terrain.selected):
+        if (cfg.commands.descent_clamp > 0.0 and self.terrain is not None
+                and cfg.terrain.curriculum and not cfg.terrain.selected):
             fams = column_families(cfg.terrain)
             self._descent_cols = torch.as_tensor(
                 [f in DESCENT_FAMILIES for f in fams], device=dev)
@@ -225,8 +239,10 @@ class LeggedEnv:
             m, self.geom, cfg.sim, self.thigh_dyn_idx,
             cfg.terrain.horizontal_scale), device=dev)
         # the decimation kernel, or the plain decimation loop over
-        # sim_step: DTC_PALLAS_PHYSICS=0 or DTC_STRICT_PARITY=1
-        self._kernel_physics = kernel_flag("DTC_PALLAS_PHYSICS", "1")
+        # sim_step: DTC_PALLAS_PHYSICS=0, DTC_STRICT_PARITY=1, or a plane
+        # (no blocked tables; the JAX package runs its XLA loop there too)
+        self._kernel_physics = (kernel_flag("DTC_PALLAS_PHYSICS", "1")
+                                and self.patch_src is not None)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -292,17 +308,33 @@ class LeggedEnv:
                       terrain_origins=self.terrain_origins)
 
         # terrain levels/types/origins (legged_robot.py:1201-1228)
-        rows, cols = cfg.terrain.num_rows, cfg.terrain.num_cols
-        max_init = cfg.terrain.max_init_terrain_level
-        if not cfg.terrain.curriculum:
-            max_init = rows - 1
-        levels = torch.randint(0, max_init + 1, (N,), generator=gen, device=dev)
-        types = torch.floor(torch.arange(N, device=dev, dtype=F32)
-                            / max(N / cols, 1e-9)).to(torch.int32)
-        types = torch.clamp(types, 0, cols - 1)
-        # a level beyond the rows reads the last row, as JAX's gather clamps
-        origins = self.terrain_origins[torch.clamp(levels, max=rows - 1).long(),
-                                       types.long()]
+        if self.terrain is not None:
+            rows, cols = cfg.terrain.num_rows, cfg.terrain.num_cols
+            max_init = cfg.terrain.max_init_terrain_level
+            if not cfg.terrain.curriculum:
+                max_init = rows - 1
+            levels = torch.randint(0, max_init + 1, (N,), generator=gen,
+                                   device=dev)
+            types = torch.floor(torch.arange(N, device=dev, dtype=F32)
+                                / max(N / cols, 1e-9)).to(torch.int32)
+            types = torch.clamp(types, 0, cols - 1)
+            # a level beyond the rows reads the last row, as JAX's gather
+            # clamps
+            origins = self.terrain_origins[
+                torch.clamp(levels, max=rows - 1).long(), types.long()]
+        else:
+            # a plane: level and type 0, origins on the env_spacing grid
+            levels = torch.zeros((N,), dtype=torch.int32, device=dev)
+            types = torch.zeros((N,), dtype=torch.int32, device=dev)
+            ncols = int(np.floor(np.sqrt(N)))
+            nrows = int(np.ceil(N / ncols))
+            xx, yy = torch.meshgrid(torch.arange(nrows, device=dev),
+                                    torch.arange(ncols, device=dev),
+                                    indexing="ij")
+            spacing = cfg.env.env_spacing
+            origins = torch.stack(
+                [spacing * xx.flatten()[:N], spacing * yy.flatten()[:N],
+                 torch.zeros(N, device=dev)], dim=1).to(F32)
 
         zeros_q = torch.zeros((m.nq, N), device=dev)
         quat = torch.zeros((4, N), device=dev)
@@ -394,21 +426,25 @@ class LeggedEnv:
         phys = {k: v.contiguous() for k, v in state["phys"].items()}
         lag = state["lag_buffer"]
         src = params["terrain"]
-        hs = src.horizontal_scale
 
         use_kernel = self._kernel_physics
-        use_sampler = use_kernel and kernel_flag("DTC_PALLAS_SAMPLER", "1")
+        use_sampler = (use_kernel and cfg.terrain.measure_heights
+                       and kernel_flag("DTC_PALLAS_SAMPLER", "1"))
 
         # per-env terrain starts; the 3-table patches are materialized
         # only off the sampler route, the contact window only on
-        # DTC_FUSED_WINDOW=0 (legged_env.py:393-436 of the JAX package)
-        starts, patch_origin = tpatch.patch_starts(src, phys["pos"].T[:, :2])
-        patches = window = None
-        if not use_sampler:
-            patches = tpatch.extract(src, starts)           # (3,N,64,128)
-        elif not kernel_flag("DTC_FUSED_WINDOW", "1"):
-            window = tpatch.extract_window(src, starts, cuda_substep.WIN_R0,
-                                           cuda_substep.WIN_R)
+        # DTC_FUSED_WINDOW=0 (legged_env.py:393-436 of the JAX package); a
+        # plane has neither
+        starts = patch_origin = patches = window = None
+        if src is not None:
+            starts, patch_origin = tpatch.patch_starts(src,
+                                                       phys["pos"].T[:, :2])
+            if not use_sampler:
+                patches = tpatch.extract(src, starts)       # (3,N,64,128)
+            elif not kernel_flag("DTC_FUSED_WINDOW", "1"):
+                window = tpatch.extract_window(src, starts,
+                                               cuda_substep.WIN_R0,
+                                               cuda_substep.WIN_R)
         actions_scaled = actions * cfg.control.action_scale
         # action-lag indices: one randint(1,5) shared across envs per sim
         # step (legged_robot.py:608-614)
@@ -427,6 +463,7 @@ class LeggedEnv:
             return self._plain_physics_step(params, state, actions, lag,
                                             goals, patches, patch_origin,
                                             gen, draws)
+        hs = src.horizontal_scale
         goals = torch.stack(goals).contiguous()
         kp_eff = (T["p_gains"] * state["kp_factors"]).T.contiguous()
         kd_eff = (T["d_gains"] * state["kd_factors"]).T.contiguous()
@@ -455,16 +492,21 @@ class LeggedEnv:
         """The JAX package's XLA decimation loop (legged_env.py:496-529):
         per sim step the PD torque (motor strength and offset, clipped at
         the torque limit) and `sim_step`, every contact point sampling the
-        raw patch; the env reads the last sim step's outputs."""
+        raw patch (on a plane, the flat grid); the env reads the last sim
+        step's outputs."""
         cfg = self.cfg
         T = self._t
-        hs = params["terrain"].horizontal_scale
+        if patches is None:
+            def terrain_fn(x, y):
+                return tgrid.height_and_slope(self.grid, x, y)
+        else:
+            hs = params["terrain"].horizontal_scale
 
-        def terrain_fn(x, y):
-            # physics layout (K, N) -> sampler layout (N, K), and back
-            h, dx, dy, hmx = tpatch.sample_bilinear_slope(
-                patches[0], patch_origin, hs, x.T, y.T)
-            return h.T, dx.T, dy.T, hmx.T
+            def terrain_fn(x, y):
+                # physics layout (K, N) -> sampler layout (N, K), and back
+                h, dx, dy, hmx = tpatch.sample_bilinear_slope(
+                    patches[0], patch_origin, hs, x.T, y.T)
+                return h.T, dx.T, dy.T, hmx.T
 
         phys, anchors = state["phys"], state["anchors"]
         kp = T["p_gains"] * state["kp_factors"]
@@ -545,7 +587,7 @@ class LeggedEnv:
                 + base_pos[:, 1:2])
         bp = state["body_pts"]                                   # (Pb,3,N)
         nb, nf, nh = bp.shape[0], foot_positions.shape[1], self.num_height_points
-        hs = params["terrain"].horizontal_scale
+        h10 = planes_next = None
         if info["use_sampler"]:
             # every query of the step in one fused sampler call
             def packq(c):
@@ -565,16 +607,18 @@ class LeggedEnv:
             planes_next = torch.stack(
                 [h_all[:, off:off + nb].T, gxs[:, :nb].T, gys[:, :nb].T,
                  bp[:, 0], bp[:, 1]], dim=1)                     # (Pb,5,N)
-        else:
+        elif info["patches"] is not None:
             # the plain samplers on the materialized patches
             # (legged_env.py:626-650, 666-675 of the JAX package)
             patches, origin = info["patches"], info["patch_origin"]
-            measured_heights = tpatch.sample_nearest(patches[1], origin, hs,
-                                                     scan[0], scan[1])
+            hs = params["terrain"].horizontal_scale
+            measured_heights = (
+                tpatch.sample_nearest(patches[1], origin, hs, scan[0], scan[1])
+                if cfg.terrain.measure_heights
+                else torch.zeros((N, nh), device=dev))
             h10 = tpatch.sample_nearest(patches[2], origin, hs,
                                         foot_positions[..., 0],
                                         foot_positions[..., 1])
-            planes_next = None
             if info["use_kernel"]:
                 # the kernel's next-step body planes; the plain loop
                 # samples every point each substep and keeps none
@@ -582,6 +626,9 @@ class LeggedEnv:
                     patches[0], origin, hs, bp[:, 0].T, bp[:, 1].T)
                 planes_next = torch.stack(
                     [h0.T, gx0.T, gy0.T, bp[:, 0], bp[:, 1]], dim=1)
+        else:
+            # a plane: zero heights (legged_robot.py:1292-1293)
+            measured_heights = torch.zeros((N, nh), device=dev)
 
         # random pushes (legged_robot.py:546-556, 673-678)
         push_force = state["push_force"]
@@ -604,7 +651,7 @@ class LeggedEnv:
                 torch.zeros_like(push_force))
 
         # foot clearance (max-of-10, legged_robot.py:1443-1472)
-        if cfg.terrain.measure_foot_clearance:
+        if cfg.terrain.measure_foot_clearance and h10 is not None:
             measured_foot_clearance = foot_positions[..., 2] - h10
         else:
             measured_foot_clearance = foot_positions[..., 2]
@@ -616,25 +663,32 @@ class LeggedEnv:
 
         # DTC foothold planner (dtc.py:100-204): the fused planner on the
         # kernel route; debug viz needs the score tensor, which only the
-        # plain planner returns
-        hips = info["thigh_pos"].permute(2, 0, 1)
-        use_planner_kernel = (info["use_kernel"] and not cfg.env.debug_viz
-                              and kernel_flag("DTC_PALLAS_PLANNER", "1"))
-        plan_fn = (cuda_planner.plan_footholds_fused if use_planner_kernel
-                   else planner.plan_footholds)
-        plan = plan_fn(cfg, base_pos, base_quat, base_lin_vel, commands, hips,
-                       measured_heights, self.height_points,
-                       cfg.terrain.measured_points_x,
-                       cfg.terrain.measured_points_y)
-        foothold_obs = plan["foothold_obs"]
-        optimal_footholds_world = plan["optimal_footholds_world"]
-        debug = (dict(heights_world=plan["heights_world"],
-                      foothold_score=plan["foothold_score"],
-                      pred_footholds=plan["pred_footholds"],
-                      foot_positions=foot_positions)
-                 if cfg.env.debug_viz else None)
+        # plain planner returns.  Without the planner the foothold obs are
+        # zero and the "optimal" footholds are the feet.
+        debug = None
+        if cfg.use_dtc_planner and cfg.terrain.measure_heights:
+            hips = info["thigh_pos"].permute(2, 0, 1)
+            use_planner_kernel = (info["use_kernel"]
+                                  and not cfg.env.debug_viz
+                                  and kernel_flag("DTC_PALLAS_PLANNER", "1"))
+            plan_fn = (cuda_planner.plan_footholds_fused
+                       if use_planner_kernel else planner.plan_footholds)
+            plan = plan_fn(cfg, base_pos, base_quat, base_lin_vel, commands,
+                           hips, measured_heights, self.height_points,
+                           cfg.terrain.measured_points_x,
+                           cfg.terrain.measured_points_y)
+            foothold_obs = plan["foothold_obs"]
+            optimal_footholds_world = plan["optimal_footholds_world"]
+            if cfg.env.debug_viz:
+                debug = dict(heights_world=plan["heights_world"],
+                             foothold_score=plan["foothold_score"],
+                             pred_footholds=plan["pred_footholds"],
+                             foot_positions=foot_positions)
+        else:
+            foothold_obs = state["foothold_obs"] * 0.0
+            optimal_footholds_world = foot_positions
 
-        # termination (dtc.py:229-251)
+        # termination (dtc.py:229-251 / legged_robot.py:178-198)
         if len(self.termination_idx):
             cf_term = contact_forces[:, T["termination_idx"]]
             term_contact = torch.any(
@@ -642,13 +696,31 @@ class LeggedEnv:
         else:
             term_contact = torch.zeros((N,), dtype=torch.bool, device=dev)
         time_out_buf = episode_length > self.max_episode_length
-        term_gravity = projected_gravity[:, 2] > 0.2              # :239
         ny = cfg.terrain.measured_y_dim
-        lo_i, hi_i = 10 * ny, (cfg.terrain.measured_x_dim - 10) * ny
-        # origin-relative body height (the JAX package's fix of dtc.py:243)
-        oz = state["env_origins"][:, 2:3]
-        center = torch.clamp(measured_heights[:, lo_i:hi_i] - oz, min=0.0)
-        term_height = torch.mean(base_pos[:, 2:3] - oz - center, dim=1) < 0.15
+        if cfg.use_dtc_planner:
+            term_gravity = projected_gravity[:, 2] > 0.2          # :239
+            if cfg.terrain.measure_heights:
+                lo_i, hi_i = 10 * ny, (cfg.terrain.measured_x_dim - 10) * ny
+                # origin-relative body height (the JAX package's fix of
+                # dtc.py:243)
+                oz = state["env_origins"][:, 2:3]
+                center = torch.clamp(measured_heights[:, lo_i:hi_i] - oz,
+                                     min=0.0)
+                term_height = torch.mean(base_pos[:, 2:3] - oz - center,
+                                         dim=1) < 0.15
+            else:
+                term_height = torch.zeros_like(term_gravity)
+        else:
+            # the base below its feet, and with a height scan below the
+            # terrain under its middle rows (legged_robot.py:178-198)
+            term_gravity = torch.zeros((N,), dtype=torch.bool, device=dev)
+            term_height = torch.mean(
+                base_pos[:, 2:3] - foot_positions[:, :, 2], dim=1) < 0.1
+            if cfg.terrain.measure_heights:
+                lo_i, hi_i = 13 * ny, (cfg.terrain.measured_x_dim - 13) * ny
+                term_height = term_height | (torch.mean(
+                    base_pos[:, 2:3] - measured_heights[:, lo_i:hi_i],
+                    dim=1) < 0.1)
         reset_buf = term_contact | time_out_buf | term_gravity | term_height
 
         # rewards (legged_robot.py:274-291)
@@ -837,7 +909,7 @@ class LeggedEnv:
         # terrain curriculum (legged_robot.py:690-714)
         levels = state["terrain_levels"]
         env_origins = state["env_origins"]
-        if cfg.terrain.curriculum:
+        if self.terrain is not None and cfg.terrain.curriculum:
             base_xy = state["phys"]["pos"].T[:, :2]
             distance = torch.linalg.vector_norm(base_xy - env_origins[:, :2],
                                                 dim=1)
@@ -872,12 +944,14 @@ class LeggedEnv:
         q = masked(q_new, phys["q"])
         qd = masked(torch.zeros_like(q_new), phys["qd"])
 
-        # root reset (dtc.py:291-315): origin + U(-0.5,0.5) xy, vel U(-0.5,0.5)
+        # root reset (dtc.py:291-315): origin + U(-0.5,0.5) xy (U(-1,1)
+        # without the planner; none on a plane), vel U(-0.5,0.5)
         init_pos = torch.tensor(cfg.init_state.pos, dtype=F32, device=dev)
         xy_off = 0.5 if cfg.use_dtc_planner else 1.0
         pos_new = env_origins + init_pos[None, :]
-        pos_new = torch.cat([pos_new[:, :2] + u[:, m.nq:m.nq + 2] * xy_off,
-                             pos_new[:, 2:]], dim=1)
+        if self.terrain is not None:
+            pos_new = torch.cat([pos_new[:, :2] + u[:, m.nq:m.nq + 2] * xy_off,
+                                 pos_new[:, 2:]], dim=1)
         pos = masked(pos_new, phys["pos"])
         quat_new = torch.tensor(cfg.init_state.rot, dtype=F32,
                                 device=dev).expand(N, 4)

@@ -278,7 +278,10 @@ class OnPolicyRunner:
         the iteration and the generator.  The env state is adopted only when its
         stored shapes match this runner's (runner/train.py:650-681 of the
         JAX package); otherwise it stays fresh, like the reference's
-        torch.load path (on_policy_runner.py:257-264)."""
+        torch.load path (on_policy_runner.py:257-264).  So a checkpoint of
+        another env count, or of another task whose episode-sum rows
+        differ (the staged x30_rough -> x30_dtc protocol), hands over the
+        policy and its optimizers and leaves the env fresh."""
         d = ckpt.load(path, self.device)
         self.net.load_state_dict(d["params"])
         self.ppo.optimizer.load_state_dict(d["opt_state"])
@@ -303,9 +306,10 @@ class OnPolicyRunner:
             if _same_layout(d.get("log_state"), self.log_state):
                 self.log_state = d["log_state"]
         else:
-            print(f"checkpoint env state (envs="
-                  f"{d['env_state']['commands'].shape[0]}) does not match "
-                  f"this runner's (envs={self.env.num_envs}): keeping "
+            stored = d["env_state"]["episode_sums"].shape
+            print(f"checkpoint env state (episode sums {tuple(stored)}) "
+                  f"does not match this runner's "
+                  f"{tuple(self.env_state['episode_sums'].shape)}: keeping "
                   "fresh env state")
 
     # ------------------------------------------------------------------

@@ -7,8 +7,9 @@ Interpret mode draws zero bits, which the kernel maps to the constant
 scales, the height chain, both noise adds, both clips, the history roll)
 is then pinned at 1e-6.  The inputs are tests/test_pallas_obs.py's
 (`_fake_inputs`, numpy from a seed) at 128 envs; the cases are the 53-dim
-DTC layout with the obs noise on and off, and the 45-dim layout.  One JAX
-run per case, shared by the module.
+DTC layout with the obs noise on and off, the 45-dim layout, and the
+53-dim layout of x30_rough with its foothold block zero (no planner).  One
+JAX run per case, shared by the module.
 """
 import dataclasses
 import re
@@ -33,26 +34,29 @@ SRC = (Path(__file__).resolve().parent.parent / "deep_tracking_control_tpu_torch
        / "csrc" / "obs.cu")
 CASES = {"dtc_53_noise": ("lite3_dtc", True, 0),
          "dtc_53_quiet": ("lite3_dtc", False, 2),
-         "rough_45": ("lite3_rough", True, 1)}
+         "rough_45": ("lite3_rough", True, 1),
+         "x30_rough_53_zero_foothold": ("x30_rough", True, 3)}
 
 
 def _port_env(task, add_noise):
-    """A port env of `task` for its obs constants.  The port steps DTC
-    tasks only, so the 45-dim task is built with the DTC flag on; the obs
-    tail reads neither the flag nor the planner."""
+    """A port env of `task` for its obs constants."""
     cfg, _ = get_cfgs(task)
     cfg = dataclasses.replace(
         cfg, env=dataclasses.replace(cfg.env, num_envs=N),
         terrain=dataclasses.replace(cfg.terrain, num_rows=2, num_cols=2,
                                     border_size=4.0, max_init_terrain_level=1),
-        noise=dataclasses.replace(cfg.noise, add_noise=add_noise),
-        use_dtc_planner=True)
+        noise=dataclasses.replace(cfg.noise, add_noise=add_noise))
     return LeggedEnv(cfg, device="cpu")
 
 
 def _run(task, add_noise, seed):
     jenv = _env(task=task, num_envs=N, add_noise=add_noise)
     state, bav, pg, bp3, mh = _fake_inputs(jenv, seed=seed)
+    if not jenv.cfg.use_dtc_planner:
+        # without the planner the env hands the kernel a zero foothold
+        # block (53-dim x30_rough keeps it in its layout)
+        state = {**state,
+                 "foothold_obs": jnp.zeros_like(state["foothold_obs"])}
     base_pos = jnp.concatenate([bp3[:, :2], 0.3 + 0.1 * bp3[:, 2:3]], axis=1)
     want = pallas_obs.compute_observations_fused(
         jenv, state, base_pos, bav, pg, mh, jax.random.PRNGKey(3),
@@ -86,7 +90,7 @@ def test_obs_tail_matches_jax_kernel(runs, case):
     want, got, consts = runs[case]
     for a, b in consts:
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    num_obs = 53 if case.startswith("dtc") else 45
+    num_obs = 45 if case.startswith("rough_45") else 53
     assert got[0].shape == (N, num_obs) and got[1].shape == (N, 1389)
     assert got[2].shape == (N, 5 * num_obs)
     for name, g, w in zip(("obs", "privileged", "history"), got, want):

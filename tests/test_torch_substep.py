@@ -6,7 +6,9 @@ physics/pallas_substep.py `decimation_step` (its fused-window variant, run
 in interpret mode) at the JAX package's single-step budget, atol 2e-5 /
 rtol 1e-5 (tests/test_pallas_substep.py:71-87).  Inputs are made with
 numpy from a seed: 4 robots standing on a 2x2-tile terrain, decimation 2,
-with body-point planes high enough that some body points touch.  The
+with body-point planes high enough that some body points touch; once for
+the Lite3 at 0.05 m a cell and once for the X30 (other links, masses and
+PD gains) at 0.1 m a cell.  The
 leg-batched FK/ABA and the inertias are compared on their own as well.
 
 The window variant (K1w: the same step reading a materialized (N, 40, 128)
@@ -49,13 +51,23 @@ N, DECIM = 4, 2
 TIGHT = dict(atol=2e-5, rtol=1e-5)
 
 
-@pytest.fixture(scope="module")
-def case():
-    task, _ = get_cfgs("lite3_dtc")
-    model = quadrupeds.get_robot("lite3")
+# robot -> (task, base height range over the terrain, the body planes'
+# lift): the X30 stands some 0.21 m taller than the Lite3
+ROBOTS = {"lite3": ("lite3_dtc", (0.27, 0.33), 0.0),
+          "x30": ("x30_dtc", (0.48, 0.54), 0.15)}
+
+
+def _build_case(robot):
+    """The robot's task constants, a 2x2-tile terrain at the task's
+    horizontal scale (0.05 m for the Lite3, 0.1 m for the X30), seeded
+    inputs, and the JAX package's fused kernel on them in interpret mode."""
+    task_name, (z_lo, z_hi), lift = ROBOTS[robot]
+    task, _ = get_cfgs(task_name)
+    model = quadrupeds.get_robot(robot)
     geom = jsim.default_contact_geometry(model)
     rng = np.random.default_rng(42)
-    tcfg = TerrainCfg(num_rows=2, num_cols=2, border_size=4.0)
+    tcfg = TerrainCfg(num_rows=2, num_cols=2, border_size=4.0,
+                      horizontal_scale=task.terrain.horizontal_scale)
     terr = Terrain(tcfg, seed=3, backend="python")
     grid = TerrainGrid(height=jnp.asarray(terr.heights_meters()),
                        horizontal_scale=tcfg.horizontal_scale,
@@ -66,9 +78,18 @@ def case():
     f32 = np.float32
     origins = terr.env_origins.reshape(-1, 3)[rng.integers(0, 4, N)]
     pos = (origins + np.c_[rng.uniform(-0.3, 0.3, (N, 2)),
-                           rng.uniform(0.27, 0.33, (N, 1))]).T.astype(f32)
+                           rng.uniform(z_lo, z_hi, (N, 1))]).T.astype(f32)
     default_q = np.array([a for _, a in task.init_state.default_joint_angles],
                          dtype=f32)
+
+    def gains(table):
+        # the env's rule: a joint takes the gain of each key in its name
+        out = np.zeros(12, dtype=f32)
+        for i, name in enumerate(model.joint_names):
+            for key, val in table:
+                if key in name:
+                    out[i] = val
+        return out
     q = (default_q[:, None] + rng.normal(0, 0.05, (12, N))).astype(f32)
     tilt = rng.normal(0, 0.05, (3, N))
     quat = np.concatenate([tilt, np.ones((1, N))]).astype(f32)
@@ -87,7 +108,7 @@ def case():
     worigin = (origin + hs * jnp.array([jsub.WIN_R0, jsub.WIN_C0],
                                        jnp.float32)).T
     planes = np.stack([
-        origins[:, 2][None] + rng.uniform(-0.05, 0.3, (nb, N)),
+        origins[:, 2][None] + lift + rng.uniform(-0.05, 0.3, (nb, N)),
         rng.uniform(-0.3, 0.3, (nb, N)), rng.uniform(-0.3, 0.3, (nb, N)),
         np.broadcast_to(pos[0], (nb, N)), np.broadcast_to(pos[1], (nb, N))],
         axis=1).astype(f32)
@@ -97,8 +118,10 @@ def case():
         anchors=(pos[None, :2] + rng.normal(0, 0.1, (P, 2, N))).astype(f32),
         goals=(default_q[None, :, None]
                + rng.normal(0, 0.1, (DECIM, 12, N))).astype(f32),
-        kp_eff=(25.0 * rng.uniform(0.95, 1.05, (12, N))).astype(f32),
-        kd_eff=(0.5 * rng.uniform(0.95, 1.05, (12, N))).astype(f32),
+        kp_eff=(gains(task.control.stiffness)[:, None]
+                * rng.uniform(0.95, 1.05, (12, N))).astype(f32),
+        kd_eff=(gains(task.control.damping)[:, None]
+                * rng.uniform(0.95, 1.05, (12, N))).astype(f32),
         strengths=rng.uniform(0.9, 1.1, (12, N)).astype(f32),
         offsets=rng.normal(0, 0.01, (12, N)).astype(f32),
         friction=rng.uniform(0.5, 1.25, N).astype(f32),
@@ -129,6 +152,16 @@ def case():
 
 
 @pytest.fixture(scope="module")
+def case():
+    return _build_case("lite3")
+
+
+@pytest.fixture(scope="module")
+def x30_case():
+    return _build_case("x30")
+
+
+@pytest.fixture(scope="module")
 def window_want(case):
     """The JAX package's window variant on the case, in interpret mode (its
     window (40, 128, N), as legged_env.py:462-468 transposes it)."""
@@ -141,7 +174,7 @@ def _port_step(case, fn, terrain=None):
     """The port's step on the case: the fused variant's blocks and starts,
     or `terrain` = dict(window=...) for the window variant."""
     model, geom, task, arrays, common, hs, *_ = case
-    tmodel = tquadrupeds.get_robot("lite3")
+    tmodel = tquadrupeds.get_robot(task.asset.robot)
     tgeom = tsim.default_contact_geometry(tmodel)
     sim = tconfig.SimParams(**dataclasses.asdict(task.sim))
     t = {k: torch.from_numpy(np.array(v)) for k, v in arrays.items()
@@ -172,7 +205,9 @@ def _assert_step_matches(got, want):
                                atol=1e-3, rtol=1e-5)
 
 
-def test_plain_decimation_step_matches_pallas_kernel(case):
+@pytest.mark.parametrize("robot", ["lite3", "x30"])
+def test_plain_decimation_step_matches_pallas_kernel(request, robot):
+    case = request.getfixturevalue("case" if robot == "lite3" else "x30_case")
     want_phys, want_anchors, want_info = case[6]
     phys, anchors, info = _port_step(case, tsub.decimation_step)
     for k in ("pos", "quat", "lin_vel", "ang_vel", "q", "qd"):
