@@ -52,7 +52,11 @@ Phases (each prints its own line; any failure ends the run non-zero):
      x30_dtc and x30_dtc_descent (4096, the planner) and lite3_fast
      (4096, a plane: the plain decimation loop over sim_step, as in the
      JAX package); for each, its kernels against their plain versions on
-     a recorded step of the task (rows "kernel (task)"), one collect and
+     a recorded step of the task (rows "kernel (task)"; the decimation
+     kernel also built in float64 against the plain version in float64,
+     element by element, as float32 does not resolve the X30's step to
+     its budget, and its float32 rounding against the plain version's:
+     check_float_build), one collect and
      one learn(1) with the route's launch counts (no planner kernel
      without the planner; no decimation or sampler kernel on the plane)
      and a profiled collect; then the staged X30 protocol at 4096 envs:
@@ -521,30 +525,27 @@ def plain_float64(fn, args, kwargs):
         torch.set_default_dtype(old)
 
 
-def check_close_f64(name, got, want, want64, atol, rtol):
-    """Raise unless `got` is within atol + rtol |want| of the plain float32
-    version `want` everywhere or, where the float32 arithmetic itself
-    departs from the float64 plain version `want64` by more than that,
-    unless got's largest departure from want64, in units of that budget,
-    is at most one budget past want's largest.  Returns (the elements
-    beyond the first budget, and got's and want's largest departures
-    from want64 in units of that budget)."""
+def check_float_build(name, got, got64, want, want64, atol, rtol):
+    """The rounding of a float32 kernel against its plain version's, each
+    from its own float64 run (got64: the kernel's source built in double;
+    want64: the plain version in double): raise unless `got` departs from
+    got64 by more than atol + rtol |got64| at no more than twice as many
+    elements as `want` departs from want64, plus one in a thousand.
+    Returns (elements of got beyond that budget of want, got's and want's
+    elements beyond it of their float64 runs)."""
     import torch
-    near = (got - want).abs() <= atol + rtol * want.abs()
-    budget = atol + rtol * want64.abs()
-    e_got = (got.double() - want64).abs()
-    e_want = (want.double() - want64).abs()
-    worst_got = float((e_got / budget).max())
-    worst_want = float((e_want / budget).max())
+    beyond = int(((got - want).abs() > atol + rtol * want.abs()).sum())
+    off_got = int(((got.double() - got64).abs()
+                   > atol + rtol * got64.abs()).sum())
+    off_want = int(((want.double() - want64).abs()
+                    > atol + rtol * want64.abs()).sum())
     if (not bool(torch.isfinite(got).all())
-            or not (bool(near.all()) or worst_got <= worst_want + 1.0)):
+            or off_got > 2 * off_want + got.numel() // 1000):
         raise AssertionError(
-            f"{name}: {int((~near).sum())} elements beyond atol {atol} rtol "
-            f"{rtol} of the plain version, max abs err "
-            f"{float((got - want).abs().max())}; from the float64 run at "
-            f"worst {worst_got:.2f} budgets, the plain float32 version "
-            f"{worst_want:.2f}")
-    return int((~near).sum()), worst_got, worst_want
+            f"{name}: the kernel departs from its float64 build beyond atol "
+            f"{atol} rtol {rtol} at {off_got} of {got.numel()} elements, the "
+            f"plain version from its float64 run at {off_want}")
+    return beyond, off_got, off_want
 
 
 def tensor_bytes(tree, skip=()):
@@ -884,23 +885,38 @@ def compare_kernels(calls, tables, phase=3, main_path=True):
                 check_close(f"decimation_step {k}", got, want, atol, 1e-4)
             note = ""
         else:
-            # another robot's physics may be conditioned past the budget
-            # in float32 itself (the X30's): where kernel and plain float32
-            # versions part, the plain version in float64 arbitrates, and
-            # the kernel may depart from it no more than the plain float32
-            # version does (plus one budget)
+            # the X30's step is not resolved to the budget by float32 (its
+            # joint velocities part from a float64 run by more, in the plain
+            # version as in the JAX package's kernel): the kernel's source
+            # built in float64 is held to the plain version in float64
+            # element by element, and the float32 build's rounding to the
+            # plain version's (check_float_build)
+            wide = [a.double() if i != 18 and isinstance(a, torch.Tensor)
+                    and a.dtype == torch.float32 else a
+                    for i, a in enumerate(args)]
+            wide[6] = {k: v.double() for k, v in args[6].items()}
+            k64 = cuda_substep.decimation_step(*wide, **kwargs)
             p64 = plain_float64(cuda_substep.decimation_step_plain, args, kw)
-            ref = {**p64[0], "anchors": p64[1], **p64[2]}
-            beyond, k64, p64_err = 0, 0.0, 0.0
+
+            def flat(out):
+                return {**out[0], "anchors": out[1], **out[2]}
+            k64, p64 = flat(k64), flat(p64)
+            beyond = off_kernel = off_plain = 0
             for k, got, want, atol in outs:
-                b, ek, ep = check_close_f64(f"decimation_step {k}", got,
-                                            want, ref[k], atol, 1e-4)
-                beyond, k64, p64_err = (beyond + b, max(k64, ek),
-                                        max(p64_err, ep))
-            note = (f"; {beyond} elements beyond it, where float32 itself "
-                    f"departs from the float64 plain version: from it at "
-                    f"worst, in budgets, the kernel {k64:.2f}, the plain "
-                    f"float32 version {p64_err:.2f}")
+                check_close(f"decimation_step {k} (float64 build)", k64[k],
+                            p64[k], atol, 1e-4)
+                counts = check_float_build(
+                    f"decimation_step {k}", got, k64[k], want, p64[k], atol,
+                    1e-4)
+                beyond, off_kernel, off_plain = (
+                    x + y for x, y in zip((beyond, off_kernel, off_plain),
+                                          counts))
+            err64 = max_err([(k64[k], p64[k]) for k in k64])
+            note = (f"; the float64 builds within it everywhere, max abs "
+                    f"err {err64:.3e}; the float32 kernel beyond it of the "
+                    f"plain version at {beyond} elements, of its float64 "
+                    f"build at {off_kernel}, the plain version of its "
+                    f"float64 run at {off_plain}")
         err = max_err([(phys[k], pphys[k]) for k in phys]
                       + [(anchors, panchors)])
         # bytes: the arguments and results, and per env the 4 raw cells under

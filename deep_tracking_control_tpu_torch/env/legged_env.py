@@ -275,9 +275,11 @@ class LeggedEnv:
     # ------------------------------------------------------------------
     # construction of params + initial state
     # ------------------------------------------------------------------
-    def init(self, generator: torch.Generator):
+    def init(self, generator: torch.Generator, draws=None):
         """(params, state): per-env DR draws, zero state, full reset
-        (_create_envs legged_robot.py:416-527, _init_buffers :755-905)."""
+        (_create_envs legged_robot.py:416-527, _init_buffers :755-905).
+        draws: optional injected draws, "init_levels" (N,) and those of
+        `_apply_reset`."""
         cfg = self.cfg
         N = self.num_envs
         m = self.model
@@ -313,8 +315,8 @@ class LeggedEnv:
             max_init = cfg.terrain.max_init_terrain_level
             if not cfg.terrain.curriculum:
                 max_init = rows - 1
-            levels = torch.randint(0, max_init + 1, (N,), generator=gen,
-                                   device=dev)
+            levels = self._draw(draws, "init_levels", lambda: torch.randint(
+                0, max_init + 1, (N,), generator=gen, device=dev))
             types = torch.floor(torch.arange(N, device=dev, dtype=F32)
                                 / max(N / cols, 1e-9)).to(torch.int32)
             types = torch.clamp(types, 0, cols - 1)
@@ -391,7 +393,7 @@ class LeggedEnv:
         )
         state = self._apply_reset(params, state,
                                   torch.ones((N,), dtype=torch.bool, device=dev),
-                                  gen)
+                                  gen, draws)
         return params, state
 
     def reset(self, params, state, generator):
@@ -880,9 +882,11 @@ class LeggedEnv:
         return out
 
     # ------------------------------------------------------------------
-    def _apply_reset(self, params, state, done, gen):
+    def _apply_reset(self, params, state, done, gen, draws=None):
         """Masked reset of `done` envs (reset_idx, legged_robot.py:200-272
-        + dtc.py:291-315)."""
+        + dtc.py:291-315).  draws: optional injected draws, "reset_levels"
+        (N,) int32 in [0, num_rows) and "reset_uniforms" (N, nq + 8) in
+        [-1, 1): the joint scale, the xy offset and the root velocity."""
         cfg = self.cfg
         N = self.num_envs
         m = self.model
@@ -919,8 +923,10 @@ class LeggedEnv:
             move_down = (distance < cmd_dist) & ~move_up
             new_levels = levels + move_up.int() - move_down.int()
             max_level = cfg.terrain.num_rows
-            rand_levels = torch.randint(0, max_level, (N,), generator=gen,
-                                        device=dev, dtype=torch.int32)
+            rand_levels = self._draw(
+                draws, "reset_levels", lambda: torch.randint(
+                    0, max_level, (N,), generator=gen, device=dev,
+                    dtype=torch.int32))
             new_levels = torch.where(new_levels >= max_level, rand_levels,
                                      torch.clamp(new_levels, min=0))
             levels = torch.where(done, new_levels, levels).to(torch.int32)
@@ -931,7 +937,8 @@ class LeggedEnv:
 
         # the reset's uniforms in one draw: the joint scale, the xy offset
         # and the root velocity
-        u = cuda_rng.uniform_pm1(cuda_rng.draw_seed(gen, dev), (N, m.nq + 8))
+        u = self._draw(draws, "reset_uniforms", lambda: cuda_rng.uniform_pm1(
+            cuda_rng.draw_seed(gen, dev), (N, m.nq + 8)))
 
         # DOF reset: default * U(0.5, 1.5), qd = 0 (legged_robot.py:632-641)
         lo, hi = cfg.domain_rand.init_joint_range

@@ -42,6 +42,14 @@ Two variants, as in the JAX package, one kernel template in csrc:
     holds the rows the fused variant reads, so the two agree bit for bit.
 The window variant counts its launches apart, on
 `decimation_step.window_launches`.
+
+The same source builds in float64 (`dtc_decimation_step_f64`: the fused
+variant with every state, parameter and result in double, the terrain and
+constant tables the float32 ones): `decimation_step` takes it when given
+float64 state, to hold the kernel's arithmetic to the plain version's in
+double where float32 does not resolve a step to the budget (the X30's).
+No route of the env calls it; its launches count on
+`decimation_step.f64_launches`.
 """
 from __future__ import annotations
 
@@ -321,7 +329,8 @@ def decimation_step(model: RobotModel, geom: ContactGeometry, sim: SimParams,
     Returns (phys', anchors', info) with info = contact_forces (nrb,3,N),
     foot_pos / foot_vel (nf,3,N), thigh_pos (4,3,N), torques (nq,N) and
     body_pts (P-nf,3,N), all of the last substep.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
+    plain version; CUDA tensors launch the kernel: its float64 build where
+    the state is float64 (fused variant; blocks and consts float32)."""
     if (window is None) == (blocks is None or starts is None):
         raise ValueError("give either blocks and starts, or window")
     args = (model, geom, sim, decimation, thigh_dyn_idx, inertias, phys,
@@ -347,29 +356,36 @@ def decimation_step(model: RobotModel, geom: ContactGeometry, sim: SimParams,
                                                 thigh_dyn_idx, hs),
                                  device=dev)
     f32 = torch.float32
+    wide = phys["pos"].dtype == torch.float64
+    if wide and window is None:
+        entry = "dtc_decimation_step_f64"
+    elif wide:
+        raise ValueError("the float64 build reads the blocked tables")
+    else:
+        entry = "dtc_decimation_step"
+    ft = torch.float64 if wide else f32
     chk = cuda_build.check
     for k in ("q", "qd"):
-        chk(phys[k], k, (nq, N), f32, dev)
-    chk(phys["pos"], "pos", (3, N), f32, dev)
-    chk(phys["quat"], "quat", (4, N), f32, dev)
-    chk(phys["lin_vel"], "lin_vel", (3, N), f32, dev)
-    chk(phys["ang_vel"], "ang_vel", (3, N), f32, dev)
-    chk(anchors, "anchors", (P, 2, N), f32, dev)
-    chk(inertias, "inertias", (model.nb, 6, 6, N), f32, dev)
-    chk(goals, "goals", (decimation, nq, N), f32, dev)
+        chk(phys[k], k, (nq, N), ft, dev)
+    chk(phys["pos"], "pos", (3, N), ft, dev)
+    chk(phys["quat"], "quat", (4, N), ft, dev)
+    chk(phys["lin_vel"], "lin_vel", (3, N), ft, dev)
+    chk(phys["ang_vel"], "ang_vel", (3, N), ft, dev)
+    chk(anchors, "anchors", (P, 2, N), ft, dev)
+    chk(inertias, "inertias", (model.nb, 6, 6, N), ft, dev)
+    chk(goals, "goals", (decimation, nq, N), ft, dev)
     for name, t in (("kp_eff", kp_eff), ("kd_eff", kd_eff),
                     ("strengths", strengths), ("offsets", offsets)):
-        chk(t, name, (nq, N), f32, dev)
-    chk(friction, "friction", (N,), f32, dev)
-    chk(restitution, "restitution", (N,), f32, dev)
-    chk(win_origin, "win_origin", (2, N), f32, dev)
-    chk(planes, "planes", (P - nf, 5, N), f32, dev)
+        chk(t, name, (nq, N), ft, dev)
+    chk(friction, "friction", (N,), ft, dev)
+    chk(restitution, "restitution", (N,), ft, dev)
+    chk(win_origin, "win_origin", (2, N), ft, dev)
+    chk(planes, "planes", (P - nf, 5, N), ft, dev)
     if window is None:
         T, B, Rp, _ = blocks.shape
         chk(blocks, "blocks", (T, B, Rp, WIN_C), f32, dev)
         chk(starts, "starts", (N, 2), torch.int32, dev)
-        terrain = ("dtc_decimation_step", cuda_build.ptr(blocks),
-                   cuda_build.ptr(starts))
+        terrain = (entry, cuda_build.ptr(blocks), cuda_build.ptr(starts))
         tail = (B, Rp)
     else:
         wv = cuda_build.view(window, "window", (N, WIN_R, WIN_C), f32, dev)
@@ -382,7 +398,7 @@ def decimation_step(model: RobotModel, geom: ContactGeometry, sim: SimParams,
     chk(consts, "consts", (C_PTS + 8 * P,), f32, dev)
 
     def out(*shape):
-        return torch.empty(shape + (N,), dtype=f32, device=dev)
+        return torch.empty(shape + (N,), dtype=ft, device=dev)
     o = dict(q=out(nq), qd=out(nq), pos=out(3), quat=out(4), lin_vel=out(3),
              ang_vel=out(3), anchors=out(P, 2), report=out(nrb, 3),
              foot_pos=out(nf, 3), foot_vel=out(nf, 3), thigh=out(4, 3),
@@ -399,7 +415,9 @@ def decimation_step(model: RobotModel, geom: ContactGeometry, sim: SimParams,
         p(o["ang_vel"]), p(o["anchors"]), p(o["report"]), p(o["foot_pos"]),
         p(o["foot_vel"]), p(o["thigh"]), p(o["tau"]), p(o["body_pts"]),
         N, P, nrb, decimation, *tail, THREADS, cuda_build.stream_ptr(dev))
-    if window is None:
+    if wide:
+        _counter.f64_launches += 1
+    elif window is None:
         _counter.launches += 1
     else:
         _counter.window_launches += 1
@@ -410,9 +428,10 @@ def decimation_step(model: RobotModel, geom: ContactGeometry, sim: SimParams,
     return phys_n, o["anchors"], info
 
 
-# the launch counts, fused and window variant: plain integers on the public
-# wrapper, counted through this fixed reference (a caller may wrap the
-# module attribute)
+# the launch counts, fused and window variant and the float64 build: plain
+# integers on the public wrapper, counted through this fixed reference (a
+# caller may wrap the module attribute)
 decimation_step.launches = 0
 decimation_step.window_launches = 0
+decimation_step.f64_launches = 0
 _counter = decimation_step

@@ -1,10 +1,12 @@
 """Device-resident heightfield container and its direct queries.
 
-Counterpart of the JAX package's terrain/grid.py.  The direct queries
-(`height_and_slope`, `height_min3`, `height_max10`) serve the plane tasks
-(the physics' terrain function on a flat grid) and any query off the
-rollout's blocked tables; the heightfield rollout samples through
-terrain/patch.py and the fused sampler instead.
+Counterpart of the JAX package's terrain/grid.py.  The plane task's
+physics takes `height_and_slope` on a flat grid as its terrain function
+(its plane branch: zeros).  The heightfield branches and `height_min3` /
+`height_max10` run on no path of the port (the heightfield rollout samples
+through terrain/patch.py and the fused sampler): they are kept for parity
+with the JAX package's queries and held to them by
+tests/test_torch_plane.py.
 """
 from __future__ import annotations
 
@@ -24,9 +26,10 @@ class TerrainGrid:
 
 def flat_grid(size_m: float = 16.0, horizontal_scale: float = 0.05,
               device="cuda") -> TerrainGrid:
-    """A zero plane of size_m x size_m meters, centred on the origin."""
+    """A zero plane of size_m x size_m meters, centred on the origin (its
+    table one zero seen as n x n: the queries answer a plane without it)."""
     n = int(size_m / horizontal_scale)
-    return TerrainGrid(height=torch.zeros((n, n), device=device),
+    return TerrainGrid(height=torch.zeros((), device=device).expand(n, n),
                        horizontal_scale=horizontal_scale,
                        border_size=size_m / 2, is_plane=True)
 

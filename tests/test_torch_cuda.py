@@ -11,7 +11,8 @@ gather kernel (a copy) on seeded fields, bit for bit; the reward kernel
 also on random inputs that switch on all 33 terms; the noise kernel bit
 for bit, and the obs kernel against its plain version fed that kernel's
 draws; the patch and window copies bit for bit, and the decimation
-kernel's window variant bit for bit against its fused variant.  The
+kernel's window variant bit for bit against its fused variant, and its
+float64 build against the plain version in float64.  The
 physics, sampler, planner, reward and obs kernels also run on ragged n
 envs: a single env, a partial warp, a partial last block (the sampler
 with queries on cell edges and outside the patch, the reward kernel on
@@ -25,7 +26,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import check_planner, planner_near_ties, synthetic_ctx
+from chip_smoke import (check_planner, plain_float64, planner_near_ties,
+                        synthetic_ctx)
 from deep_tracking_control_tpu_torch import cuda_build
 from deep_tracking_control_tpu_torch.env import (cuda_obs, cuda_planner,
                                                  cuda_rewards)
@@ -286,6 +288,34 @@ def test_window_variant_matches_fused(recorded):
             atol = 1e-2 if name == "contact_forces" else 1e-4
             torch.testing.assert_close(a, c, atol=atol, rtol=1e-4)
     assert cuda_substep.decimation_step.window_launches == before + 2
+
+
+def test_float64_build_matches_plain_float64(recorded):
+    """The decimation kernel's source built in double, on the step's
+    inputs taken to double (the terrain and constant tables float32):
+    within K1's budget of the plain version in double, counted on its own
+    counter; the window variant has no float64 build."""
+    args, kwargs = recorded[0]["k1"]
+    wide = [a.double() if i != 18 and isinstance(a, torch.Tensor)
+            and a.dtype == torch.float32 else a for i, a in enumerate(args)]
+    wide[6] = {k: v.double() for k, v in args[6].items()}
+    kw = {k: v for k, v in kwargs.items() if k != "consts"}
+    counts = (cuda_substep.decimation_step.launches,
+              cuda_substep.decimation_step.f64_launches)
+    got = cuda_substep.decimation_step(*wide, **kwargs)
+    want = plain_float64(cuda_substep.decimation_step_plain, args, kw)
+    torch.cuda.synchronize()
+    assert (cuda_substep.decimation_step.launches,
+            cuda_substep.decimation_step.f64_launches) == (counts[0],
+                                                           counts[1] + 1)
+    for (name, a), (_, b) in zip(_leaves(got), _leaves(want)):
+        assert a.dtype == torch.float64, name
+        atol = 1e-2 if name == "contact_forces" else 1e-4
+        torch.testing.assert_close(a, b, atol=atol, rtol=1e-4)
+    with pytest.raises(ValueError):
+        cuda_substep.decimation_step(
+            *wide[:18], None, None, consts=kwargs["consts"],
+            window=torch.zeros((N, 40, 128), device="cuda"))
 
 
 def _leaves(step):

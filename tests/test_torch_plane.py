@@ -5,7 +5,8 @@ physics is the plain decimation loop over `sim_step` with the flat grid's
 `height_and_slope` as the terrain function (the JAX package's XLA path),
 zero height scans, no planner (45-dim obs), the non-DTC termination, and
 origins on the env_spacing grid with no reset offset.  Two policy steps
-from one state at the recipe and budgets of tests/test_torch_tasks.py.
+from one state at the recipe and budgets of tests/test_torch_tasks.py;
+the port's init and a masked reset against the JAX env's, fed its draws.
 
 The grid queries of terrain/grid.py (`height_and_slope`, `height_min3`,
 `height_max10`) against the JAX package's on seeded points over a
@@ -23,12 +24,11 @@ import torch
 from deep_tracking_control_tpu.env.config import TerrainCfg as JTerrainCfg
 from deep_tracking_control_tpu.terrain import grid as jgrid
 from deep_tracking_control_tpu.terrain.generator import Terrain
-from deep_tracking_control_tpu_torch.env.legged_env import LeggedEnv as TEnv
-from deep_tracking_control_tpu_torch.tasks import registry as treg
 from deep_tracking_control_tpu_torch.terrain import grid as tgrid
 from tests.test_torch_tasks import (FIELDS, check_done_and_metrics,
-                                    check_output, check_physics,
-                                    check_terrain_and_plan, tiny, two_steps)
+                                    check_init_and_reset, check_output,
+                                    check_physics, check_terrain_and_plan,
+                                    init_and_reset, two_steps)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -87,25 +87,25 @@ def test_plane_world(run):
 
 
 def test_plane_init_and_reset():
-    """The port's own init and a full reset on the plane: origins as the
-    JAX env lays them, each base on its origin at the initial height (no
-    xy offset), and levels untouched by the (absent) curriculum."""
-    task, _ = tiny(treg, "lite3_fast", num_envs=7)
-    env = TEnv(task, device="cpu")
-    gen = torch.Generator().manual_seed(0)
-    params, state = env.init(gen)
-    assert params["terrain"] is None and params["terrain_origins"] is None
-    # floor(sqrt(7)) = 2 columns, 4 rows, the last row cut at 7 envs
-    want = np.array([[0, 0], [0, 1], [1, 0], [1, 1], [2, 0], [2, 1], [3, 0]])
-    np.testing.assert_array_equal(state["env_origins"][:, :2].numpy(), want)
-    pos = state["phys"]["pos"].T.numpy()
-    np.testing.assert_array_equal(pos[:, :2], want)
-    np.testing.assert_allclose(pos[:, 2], task.init_state.pos[2])
-    state, out = env.step(params, state, torch.zeros(7, 12), gen)
-    done = torch.ones(7, dtype=torch.bool)
-    reset = env._apply_reset(params, state, done, gen)
-    np.testing.assert_array_equal(reset["phys"]["pos"].T.numpy()[:, :2], want)
-    assert not reset["terrain_levels"].any()
+    """The port's own init and a masked reset on the plane against the
+    JAX env's, fed its draws: origins on the env_spacing grid, levels and
+    types 0 and untouched by the (disabled) curriculum, each reset base on
+    its origin at the initial height (no xy offset)."""
+    r = init_and_reset("lite3_fast")
+    check_init_and_reset(r)
+    assert r["tenv"].terrain is None
+    for stage in ("init", "reset"):
+        got = r["t" + stage]
+        assert not got["terrain_levels"].any()
+        assert not got["terrain_types"].any()
+        pos = got["phys"]["pos"].T.numpy()
+        keep = slice(None) if stage == "init" else r["done"]
+        np.testing.assert_array_equal(pos[keep, :2],
+                                      got["env_origins"][keep, :2].numpy())
+    # 7 envs: floor(sqrt(7)) = 2 columns, 4 rows, the last cut short
+    np.testing.assert_array_equal(
+        r["tinit"]["env_origins"][:, :2].numpy(),
+        [[0, 0], [0, 1], [1, 0], [1, 1], [2, 0], [2, 1], [3, 0]])
 
 
 @pytest.fixture(scope="module")

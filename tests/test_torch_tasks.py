@@ -16,7 +16,9 @@ state of both steps, 1e-4 on the torques, observations and rewards,
 which carry it through scaled sums; done flags equal.  One JAX run per
 task, shared by the module.
 
-x30_dtc_descent's command clamp is held to the JAX env's
+The init and a masked reset of x30_rough and lite3_rough (origins,
+levels, types and the physics state) equal the JAX env's, the port fed
+the JAX draws.  x30_dtc_descent's command clamp is held to the JAX env's
 `_clamp_descent_commands` on fixed commands, types and levels; an
 x30_rough checkpoint loaded into an x30_dtc runner carries the params,
 both optimizers, the learning rate and the iteration and keeps a fresh
@@ -153,6 +155,95 @@ def check_done_and_metrics(run, t):
                                **OBS)
 
 
+def jax_reset_draws(jenv, key):
+    """The port's reset draws from the JAX `_apply_reset`'s key
+    (legged_env.py:974, 1004-1024): the curriculum's random levels, and
+    the joint scale, xy offset and root velocity as uniforms in [-1, 1)
+    (exact: the ranges' scales are powers of two)."""
+    cfg, n, nq = jenv.cfg, jenv.num_envs, jenv.model.nq
+    keys = jax.random.split(key, 10)
+    lo, hi = cfg.domain_rand.init_joint_range
+    xy_off = 0.5 if cfg.use_dtc_planner else 1.0
+    scale = np.asarray(jax.random.uniform(keys[1], (n, nq), minval=lo,
+                                          maxval=hi))
+    xy = np.asarray(jax.random.uniform(keys[2], (n, 2), minval=-xy_off,
+                                       maxval=xy_off))
+    vel = np.asarray(jax.random.uniform(keys[3], (n, 6), minval=-0.5,
+                                        maxval=0.5))
+    u = np.concatenate([(scale - np.float32(lo)) / np.float32(0.5 * (hi - lo))
+                        - np.float32(1.0), xy / np.float32(xy_off),
+                        vel / np.float32(0.5)], axis=1)
+    levels = jax.random.randint(keys[0], (n,), 0, cfg.terrain.num_rows)
+    return dict(reset_uniforms=torch.from_numpy(u.astype(np.float32)),
+                reset_levels=torch.from_numpy(
+                    np.asarray(levels).astype(np.int32)))
+
+
+def init_and_reset(name, num_envs=7):
+    """JAX's `init` and a masked `_apply_reset` beside the port's, the port
+    fed the JAX draws (its init's levels from the same key split,
+    legged_env.py:242, 272).  The reset starts from the JAX init's state
+    with envs 0 and 2 reset: env 0 at level 1 on its origin (its level
+    moves down where a curriculum runs), env 2 at level 0, 6 m off it
+    (moves up).  Returns the
+    two packages' init states and reset states (numpy and torch)."""
+    jenv = JEnv(tiny(jreg, name, num_envs=num_envs)[0])
+    tenv = TEnv(tiny(treg, name, num_envs=num_envs)[0], device="cpu")
+    key = jax.random.PRNGKey(3)
+    jparams, jstate = jenv.init(key)
+    *_, klev, _, krst = jax.random.split(key, 8)
+    draws = jax_reset_draws(jenv, krst)
+    if jenv.custom_origins:
+        np.testing.assert_array_equal(tenv.terrain_origins.numpy(),
+                                      np.asarray(jenv.terrain_origins))
+        tc = jenv.cfg.terrain
+        top = tc.max_init_terrain_level if tc.curriculum else tc.num_rows - 1
+        draws["init_levels"] = torch.from_numpy(np.array(
+            jax.random.randint(klev, (num_envs,), 0, top + 1)))
+    _, tinit = tenv.init(torch.Generator().manual_seed(0), draws=draws)
+
+    js = dict(_np(jstate))
+    if jenv.custom_origins:
+        levels = np.array(js["terrain_levels"])
+        levels[[0, 2]] = [1, 0]
+        js["terrain_levels"] = levels
+        js["env_origins"] = np.asarray(jenv.terrain_origins)[
+            levels, js["terrain_types"]].astype(np.float32)
+    pos = np.array(js["phys"]["pos"])
+    pos[:2, 0] = js["env_origins"][0, :2]
+    pos[:2, 2] = js["env_origins"][2, :2] + 6.0
+    js["phys"] = {**js["phys"], "pos": pos}
+    js["commands"] = np.tile(np.float32([0.5, 0.0, 0.0, 0.0]), (num_envs, 1))
+    done = np.zeros(num_envs, bool)
+    done[[0, 2]] = True
+    key = jax.random.PRNGKey(7)
+    jreset = _np(jenv._apply_reset(jax.tree.map(jnp.asarray, js),
+                                   jnp.asarray(done), key))
+    plane = not jenv.custom_origins
+    tparams, tstate = env_from_jax(
+        _np(jparams), js, None if plane else np.asarray(jenv.grid.height),
+        tenv, None if plane else np.asarray(jenv.terrain_origins))
+    treset = tenv._apply_reset(tparams, tstate, torch.from_numpy(done),
+                               torch.Generator().manual_seed(1),
+                               draws=jax_reset_draws(jenv, key))
+    return dict(jenv=jenv, tenv=tenv, jinit=_np(jstate), tinit=tinit,
+                jreset=jreset, treset=treset, done=done)
+
+
+def check_init_and_reset(r):
+    """Origins, levels, types and the whole physics state equal after the
+    init and after the masked reset."""
+    for stage in ("init", "reset"):
+        want, got = r["j" + stage], r["t" + stage]
+        for k in ("env_origins", "terrain_levels", "terrain_types"):
+            np.testing.assert_array_equal(got[k].numpy(), want[k],
+                                          err_msg=f"{stage} {k}")
+        for k in ("pos", "quat", "lin_vel", "ang_vel", "q", "qd"):
+            np.testing.assert_array_equal(got["phys"][k].numpy(),
+                                          want["phys"][k],
+                                          err_msg=f"{stage} {k}")
+
+
 FIELDS = ["obs", "privileged_obs", "obs_history", "base_vel", "rew"]
 
 
@@ -196,6 +287,18 @@ def test_task_layouts(run):
     assert run["touts"][0]["obs"].shape == (N, jenv.num_obs)
     if not tenv.cfg.use_dtc_planner and tenv._obs_has_foothold:
         assert not run["touts"][1]["obs"][:, -8:].any()
+
+
+@pytest.mark.parametrize("name", ["lite3_rough", "x30_rough"])
+def test_init_and_reset_match_jax(name):
+    """Without the planner: origins on the tiles, levels from the
+    curriculum (env 0 down a level, env 2 up), the xy offset U(-1, 1)."""
+    r = init_and_reset(name)
+    check_init_and_reset(r)
+    want = r["jreset"]
+    np.testing.assert_array_equal(want["terrain_levels"][[0, 2]], [0, 1])
+    off = (want["phys"]["pos"][:2].T - want["env_origins"][:, :2])
+    assert np.abs(off).max() <= 1.0 and np.abs(off).max() > 0.5
 
 
 def test_descent_clamp_matches_jax():
