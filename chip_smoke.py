@@ -63,9 +63,26 @@ Phases (each prints its own line; any failure ends the run non-zero):
      x30_rough learn(2) and its checkpoint, loaded by an x30_dtc runner
      (policy and optimizers carried, env state kept fresh), x30_dtc
      learn(2);
+  10. the deployment path (run before phase 9's lines): phase 5's runner
+     saved to a checkpoint and loaded by each evaluation script's own
+     set-up without the optimizers (the 4096-env state not adopted):
+     play_single (1 env, 50 steps), play_plane (1 env, 50 steps on a
+     plane: no decimation, sampler or planner kernel), teleop (4 envs,
+     the keys w w a q n r, then ESC and the ASCII map), eval_stones (64
+     envs, 200 steps on the stepping-stone world at difficulty 0.45),
+     play (100 envs, 50 steps) and analyze_terminations (256 envs, 200
+     steps on the curriculum world); for each, its kernels against their
+     plain versions on a recorded step of its env (rows "kernel (script,
+     N)", the noise kernel bit for bit at the reset's shape), its rollout
+     with every launch counted and held to its route (debug_viz in play
+     and teleop: the plain planner, no planner kernel), its report and
+     env-steps/s; then act_teacher exported at batch 1 on the card
+     (torch.export), loaded, and held to the inference policy: max abs
+     err 0;
   9. a check that no kernel reads under its bytes read over the memory
      rate, a JSON line of the kernels (the main path's, then each at the
-     other tasks' shapes), the nvidia-smi line, and the result line.
+     other tasks' and the scripts' shapes), the nvidia-smi line, and the
+     result line.
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes (each input read once, each output written once)
 over 3.35 TB/s and its operations over 67 TFLOP/s (float32 off the
@@ -78,11 +95,13 @@ it ends, never under its bytes read over the memory rate (phase 9).
 Weights are random (seeded); nothing is downloaded.  Needs a CUDA device:
 without one it stops before printing any result.
 """
+import atexit
 import contextlib
 import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -846,14 +865,18 @@ def check_planner(got, want, scal, heights, stat, ny):
     return differ
 
 
-def compare_kernels(calls, tables, phase=3, main_path=True):
+def compare_kernels(calls, tables, phase=3, main_path=True,
+                    float64_physics=None):
     """Each kernel that the recorded step ran (`calls`) vs its plain
     version on its inputs, with its bound from the same inputs (tables:
     the ids of the terrain tables, counted by the cells the queries
     touch).  On the main path (phase 3) also the reward kernel on all 33
     terms, its grid against the SM count at 4096 envs, and the noise
-    kernel's checks and library time; on another task's step (phase 8)
-    the kernels of that step alone."""
+    kernel's checks and library time; on another task's or script's step
+    (phases 8 and 10) the kernels of that step alone, the noise kernel
+    bit for bit at the reset's shape.  float64_physics (default: off the
+    main path) holds the decimation kernel by its float64 build, as the
+    X30's step needs (phase 8); else by the float32 budget."""
     import torch
     from deep_tracking_control_tpu_torch.env import (cuda_obs, cuda_planner,
                                                      cuda_rewards)
@@ -880,7 +903,9 @@ def compare_kernels(calls, tables, phase=3, main_path=True):
             (k, info[k], pinfo[k], 1e-2 if k == "contact_forces" else 1e-4)
             for k in ("foot_pos", "foot_vel", "thigh_pos", "body_pts",
                       "torques", "contact_forces")]
-        if main_path:
+        if float64_physics is None:
+            float64_physics = not main_path
+        if not float64_physics:
             for k, got, want, atol in outs:
                 check_close(f"decimation_step {k}", got, want, atol, 1e-4)
             note = ""
@@ -1137,6 +1162,24 @@ def compare_kernels(calls, tables, phase=3, main_path=True):
                    f"{floors['empty']:.4f} ms, a seed-load kernel "
                    f"{floors['seed_load']:.4f} ms: "
                    f"{r['kernel_ms'] / floors['seed_load']:.2f}x the seed-load floor")
+
+    if not main_path and "uniform_pm1" in calls:
+        # K8 at the reset's shape of this step: bit for bit
+        (rseed, rshape), _ = calls["uniform_pm1"]
+        if not torch.equal(cuda_rng.uniform_pm1(rseed, rshape),
+                           cuda_rng.uniform_pm1_plain(rseed, rshape)):
+            raise AssertionError(f"uniform_pm1 {tuple(rshape)}: differs from "
+                                 f"plain")
+        numel = rshape[0] * rshape[1]
+        results["uniform_pm1"] = r = dict(
+            max_abs_err=0.0, **bound(16, numel * 4, PHILOX_OPS * numel),
+            **timings(torch, "uniform_pm1",
+                      lambda: cuda_rng.uniform_pm1(rseed, rshape),
+                      lambda: cuda_rng.uniform_pm1_plain(rseed, rshape)))
+        check_launch("uniform_pm1", r["launch"],
+                     *cuda_rng.launch_shape(numel))
+        say(phase, f"uniform_pm1 vs plain: bit-exact at the reset's "
+                   f"{tuple(rshape)}; device {r['ms']:.4f} ms a call")
 
     # operations are counted after all the timings: the counting mode
     # intercepts every op of the plain version
@@ -1769,6 +1812,221 @@ def save_load_check(registry, LeggedEnv, OnPolicyRunner):
     return len(pairs)
 
 
+# the deployment path (phase 10): script -> (envs, steps, the kernels its
+# route launches once a step beside EVERY_ROUTE).  debug_viz (play,
+# teleop) takes the plain planner: no K3; on the plane (play_plane) no
+# K1-K3, as the JAX env's route there
+DEBUG_ROUTE = ("decimation_step", "sample_all")
+DEPLOY = {"play_single": (1, 50, DEFAULT_ROUTE), "play_plane": (1, 50, ()),
+          "teleop": (4, 6, DEBUG_ROUTE),
+          "eval_stones": (64, 200, DEFAULT_ROUTE),
+          "play": (100, 50, DEBUG_ROUTE),
+          "analyze_terminations": (256, 200, DEFAULT_ROUTE)}
+TELEOP_KEYS = "wwaqnr"
+
+
+def clone_tree(x):
+    import torch
+    if isinstance(x, dict):
+        return {k: clone_tree(v) for k, v in x.items()}
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def tail_lines(fn, n):
+    """fn()'s result, with only the last n lines of what it printed."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    lines = buf.getvalue().rstrip().splitlines()
+    if n:
+        print("\n".join(lines[-n:]), flush=True)
+    return out
+
+
+def deploy_script(name, log_root, saved, card):
+    """Phase 10, one script: its set-up from the saved checkpoint (loaded
+    without the optimizers; the checkpoint's 4096-env state is not
+    adopted), its kernels against their plain versions on a recorded step
+    of its env, then its rollout with every launch counted from zero and
+    held to its route, and its report with the env-steps/s.  Returns the
+    kernel rows, labelled "kernel (script, N)"."""
+    import importlib
+    import torch
+    mod = importlib.import_module(
+        f"deep_tracking_control_tpu_torch.scripts.{name}")
+    common = importlib.import_module(
+        "deep_tracking_control_tpu_torch.scripts.common")
+    N, steps, route = DEPLOY[name]
+    argv = ["--task", "lite3_dtc", "--log_root", log_root]
+    t0 = t_all = time.perf_counter()
+    if name == "teleop":
+        sess = mod.build(mod.parse_args(argv + ["--num_envs", str(N)]))
+        env, params, state = sess.env, sess.params, sess.state
+    elif name == "eval_stones":
+        env, runner, policy = mod.setup(common.parse_args(argv), num_envs=N,
+                                        difficulty=0.45)
+    elif name == "analyze_terminations":
+        env, runner, policy = mod.setup(mod.parse_args(
+            argv + ["--num_envs", str(N)]))
+    else:
+        env, runner, policy = mod.setup(common.parse_args(argv))
+    if env.num_envs != N:
+        raise AssertionError(f"{name}: {env.num_envs} envs, expected {N}")
+    if name != "teleop":
+        params, state = runner.env_params, runner.env_state
+        for k, v in saved["params"].items():
+            if not torch.equal(runner.net.state_dict()[k], v):
+                raise AssertionError(f"{name}: params {k} not loaded")
+        for opt in (runner.ppo.optimizer, runner.ppo.vae_optimizer):
+            if int(opt.count) != 0 or bool(opt.mu.any()):
+                raise AssertionError(f"{name}: the optimizers were loaded")
+        if runner.current_learning_iteration != saved["iter"]:
+            raise AssertionError(f"{name}: iteration not loaded")
+    if state["commands"].shape[0] != N:
+        raise AssertionError(f"{name}: the checkpoint's env state adopted")
+    world = ("a plane" if env.terrain is None else
+             f"terrain {tuple(env.grid.height.shape)} from the "
+             f"{env.terrain.backend} generator")
+    say(10, f"{name}: {N} envs, debug_viz {env.cfg.env.debug_viz}, {world};"
+            f" set up and loaded in {time.perf_counter() - t0:.1f} s")
+
+    gen = torch.Generator("cuda").manual_seed(5)
+    calls, _ = record_kernel_inputs(env, params, clone_tree(state), gen,
+                                    steps=2)
+    ran = set(calls) - {"uniform_pm1"}
+    if ran != set(route) | {"compute_rewards", "compute_observations"}:
+        raise AssertionError(f"{name}: the step ran {sorted(ran)}")
+    tables = (set() if env.patch_src is None
+              else {id(env.patch_src.blocks), id(env.patch_src.blocks16)})
+    results = compare_kernels(calls, tables, phase=10, main_path=False,
+                              float64_physics=False)
+    del calls
+
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if name == "teleop":
+        for k in TELEOP_KEYS:
+            if not sess.handle_key(ord(k)):
+                raise AssertionError(f"teleop: key {k} ended the session")
+            tel = sess.step()
+        if sess.handle_key(27) or not sess.quit:
+            raise AssertionError("teleop: ESC did not end the session")
+        wall = time.perf_counter() - t0
+        rows = sess.ascii_map(21, 41)
+        if len(rows) != 21 or not any("B" in r for r in rows):
+            raise AssertionError("teleop: the ASCII map has no base")
+        if not math.isfinite(sum(tel["vel"])) or sess.lookat != 1:
+            raise AssertionError(f"teleop: telemetry {tel}")
+        cmd = " ".join(f"{v:+.2f}" for v in tel["cmd"])
+        report = (f"keys {' '.join(TELEOP_KEYS)} ESC: env {tel['lookat']} "
+                  f"cmd ({cmd}) vel ({tel['vel'][0]:+.3f} "
+                  f"{tel['vel'][1]:+.3f}) z {tel['z']:.3f}; ascii_map "
+                  f"{len(rows)} x {len(rows[0])}")
+        want = expected_launches(route, steps)
+        want["uniform_pm1"] += 1          # the R key's reset
+    else:
+        gen = torch.Generator("cuda").manual_seed(7)
+        if name == "play":
+            out = tail_lines(lambda: mod.rollout(
+                env, params, state, policy, gen, steps), 1)
+        else:
+            out = mod.rollout(env, params, state, policy, gen, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if name == "eval_stones":
+            rep = tail_lines(lambda: mod.report(*out[1:]), 0)
+            report = (f"tracking err xy mean "
+                      f"{rep['tracking_err_xy_mean_mps']:.4f} m/s, p90 "
+                      f"{rep['tracking_err_xy_p90_mps']:.4f}, falls "
+                      f"{rep['falls']}, episodes {rep['episodes']}")
+        elif name == "analyze_terminations":
+            rep = tail_lines(lambda: mod.report(
+                "lite3_dtc", env.cfg.terrain, out[1], N, steps), 0)
+            report = (f"ended {rep['n_done']:.0f}, causes " + ", ".join(
+                f"{c} {rep[c]:.0f}" for c in mod.CAUSES)
+                + f", by level {rep['done_by_level']}")
+        elif name == "play":
+            report = f"{steps} steps, env 0 printed every 10"
+        else:
+            log = out[1]
+            tail_lines(lambda: mod.report(env.cfg, log), 2)
+            report = (f"last step cmd_x {log[-1, 0]:+.2f} vel_x "
+                      f"{log[-1, 1]:+.3f} z {log[-1, 2]:+.3f}")
+        final = out[0]
+        for k in ("obs", "privileged_obs"):
+            if not bool(torch.isfinite(final[k]).all()):
+                raise AssertionError(f"{name}: {k} not finite")
+        want = expected_launches(route, steps)
+    counts = launch_counts()
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, expected {want}")
+    say(10, f"{name}: {report}; {steps} steps x {N} envs in {wall:.3f} s, "
+            f"{steps * N / wall:.1f} env-steps/s; launches {counts}; the "
+            f"script's phase {time.perf_counter() - t_all:.1f} s ({card})")
+    del env
+    torch.cuda.empty_cache()
+    return {f"{k} ({name}, {N})": dict(r, launches=counts[k])
+            for k, r in results.items()}
+
+
+def export_check(log_root):
+    """Phase 10: play_single's runner (the saved checkpoint, loaded
+    without the optimizers) exports act_teacher at batch 1 on the card;
+    the loaded program against get_inference_policy(teacher=True) on the
+    same inputs: max abs err 0 (the same aten ops on the same inputs)."""
+    import torch
+    from deep_tracking_control_tpu_torch.runner import export
+    from deep_tracking_control_tpu_torch.scripts import common, play_single
+    env, runner, policy = play_single.setup(common.parse_args(
+        ["--task", "lite3_dtc", "--log_root", log_root]))
+    t0 = time.perf_counter()
+    path = export.export_policy(runner.net, env.num_obs, env.num_obs_history,
+                                env.num_privileged_obs,
+                                os.path.join(log_root, "export"))
+    fn = export.load_policy(os.path.dirname(path))
+    secs = time.perf_counter() - t0
+    s = runner.env_state
+    g = torch.Generator("cuda").manual_seed(9)
+    err = 0.0
+    for i in range(4):
+        x = [s["obs"], s["obs_history"], s["privileged_obs"]]
+        if i:
+            x = [v + torch.randn(v.shape, generator=g, device="cuda")
+                 for v in x]
+        got, want = fn(*x), policy(*x)
+        if not got.is_cuda or got.shape != (1, env.num_actions):
+            raise AssertionError(f"export: {got.device} {tuple(got.shape)}")
+        err = max(err, float((got - want).abs().max()))
+    if err != 0.0:
+        raise AssertionError(f"export: max abs err {err} against the "
+                             f"inference policy, expected 0")
+    say(10, f"export: act_teacher at batch 1 on the card, "
+            f"{os.path.getsize(path)} bytes, exported and loaded in "
+            f"{secs:.1f} s; against get_inference_policy(teacher=True) on 4 "
+            f"inputs: max abs err {err} (expected 0)")
+
+
+def deployment_path(log_root, experiment, card):
+    """Phase 10: every evaluation script at its width from the checkpoint
+    under <log_root>/<experiment>, then the export."""
+    import torch
+    from deep_tracking_control_tpu_torch.runner import checkpoint as ckpt
+    path = ckpt.get_load_path(os.path.join(log_root, experiment))
+    saved = ckpt.load(path, "cuda")
+    say(10, f"checkpoint {os.path.basename(path)} of phase 5's runner "
+            f"(iteration {saved['iter']})")
+    results = {}
+    t0 = time.perf_counter()
+    for name in DEPLOY:
+        results.update(deploy_script(name, log_root, saved, card))
+    export_check(log_root)
+    torch.cuda.empty_cache()
+    say(10, f"deployment path in {time.perf_counter() - t0:.1f} s")
+    return results
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1884,6 +2142,13 @@ def main():
            f"(budget 1e-3)")
     n = save_load_check(registry, LeggedEnv, OnPolicyRunner)
     say(6, f"save/load on the card: {n} tensors restored exactly")
+    # phase 10 loads phase 5's runner from its checkpoint
+    deploy_root = tempfile.mkdtemp(dir=HERE)
+    atexit.register(shutil.rmtree, deploy_root, True)
+    experiment = train.runner.experiment_name
+    os.makedirs(os.path.join(deploy_root, experiment, "phase5"))
+    runner.save(os.path.join(deploy_root, experiment, "phase5",
+                             f"model_{runner.current_learning_iteration}.pt"))
 
     # ---- 7: the routes ----------------------------------------------
     route_slots = ((cuda_patch, "extract_patches", "extract_patches"),
@@ -1936,6 +2201,9 @@ def main():
         results.update(other_task(name, registry, LeggedEnv, OnPolicyRunner,
                                   card))
     staged_protocol(registry, LeggedEnv, OnPolicyRunner, card)
+
+    # ---- 10: the deployment path ------------------------------------------
+    results.update(deployment_path(deploy_root, experiment, card))
 
     # ---- 9: result lines ----------------------------------------------
     # each timed call found its inputs in HBM (`timing_probes`): a kernel

@@ -180,7 +180,11 @@ def view(t, name, shape, dtype, device) -> list:
     except RuntimeError as e:
         raise ValueError(f"{name}: shape {tuple(t.shape)} does not broadcast "
                          f"to {tuple(shape)}") from e
-    strides = list(v.stride()) + [0] * (3 - v.dim())
+    # a dim the tensor lacks reads its one row: stride 0 (torch.expand
+    # gives a new dim of size 1 a nonzero stride, which would make a table
+    # look like one env's row at a single env)
+    new = len(shape) - t.dim()
+    strides = [0] * new + list(v.stride())[new:] + [0] * (3 - v.dim())
     if any(x < 0 for x in strides):
         raise ValueError(f"{name}: negative strides")
     return [v.data_ptr(), *strides]

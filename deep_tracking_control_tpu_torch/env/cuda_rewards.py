@@ -120,8 +120,11 @@ def compute_rewards_fused(names, scales_dt, ctx, only_positive,
     env/rewards.py (env-leading, any strides).  Returns (rew (N,),
     updates) with updates holding feet_air_time (N, nf), stumb_buffer
     (N, 5, nf) bool and pitch_est (N,) exactly when a term that owns them
-    is active.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    is active.  Tables without an env dim (the default joint angles, the
+    limits) are staged once a block; a table with a leading dim of 1 has
+    one at a single env and would be staged as that env's, so pass tables
+    without it.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise."""
     dev = ctx["root_z"].device
     if dev.type == "cpu":
         return rewards_plain(names, scales_dt, ctx, only_positive,

@@ -748,7 +748,10 @@ class LeggedEnv:
             lin_vel_x_max=state["command_lin_vel_x"][1],
             ang_vel_yaw_max=cfg.commands.ranges.ang_vel_yaw[1],
             tracking_sigma=cfg.rewards.tracking_sigma,
-            default_dof_pos=T["default_q"][None, :],
+            # without an env dim, as the other tables: the reward kernel
+            # stages an input with an env dim per env, and at one env a
+            # (1, nq) table would take an env's row
+            default_dof_pos=T["default_q"],
             soft_dof_pos_limits=(T["soft_lo"], T["soft_hi"]),
             dof_vel_limit=T["dof_vel_limits"],
             soft_dof_vel_limit=cfg.rewards.soft_dof_vel_limit,

@@ -273,21 +273,25 @@ class OnPolicyRunner:
                         log_state=self.log_state)
         ckpt.save(path, tree)
 
-    def load(self, path: str):
-        """Restore a checkpoint: params, both optimizers, the learning rate,
-        the iteration and the generator.  The env state is adopted only when its
-        stored shapes match this runner's (runner/train.py:650-681 of the
-        JAX package); otherwise it stays fresh, like the reference's
-        torch.load path (on_policy_runner.py:257-264).  So a checkpoint of
-        another env count, or of another task whose episode-sum rows
-        differ (the staged x30_rough -> x30_dtc protocol), hands over the
-        policy and its optimizers and leaves the env fresh."""
+    def load(self, path: str, load_optimizer: bool = True):
+        """Restore a checkpoint: params, the iteration and the generator,
+        and with load_optimizer (the default) both optimizers and the
+        learning rate; without it (evaluation, runner/train.py:607-682 of
+        the JAX package) both stay this runner's own.  The env state is
+        adopted only when its stored shapes match this runner's
+        (runner/train.py:650-681 of the JAX package); otherwise it stays
+        fresh, like the reference's torch.load path
+        (on_policy_runner.py:257-264).  So a checkpoint of another env
+        count, or of another task whose episode-sum rows differ (the
+        staged x30_rough -> x30_dtc protocol), hands over the policy (and
+        its optimizers) and leaves the env fresh."""
         d = ckpt.load(path, self.device)
         self.net.load_state_dict(d["params"])
-        self.ppo.optimizer.load_state_dict(d["opt_state"])
-        self.ppo.vae_optimizer.load_state_dict(d["vae_opt_state"])
-        self.ppo.learning_rate = d["learning_rate"].to(
-            self.device, torch.float32).reshape(())
+        if load_optimizer:
+            self.ppo.optimizer.load_state_dict(d["opt_state"])
+            self.ppo.vae_optimizer.load_state_dict(d["vae_opt_state"])
+            self.ppo.learning_rate = d["learning_rate"].to(
+                self.device, torch.float32).reshape(())
         self.current_learning_iteration = int(d["iter"])
         if d.get("generator_device") == self.device.type:
             self.generator.set_state(d["generator"].cpu())
@@ -306,10 +310,14 @@ class OnPolicyRunner:
             if _same_layout(d.get("log_state"), self.log_state):
                 self.log_state = d["log_state"]
         else:
-            stored = d["env_state"]["episode_sums"].shape
-            print(f"checkpoint env state (episode sums {tuple(stored)}) "
-                  f"does not match this runner's "
-                  f"{tuple(self.env_state['episode_sums'].shape)}: keeping "
+            ours = {**self.env_state, **params}
+            differ = sorted(k for k, v in {**d["env_state"],
+                                           **d["env_params"]}.items()
+                            if not _same_layout(v, ours.get(k)))
+            shown = ", ".join(differ[:3]) + (", ..." if len(differ) > 3
+                                             else "")
+            print(f"checkpoint env state ({len(differ)} fields of another "
+                  f"layout: {shown}) does not match this runner's: keeping "
                   "fresh env state")
 
     # ------------------------------------------------------------------

@@ -2,12 +2,14 @@
 
 robot/model.py, robot/quadrupeds.py, terrain/generator.py, the native
 terrain generator (native/terrain_gen.cpp and its ctypes binding),
-env/config.py, tasks/registry.py, utils/cli.py and the switch reader of
-utils/flags.py are copied into
-the port (which must not import the JAX package); each copy must stay equal
-to its original.  The port itself imports neither jax, flax, optax, orbax
-nor triton, and its modules are all imported here, the training ones
-included (agent/ppo.py, ops/cuda_gather.py, runner/, scripts/train.py).
+env/config.py, tasks/registry.py, utils/cli.py, the switch reader of
+utils/flags.py and the numpy-only utils (logger, debug_viz, render_anim,
+viewer3d) are copied into the port (which must not import the JAX
+package); each copy must stay equal to its original, and viewer3d's numpy
+FK to the port's physics FK.  The port itself imports neither jax, flax,
+optax, orbax nor triton, and its modules are all imported here, the
+training ones included (agent/ppo.py, ops/cuda_gather.py, runner/,
+scripts/).
 """
 import dataclasses
 import inspect
@@ -37,6 +39,7 @@ from deep_tracking_control_tpu_torch.tasks import registry as treg
 from deep_tracking_control_tpu_torch.terrain import generator as tgen
 from deep_tracking_control_tpu_torch.utils import cli as tcli
 from deep_tracking_control_tpu_torch.utils import flags as tflags
+from deep_tracking_control_tpu_torch.utils import viewer3d as tviewer3d
 
 PORT = pathlib.Path(__file__).resolve().parents[1] / "deep_tracking_control_tpu_torch"
 
@@ -209,3 +212,53 @@ def test_kernel_flag_equal(monkeypatch, strict, value):
                 == jflags.kernel_flag("DTC_FUSED_WINDOW", default))
     assert (inspect.getsource(tflags.kernel_flag)
             == inspect.getsource(jflags.kernel_flag))
+
+
+IMPORT = re.compile(r"\s*(import|from)\s+\S+(\s+import\b|\s*$|\s+as\b)")
+
+
+def _without_imports(text):
+    return [line for line in text.splitlines() if not IMPORT.match(line)]
+
+
+@pytest.mark.parametrize("name", ["logger", "debug_viz", "render_anim",
+                                  "viewer3d"])
+def test_utils_copies_equal(name):
+    """The numpy-only utils are the JAX package's, line for line apart
+    from their imports."""
+    jdir = pathlib.Path(jcli.__file__).parent
+    want = (jdir / f"{name}.py").read_text()
+    got = (PORT / "utils" / f"{name}.py").read_text()
+    assert _without_imports(got) == _without_imports(want)
+
+
+@pytest.mark.parametrize("robot", ["lite3", "x30"])
+def test_viewer3d_fk_matches_port_fk(robot):
+    """viewer3d's numpy FK (body origins and orientations, and the welded
+    feet) equals the port's physics FK (physics/quadruped.py `fk`, the
+    feet through engine.body_point_state), as tests/test_viewer3d.py holds
+    it to the JAX engine's."""
+    import torch
+    from deep_tracking_control_tpu_torch.physics import engine, quadruped
+    model = trobots.get_robot(robot)
+    layout = quadruped.quad_layout(model)
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        pos = np.array([1.0, 2.0, 0.4]) + rng.normal(scale=0.1, size=3)
+        q4 = rng.normal(size=4)
+        q4 /= np.linalg.norm(q4)
+        q = rng.uniform(model.pos_limit[:, 0], model.pos_limit[:, 1])
+        x_np, R_np = tviewer3d.fk_positions(model, pos, q4, q)
+        feet_np = tviewer3d.foot_positions_from_fk(model, x_np, R_np)
+
+        def col(a):
+            return torch.as_tensor(np.asarray(a, np.float32))[:, None]
+        state = engine.make_state(col(pos), col(q4), torch.zeros(3, 1),
+                                  torch.zeros(3, 1), col(q),
+                                  torch.zeros(model.nq, 1))
+        kin = quadruped.fk(model, layout, state)
+        np.testing.assert_allclose(x_np, kin["x"][..., 0].numpy(), atol=2e-5)
+        np.testing.assert_allclose(R_np, kin["R"][..., 0].numpy(), atol=2e-5)
+        fpos, _ = engine.body_point_state(kin, model.foot_dyn_index,
+                                          model.foot_offset)
+        np.testing.assert_allclose(feet_np, fpos[..., 0].numpy(), atol=2e-5)

@@ -18,7 +18,9 @@ envs: a single env, a partial warp, a partial last block (the sampler
 with queries on cell edges and outside the patch, the reward kernel on
 all 33 terms with and without the plane fit and the positive clip, the
 obs kernel in the 45-dim layout, without obs noise, and on inputs laid
-out otherwise than the env's: a contiguous scan, a strided history).
+out otherwise than the env's: a contiguous scan, a strided history); and
+every kernel of the default route on a real step of the eval_stones
+world at the evaluation widths 1 and 100 envs.
 """
 import dataclasses
 
@@ -555,3 +557,109 @@ def test_new_wrappers_reject_bad_input(recorded):
     with pytest.raises(ValueError):                       # on the CPU
         cuda_rewards.compute_rewards_fused(names, scales, bad, *rest[:-1],
                                            rest[-1].clone())
+
+
+# ---- the evaluation widths ---------------------------------------------
+# The evaluation scripts step 1 env (play_single), 4 (teleop), 64
+# (eval_stones), 100 (play: a ragged last block of every kernel) and 256
+# (analyze_terminations); chip_smoke.py phase 10 runs each.  Here every
+# kernel of the default route on a real step of the eval_stones world (2 m
+# pits between the stones) at 1 and 100 envs.
+
+@pytest.fixture(scope="module", params=[1, 100], ids=["n1", "n100"])
+def eval_width(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deep_tracking_control_tpu_torch.scripts import eval_stones
+    cuda_build.build()
+    n = request.param
+    task, train = eval_stones.configure(*get_cfgs("lite3_dtc"), num_envs=n)
+    env = LeggedEnv(task, terrain_seed=train.runner.seed + 7, device="cuda")
+    gen = torch.Generator("cuda").manual_seed(n)
+    params, state = env.init(gen)
+    slots = ((cuda_substep, "decimation_step", "k1"),
+             (cuda_sampler, "sample_all", "k2"),
+             (cuda_planner, "select_footholds", "k3"),
+             (cuda_rewards, "compute_rewards_fused", "k6"),
+             (cuda_obs, "compute_observations_fused", "k7"),
+             (cuda_rng, "uniform_pm1", "k8"))
+    originals = [getattr(mod, attr) for mod, attr, _ in slots]
+    calls = {}
+
+    def recorder(name, fn):
+        def wrapped(*args, **kwargs):
+            # the reward kernel adds to its last argument in place
+            calls[name] = ((*args[:-1], args[-1].clone()) if name == "k6"
+                           else args, kwargs)
+            return fn(*args, **kwargs)
+        return wrapped
+    for (mod, attr, name), fn in zip(slots, originals):
+        setattr(mod, attr, recorder(name, fn))
+    try:
+        for _ in range(3):
+            actions = 0.3 * torch.randn((n, 12), generator=gen, device="cuda")
+            state, out = env.step(params, state, actions, gen)
+    finally:
+        for (mod, attr, _), fn in zip(slots, originals):
+            setattr(mod, attr, fn)
+    torch.cuda.synchronize()
+    assert set(calls) == {"k1", "k2", "k3", "k6", "k7", "k8"}
+    return n, calls
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k6", "k7", "k8"])
+def test_default_route_kernels_at_eval_widths(eval_width, kernel):
+    """Each kernel of the default route against its plain version on the
+    step's inputs, with chip_smoke.py's budgets: K1 1e-4 + 1e-4 rel
+    (contact forces 1e-2 N); K2's nearest samples exact, bilinear 1e-5,
+    slopes 1e-4; K3 apart only at near-ties; K6 as _check_rewards; K7
+    1e-6 against its plain version fed the noise kernel's draws; K8 bit
+    for bit at the reset's shape."""
+    n, calls = eval_width
+    args, kwargs = calls[kernel]
+    if kernel == "k1":
+        kw = {k: v for k, v in kwargs.items() if k != "consts"}
+        got = cuda_substep.decimation_step(*args, **kwargs)
+        want = cuda_substep.decimation_step_plain(*args, **kw)
+        torch.cuda.synchronize()
+        for (name, a), (_, p) in zip(_leaves(got), _leaves(want)):
+            assert a.shape[-1] == n, name
+            atol = 1e-2 if name == "contact_forces" else 1e-4
+            torch.testing.assert_close(a, p, atol=atol, rtol=1e-4)
+    elif kernel == "k2":
+        h, gx, gy = cuda_sampler.sample_all(*args)
+        ph, pgx, pgy = cuda_sampler.sample_all_plain(*args)
+        near = cuda_sampler.Q_MIN3 + cuda_sampler.Q_MAX10
+        assert h.shape[0] == n and torch.equal(h[:, :near], ph[:, :near])
+        torch.testing.assert_close(h[:, near:], ph[:, near:], atol=1e-5,
+                                   rtol=0)
+        torch.testing.assert_close(gx, pgx, atol=1e-4, rtol=0)
+        torch.testing.assert_close(gy, pgy, atol=1e-4, rtol=0)
+    elif kernel == "k3":
+        scal, heights, stat, ny = args
+        got = cuda_planner.select_footholds(scal, heights, stat, ny)
+        want = cuda_planner.plan_plain(scal, heights, stat, ny)
+        torch.cuda.synchronize()
+        assert got.shape == (n, 20)
+        differ = planner_near_ties(got, want, scal, heights, stat, ny)
+        np.testing.assert_array_equal(got[~differ].cpu().numpy(),
+                                      want[~differ].cpu().numpy())
+    elif kernel == "k6":
+        _check_rewards(args)
+    elif kernel == "k7":
+        assert all(v is None for v in kwargs.values())
+        seed = args[-1]
+        N, H = args[10].shape
+        assert N == n
+        got = cuda_obs.compute_observations_fused(*args)
+        draws = dict(height_noise=cuda_rng.uniform_pm1(seed, (N, H), 0),
+                     obs_noise=cuda_rng.uniform_pm1(
+                         seed, (N, args[14].shape[0]), 1))
+        fed = cuda_obs.observations_plain(*args, **draws)
+        for a, b in zip(got, fed):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    else:
+        seed, shape = args
+        assert tuple(shape)[0] == n
+        assert torch.equal(cuda_rng.uniform_pm1(seed, shape),
+                           cuda_rng.uniform_pm1_plain(seed, shape))

@@ -245,3 +245,46 @@ def test_kernel_staging_plan_reads_every_input(monkeypatch, transposed):
             np.testing.assert_array_equal(cst[-1 - o:-1 - o + size], want,
                                           err_msg=k)
     assert S <= cuda_rewards.MAX_WORDS and C <= cuda_rewards.MAX_CWORDS
+
+
+def test_kernel_staging_plan_fits_the_env_inputs(monkeypatch):
+    """The wrapper's staging plan of the env's own reward inputs fits the
+    kernel's rows at the evaluation widths (lite3_dtc, x30_dtc and
+    lite3_rough at one env, lite3_dtc at 100): at one env every input
+    with a leading dim of 1 is staged per env, so a table handed in as
+    (1, nq) would overflow the env's row (the env passes its tables
+    without an env dim)."""
+    import dataclasses
+    from deep_tracking_control_tpu_torch import cuda_build
+    from deep_tracking_control_tpu_torch.env.legged_env import LeggedEnv
+    from deep_tracking_control_tpu_torch.tasks.registry import get_cfgs
+    got, launched = {}, {}
+    real = cuda_rewards.compute_rewards_fused
+
+    def recorder(*args):
+        got["args"] = args
+        return real(*args)
+    monkeypatch.setattr(cuda_rewards, "compute_rewards_fused", recorder)
+    monkeypatch.setattr(cuda_build, "launch",
+                        lambda name, *args: launched.update(args=args))
+    monkeypatch.setattr(cuda_build, "stream_ptr",
+                        lambda dev: cuda_build.Ptr(0))
+    iparam = _enum(SRC.read_text(), "IParam")
+    for task, n in (("lite3_dtc", 1), ("lite3_dtc", 100), ("x30_dtc", 1),
+                    ("lite3_rough", 1)):
+        cfg, _ = get_cfgs(task)
+        cfg = dataclasses.replace(
+            cfg, env=dataclasses.replace(cfg.env, num_envs=n),
+            control=dataclasses.replace(cfg.control, decimation=2),
+            terrain=dataclasses.replace(cfg.terrain, num_rows=2, num_cols=2,
+                                        border_size=4.0))
+        env = LeggedEnv(cfg, device="cpu")
+        gen = torch.Generator().manual_seed(0)
+        params, state = env.init(gen)
+        env.step(params, state, torch.zeros((n, env.num_actions)), gen)
+        names, scales, ctx, only_positive, term, sum_names, sums = got["args"]
+        cuda_rewards._launch(names, scales, ctx, only_positive, term,
+                             sum_names, sums.clone())
+        ip = launched["args"][3]
+        assert ip[iparam.index("I_OFF_PLANE")] <= cuda_rewards.MAX_WORDS, task
+        assert ip[iparam.index("I_NC")] <= cuda_rewards.MAX_CWORDS, task
