@@ -79,6 +79,20 @@ Phases (each prints its own line; any failure ends the run non-zero):
      env-steps/s; then act_teacher exported at batch 1 on the card
      (torch.export), loaded, and held to the inference policy: max abs
      err 0;
+  11. the other policies (run before phase 9's lines), on phase 3's
+     4096-env lite3_dtc env: a runner each of ActorCritic and the GRU and
+     LSTM ActorCriticRecurrent (PolicyCfg widths: heads (512, 256, 128),
+     rnn_hidden_size 256), a warm-up learn(1) and a timed learn(2) with
+     every launch counted (the default route's kernels once a step; K9
+     once an MLP update, never in a recurrent one), the collection and
+     train-iteration env-steps/s and the update share, and a profile of
+     one update (device ms, device ops); K9 bit for bit on the MLP
+     runner's batch; the recurrent replay against the collected means and
+     values, an act and the inference policy advancing its carry; one
+     update_recurrent of a small GRU and LSTM net on the card against the
+     CPU (TF32 checked off there); a GRU checkpoint through teleop's
+     set-up at 4 envs (keys sent) and an MLP one through play_single's
+     for 50 steps;
   9. a check that no kernel reads under its bytes read over the memory
      rate, a JSON line of the kernels (the main path's, then each at the
      other tasks' and the scripts' shapes), the nvidia-smi line, and the
@@ -1426,12 +1440,10 @@ def small_reference_check(registry, LeggedEnv, device="cuda"):
     return err, int(same.sum())
 
 
-def compare_gather(ppo, batch, gen):
-    """K9 against its plain version on the batch of a real collect, as the
-    update shuffles it (S=1: the flat batch, one group permutation):
-    bit-exact.  Also times torch.index_select on the (C, G*w) view of each
-    field (the library call computing the same function), summed over the
-    fields."""
+def check_gather_bit_exact(ppo, batch, gen):
+    """K9 against its plain version on a collect's batch, as the update
+    shuffles it (S=1 on one card: the flat batch, one group permutation):
+    bit for bit.  Returns (the flat fields, the permutation, G)."""
     import torch
     from deep_tracking_control_tpu_torch.agent.ppo import shuffle_layout
     from deep_tracking_control_tpu_torch.ops import cuda_gather
@@ -1443,10 +1455,22 @@ def compare_gather(ppo, batch, gen):
     perm = torch.randperm(T * N // G, generator=gen, device=gen.device)
     got = cuda_gather.permute_groups(flat, perm, G)
     want = cuda_gather.permute_groups_plain(flat, perm, G)
-    torch.cuda.synchronize()
     for k in flat:
         if not torch.equal(got[k], want[k]):
             raise AssertionError(f"permute_groups: field {k} differs")
+    return flat, perm, G
+
+
+def compare_gather(ppo, batch, gen):
+    """K9 against its plain version on the batch of a real collect, as the
+    update shuffles it (S=1: the flat batch, one group permutation):
+    bit-exact.  Also times torch.index_select on the (C, G*w) view of each
+    field (the library call computing the same function), summed over the
+    fields."""
+    import torch
+    from deep_tracking_control_tpu_torch.ops import cuda_gather
+    T, N = batch["values"].shape
+    flat, perm, G = check_gather_bit_exact(ppo, batch, gen)
     C = perm.shape[0]
     views = [x.reshape(C, -1) for x in flat.values()]
 
@@ -1689,6 +1713,42 @@ def staged_protocol(registry, LeggedEnv, OnPolicyRunner, card, iters=2):
     torch.cuda.empty_cache()
 
 
+def check_cosines(label, named_pairs):
+    """The cosine of two gradients (the CPU's, the card's) per parameter
+    group, from (name, cpu grad, card grad) triples; fails under 0.999.
+    Returns the smallest."""
+    import torch
+    groups = {}
+    for n, a, b in named_pairs:
+        if a is not None:
+            groups.setdefault(n.rsplit(".", 2)[0], []).append(
+                (a.reshape(-1), b.reshape(-1).cpu()))
+    worst = 1.0
+    for grp, pairs in groups.items():
+        a = torch.cat([x for x, _ in pairs]).double()
+        b = torch.cat([y for _, y in pairs]).double()
+        if float(a.norm()) > 0:
+            cos = float(a @ b / (a.norm() * b.norm()))
+            worst = min(worst, cos)
+            if not cos >= 0.999:
+                raise AssertionError(f"{label}: {grp} gradient cosine {cos}")
+    return worst
+
+
+def check_stats(label, cpu, card):
+    """An update's stats on the card against the CPU's: 1e-6 + 1e-3 rel.
+    Returns the largest relative error."""
+    from deep_tracking_control_tpu_torch.agent.ppo import STAT_NAMES
+    rel = 0.0
+    for k in STAT_NAMES:
+        got, want = float(card[k]), float(cpu[k])
+        if not abs(got - want) <= 1e-6 + 1e-3 * abs(want):
+            raise AssertionError(f"{label}: {k} {got} on the card, {want} on "
+                                 f"the CPU")
+        rel = max(rel, abs(got - want) / max(abs(want), 1e-12))
+    return rel
+
+
 def small_update_check():
     """One update of a small ActorCriticDecoder on the card against the
     same update on the CPU: same weights, batch and draws.  The learning
@@ -1742,32 +1802,11 @@ def small_update_check():
         _, _, vg, g = ppo.joint_grads(mb, eps[0, 0].to(dev), eps[0, 1].to(dev))
         grads[dev] = [(opt.names, gs) for opt, gs in
                       ((ppo.vae_optimizer, vg), (ppo.optimizer, g))]
-    worst = 1.0
-    for (names, gc), (_, gg) in zip(grads["cpu"], grads["cuda"]):
-        groups = {}
-        for n, a, b in zip(names, gc, gg):
-            if a is not None:
-                groups.setdefault(n.rsplit(".", 2)[0], []).append(
-                    (a.reshape(-1), b.reshape(-1).cpu()))
-        for grp, pairs in groups.items():
-            a = torch.cat([x for x, _ in pairs]).double()
-            b = torch.cat([y for _, y in pairs]).double()
-            if float(a.norm()) > 0:
-                cos = float(a @ b / (a.norm() * b.norm()))
-                worst = min(worst, cos)
-                if not cos >= 0.999:
-                    raise AssertionError(f"small update: {grp} gradient "
-                                         f"cosine {cos}")
+    worst = min(check_cosines("small update", zip(names, gc, gg))
+                for (names, gc), (_, gg) in zip(grads["cpu"], grads["cuda"]))
     stats = {dev: ppo.update(b, perm=perm.to(dev), eps=eps.to(dev))
              for dev, (ppo, b) in sides.items()}
-    rel = 0.0
-    for k in tppo.STAT_NAMES:
-        got, want = float(stats["cuda"][k]), float(stats["cpu"][k])
-        if not abs(got - want) <= 1e-6 + 1e-3 * abs(want):
-            raise AssertionError(f"small update: {k} {got} on the card, "
-                                 f"{want} on the CPU")
-        rel = max(rel, abs(got - want) / max(abs(want), 1e-12))
-    return worst, rel
+    return worst, check_stats("small update", stats["cpu"], stats["cuda"])
 
 
 def save_load_check(registry, LeggedEnv, OnPolicyRunner):
@@ -2027,6 +2066,282 @@ def deployment_path(log_root, experiment, card):
     return results
 
 
+# the other policies (phase 11): label -> (policy_class_name, rnn_type)
+POLICIES = {"ActorCritic": ("ActorCritic", "gru"),
+            "GRU": ("ActorCriticRecurrent", "gru"),
+            "LSTM": ("ActorCriticRecurrent", "lstm")}
+
+
+def with_policy(train, label):
+    cls, rnn = POLICIES[label]
+    return dataclasses.replace(train, policy=dataclasses.replace(
+        train.policy, policy_class_name=cls, rnn_type=rnn))
+
+
+def check_tf32_off(torch):
+    """The float32 GEMMs of the card-vs-CPU checks must not run in TF32."""
+    flags = dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                 cudnn=torch.backends.cudnn.allow_tf32,
+                 precision=torch.get_float32_matmul_precision())
+    if flags["matmul"] or flags["cudnn"] or flags["precision"] != "highest":
+        raise AssertionError(f"TF32 is on: {flags}")
+
+
+
+
+def check_recurrent_runner(label, runner, batch):
+    """The recurrent replay over a collect's batch from its rollout-start
+    carries against the means and values collected step by step
+    (atol 1e-5 + rtol 1e-5, as tests/test_recurrent_runner.py:78 holds
+    JAX's); an act from the live carries; the inference policy advancing
+    its carry.  Returns the replay's max abs err."""
+    import torch
+    ppo, N = runner.ppo, runner.env.num_envs
+    with torch.no_grad():
+        mean, _, value = ppo.replay(batch["obs"], batch["dones"],
+                                    batch["init_carry_a"],
+                                    batch["init_carry_c"])
+    check_close(f"{label} replay mean", mean, batch["old_mu"], 1e-5, 1e-5)
+    check_close(f"{label} replay value", value, batch["values"], 1e-5, 1e-5)
+    err = max(float((mean - batch["old_mu"]).abs().max()),
+              float((value - batch["values"]).abs().max()))
+    obs = runner.env_state["obs"]
+    carry = (runner.log_state["carry_a"], runner.log_state["carry_c"])
+    a, ca, cc = ppo.act_recurrent(obs, *carry, runner.generator)
+    if a["actions"].shape != (N, runner.env.num_actions) or not bool(
+            torch.isfinite(a["actions"]).all()):
+        raise AssertionError(f"{label} act: {tuple(a['actions'].shape)}")
+    leaves = [c for x in (ca, cc) for c in (x if isinstance(x, tuple)
+                                             else (x,))]
+    if any(c.shape != (N, runner.cfg.policy.rnn_hidden_size)
+           for c in leaves):
+        raise AssertionError(f"{label} act: carries {[c.shape for c in leaves]}")
+    policy = runner.get_inference_policy()
+    fresh = (runner.init_carry(N), runner.init_carry(N))
+    a1, carry = policy(obs, fresh)
+    a2, carry = policy(obs, carry)
+    if not float((a1 - a2).abs().max()) > 0:
+        raise AssertionError(f"{label} inference policy: the carry did not "
+                             f"advance")
+    return err
+
+
+def policy_runner(label, env, train, card, log_root):
+    """Phase 11, one policy: learn(1), then learn(2) with every launch
+    counted from zero; stats finite, params moved; the env-steps/s and
+    the update share; one profiled collect, the policy's own checks on
+    its batch (before the update moves the params), and one profiled
+    update of it; a checkpoint under
+    <log_root>/<label>/<experiment>/run.  Returns the launch counts."""
+    import torch
+    from deep_tracking_control_tpu_torch.runner.train import OnPolicyRunner
+    t0 = time.perf_counter()
+    runner = OnPolicyRunner(env, with_policy(train, label))
+    kind = runner.ppo.policy_kind
+    if kind != ("mlp" if label == "ActorCritic" else "recurrent"):
+        raise AssertionError(f"{label}: policy kind {kind}")
+    runner.learn(1)               # warm-up: the update's allocations
+    setup = runner._clock() - t0
+    before = [p.detach().clone() for p in runner.net.parameters()]
+    zero_launches()
+    t0 = runner._clock()
+    rows = runner.learn(2)
+    wall = runner._clock() - t0
+    counts = launch_counts()
+    T, N = runner.cfg.runner.num_steps_per_env, env.num_envs
+    want = expected_launches(DEFAULT_ROUTE, 2 * T, 2 if kind == "mlp" else 0)
+    if counts != want:
+        raise AssertionError(f"{label} learn(2): launches {counts}, expected "
+                             f"{want}")
+    check_rows(f"{label} learn", rows)
+    if all(torch.equal(a, b) for a, b in zip(before, runner.net.parameters())):
+        raise AssertionError(f"{label} learn: the params did not move")
+    coll = sum(r["collection_time"] for r in rows)
+    learn = sum(r["learning_time"] for r in rows)
+    say(11, f"{label}: learn(2) at {N} envs after one warm-up iteration "
+            f"({setup:.1f} s with the set-up): {2 * T * N / wall:.1f} "
+            f"train-iteration env-steps/s ({wall:.3f} s), collection "
+            f"{2 * T * N / coll:.1f} env-steps/s, update share "
+            f"{learn / (coll + learn):.3f}; launches {counts}; last stats: "
+            + ", ".join(f"{k} {rows[-1][k]:.4g}" for k in (
+                "value_loss", "surrogate_loss", "kl", "lr")) + f" ({card})")
+    _, cbusy, cops, _, (batch, _) = device_busy(runner.collect)
+    if kind == "mlp":
+        flat, _, G = check_gather_bit_exact(runner.ppo, batch,
+                                            runner.generator)
+        say(11, f"{label}: permute_groups vs plain on its batch "
+                f"({len(flat)} fields, {T * N} rows, G={G}): bit-exact")
+    else:
+        err = check_recurrent_runner(label, runner, batch)
+        say(11, f"{label}: replay of a collect's {T} x {N} batch from its "
+                f"rollout-start carries against the collected means and "
+                f"values: max abs err {err:.3e} (budget 1e-5 + 1e-5 rel); "
+                f"act and the inference policy advance the carry")
+    update = runner.ppo.update if kind == "mlp" else runner.ppo.update_recurrent
+    uwall, ubusy, uops, events, _ = device_busy(
+        lambda: update(batch, runner.generator))
+    items = "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3:.2f} ms"
+                      f" x{e.count}" for e in events[:4])
+    say(11, f"{label}: profiled collect {cbusy:.2f} ms device, {cops} ops; "
+            f"update wall {uwall:.1f} ms, device {ubusy:.2f} ms (busy share "
+            f"{ubusy / uwall:.3f}), {uops} device ops; largest: {items} "
+            f"({card})")
+    run = os.path.join(log_root, label, train.runner.experiment_name, "run")
+    os.makedirs(run)
+    runner.save(os.path.join(run, f"model_{runner.current_learning_iteration}"
+                                  ".pt"))
+    del runner, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def small_recurrent_update_check(rnn_type, device="cuda"):
+    """One update_recurrent of a small ActorCriticRecurrent on the card
+    (`device`) against the same update on the CPU: same weights, batch and
+    env draws, TF32 off.  The learning rate is set small so every minibatch's
+    stats are read at (nearly) the same params on both sides: the first
+    minibatch's gradients at cosine >= 0.999 per parameter group and the
+    stats at rtol 1e-3 (the heads compute in bf16; the cells in float32)."""
+    import copy
+    import numpy as np
+    import torch
+    from deep_tracking_control_tpu_torch.agent import ppo as tppo
+    from deep_tracking_control_tpu_torch.env.config import AlgorithmCfg
+    from deep_tracking_control_tpu_torch.models.networks import (
+        ActorCriticRecurrent)
+    check_tf32_off(torch)
+    T, N, H = 8, 64, 32
+    rng = np.random.default_rng(1)
+    f = np.float32
+    mu = rng.normal(0, 0.3, (T, N, 12)).astype(f)
+    sigma = rng.uniform(0.8, 1.2, (T, N, 12)).astype(f)
+    carry = [torch.from_numpy(rng.normal(0, 0.3, (N, H)).astype(f))
+             for _ in range(4)]
+    batch = {k: torch.from_numpy(np.asarray(v)) for k, v in dict(
+        obs=rng.normal(size=(T, N, 53)).astype(f),
+        actions=(mu + sigma * rng.normal(size=(T, N, 12))).astype(f),
+        old_mu=mu, old_sigma=sigma, values=rng.normal(size=(T, N)).astype(f),
+        returns=rng.normal(size=(T, N)).astype(f),
+        advantages=rng.normal(size=(T, N)).astype(f),
+        old_log_prob=rng.normal(-15, 1, (T, N)).astype(f),
+        dones=rng.random((T, N)) < 0.1).items()}
+    batch["init_carry_a"] = (carry[0] if rnn_type == "gru"
+                             else (carry[0], carry[1]))
+    batch["init_carry_c"] = (carry[2] if rnn_type == "gru"
+                             else (carry[2], carry[3]))
+    net = ActorCriticRecurrent(rnn_hidden_size=H, rnn_type=rnn_type,
+                               actor_hidden=(32,), critic_hidden=(32,),
+                               generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():           # trained-scale head weights past layer 0
+        for name, p in net.named_parameters():
+            if (name.endswith("weight") and ".layers.0." not in name
+                    and not name.startswith("memory")):
+                p.mul_(50.0)
+    alg = AlgorithmCfg(learning_rate=1e-7)
+
+    def on(x, dev):
+        if isinstance(x, tuple):
+            return tuple(on(v, dev) for v in x)
+        return x.to(dev)
+    sides = {dev: (tppo.PPO(net=copy.deepcopy(net).to(dev), alg=alg,
+                            policy_kind="recurrent"),
+                   {k: on(v, dev) for k, v in batch.items()})
+             for dev in ("cpu", device)}
+    idx = sides["cpu"][0].draw_recurrent(N, torch.Generator().manual_seed(1),
+                                         "cpu")
+    label = f"small {rnn_type} update"
+    grads = {dev: ppo.recurrent_grads(b, idx[0].to(dev))[1]
+             for dev, (ppo, b) in sides.items()}
+    worst = check_cosines(label, zip(sides["cpu"][0].optimizer.names,
+                                     grads["cpu"], grads[device]))
+    stats = {dev: ppo.update_recurrent(b, env_idx=idx)
+             for dev, (ppo, b) in sides.items()}
+    return worst, check_stats(label, stats["cpu"], stats[device])
+
+
+def policy_scripts(log_root, card, device="cuda"):
+    """Phase 11: the GRU checkpoint through teleop's own set-up at 4 envs
+    (the keys w w a q n r, each followed by a step; launches of the debug
+    route), the MLP one through play_single's for 50 steps (launches of
+    the default route)."""
+    import torch
+    from deep_tracking_control_tpu_torch.runner import checkpoint as ckpt
+    from deep_tracking_control_tpu_torch.scripts import (common, play_single,
+                                                         teleop)
+
+    def transform(label):
+        return lambda task, train: (task, with_policy(train, label))
+    argv = ["--task", "lite3_dtc", "--device", device]
+    root = os.path.join(log_root, "GRU")
+    sess = teleop.build(teleop.parse_args(
+        argv + ["--log_root", root, "--num_envs", "4"]),
+        transform=transform("GRU"))
+    zero_launches()
+    t0 = time.perf_counter()
+    for k in TELEOP_KEYS:
+        if not sess.handle_key(ord(k)):
+            raise AssertionError(f"teleop (GRU): key {k} ended the session")
+        tel = sess.step()
+    wall = time.perf_counter() - t0
+    want = expected_launches(DEBUG_ROUTE, len(TELEOP_KEYS))
+    want["uniform_pm1"] += 1          # the R key's reset
+    counts = launch_counts()
+    if counts != want or not math.isfinite(sum(tel["vel"])):
+        raise AssertionError(f"teleop (GRU): launches {counts}, expected "
+                             f"{want}; telemetry {tel}")
+    say(11, f"teleop from the GRU checkpoint at {sess.env.num_envs} envs: "
+            f"keys {' '.join(TELEOP_KEYS)}, {len(TELEOP_KEYS)} steps in "
+            f"{wall:.3f} s, vel ({tel['vel'][0]:+.3f} {tel['vel'][1]:+.3f}); "
+            f"launches {counts} ({card})")
+    root = os.path.join(log_root, "ActorCritic")
+    env, runner, policy = play_single.setup(
+        common.parse_args(argv + ["--log_root", root]),
+        transform=transform("ActorCritic"))
+    saved = ckpt.load(ckpt.get_load_path(os.path.join(
+        root, runner.cfg.runner.experiment_name)), device)["params"]
+    if (runner.ppo.policy_kind != "mlp" or int(runner.ppo.optimizer.count)
+            or any(not torch.equal(v, saved[k])
+                   for k, v in runner.net.state_dict().items())):
+        raise AssertionError(f"play_single: {runner.ppo.policy_kind} policy, "
+                             f"optimizer count {int(runner.ppo.optimizer.count)}"
+                             f", params loaded: not all")
+    steps = DEPLOY["play_single"][1]
+    zero_launches()
+    t0 = runner._clock()
+    state, log = play_single.rollout(
+        env, runner.env_params, runner.env_state, policy,
+        torch.Generator(device).manual_seed(7), steps)
+    wall = runner._clock() - t0
+    counts = launch_counts()
+    if counts != expected_launches(DEFAULT_ROUTE, steps):
+        raise AssertionError(f"play_single (ActorCritic): launches {counts}")
+    if not bool(torch.isfinite(state["obs"]).all()):
+        raise AssertionError("play_single (ActorCritic): obs not finite")
+    say(11, f"play_single from the ActorCritic checkpoint: {steps} steps in "
+            f"{wall:.3f} s ({steps / wall:.1f} env-steps/s), last step cmd_x "
+            f"{log[-1, 0]:+.2f} vel_x {log[-1, 1]:+.3f} z {log[-1, 2]:+.3f}; "
+            f"launches {counts} ({card})")
+
+
+def other_policies(env, train, card):
+    """Phase 11: the three policies on phase 3's env, the small recurrent
+    updates card vs CPU, and the scripts from the checkpoints."""
+    import torch
+    t0 = time.perf_counter()
+    log_root = tempfile.mkdtemp(dir=HERE)
+    atexit.register(shutil.rmtree, log_root, True)
+    for label in POLICIES:
+        policy_runner(label, env, train, card, log_root)
+    for rnn in ("gru", "lstm"):
+        cos, rel = small_recurrent_update_check(rnn, env.device)
+        say(11, f"small {rnn} update_recurrent on the card vs on the CPU "
+                f"(TF32 off): gradient cosine >= {cos:.6f} (budget 0.999), "
+                f"stats max rel err {rel:.3e} (budget 1e-3)")
+    policy_scripts(log_root, card, env.device.type)
+    torch.cuda.empty_cache()
+    say(11, f"other policies in {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2204,6 +2519,9 @@ def main():
 
     # ---- 10: the deployment path ------------------------------------------
     results.update(deployment_path(deploy_root, experiment, card))
+
+    # ---- 11: the other policies ------------------------------------------
+    other_policies(env, train, card)
 
     # ---- 9: result lines ----------------------------------------------
     # each timed call found its inputs in HBM (`timing_probes`): a kernel

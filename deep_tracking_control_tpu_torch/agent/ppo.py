@@ -1,18 +1,27 @@
-"""PPO on torch tensors: acting, GAE and the joint VAE + policy update.
+"""PPO on torch tensors: acting, GAE, the joint VAE + policy update and
+the recurrent update.
 
-Counterpart of the JAX package's agent/ppo.py for the ActorCriticDecoder
-(its policy_kind "decoder"; rsl_rl ppo.py:137-155 act,
-rollout_storage.py:138-152 compute_returns, ppo.py:174-357 update): the
-5-epoch x 4-minibatch update over the flattened (T*N) batch, with ONE
-grouped permutation per update applied by the gather kernel
-(ops/cuda_gather.py) and reused by every epoch, the fused (Jacobi) or the
-sequential VAE+policy step, the adaptive-KL learning rate and the two Adam
-optimizers in optax's exact form.  The MLP and recurrent policies are not
-ported yet.
+Counterpart of the JAX package's agent/ppo.py (rsl_rl ppo.py:137-155 act,
+rollout_storage.py:138-152 compute_returns, ppo.py:174-357 update) for
+its three policy kinds:
+  "decoder"   ActorCriticDecoder: the 5-epoch x 4-minibatch update over
+              the flattened (T*N) batch, with ONE grouped permutation per
+              update applied by the gather kernel (ops/cuda_gather.py) and
+              reused by every epoch, the fused (Jacobi) or the sequential
+              VAE+policy step;
+  "mlp"       ActorCritic: actor(obs), critic(obs); the same shuffle and
+              minibatches, no VAE step (its four stats are zeros);
+  "recurrent" ActorCriticRecurrent: act_recurrent threads the GRU/LSTM
+              carries through the rollout; update_recurrent minibatches
+              over envs and replays the cells over the T steps from the
+              rollout-start carry, resetting it at every done (BPTT).
+Each has the adaptive-KL learning rate and the Adam optimizers in optax's
+exact form.
 
-Random draws (the group permutation and the standard normal draws of the
-reparameterized latents) are arguments; they come from a torch.Generator
-when not given, so tests can feed the JAX package's draws.
+Random draws (the group or env permutations, the standard normal draws of
+the actions and of the reparameterized latents) are arguments; they come
+from a torch.Generator when not given, so tests can feed the JAX
+package's draws.
 """
 from __future__ import annotations
 
@@ -26,6 +35,9 @@ import torch
 from ..env.config import AlgorithmCfg
 from ..ops import cuda_gather
 from ..utils.flags import strict_parity
+from .trajectories import rnn_replay, tree_map
+
+POLICY_KINDS = ("decoder", "mlp", "recurrent")
 
 # the nine stats of an update, averaged over its minibatch steps
 STAT_NAMES = ("value_loss", "surrogate_loss", "entropy", "kl", "recons_loss",
@@ -55,12 +67,14 @@ class ClippedAdam:
     bias-corrected by 1 - b^t.  With injected=True the hyperparameters are
     float32 values, as optax.inject_hyperparams stores them, so the moment
     weights 1 - b are formed in float32 (1 - f32(0.999) is 1.3e-5 off
-    0.001).  The moments live in two flat float32 buffers, so one step is a
-    few dozen device ops whatever the number of parameters; a missing
-    gradient counts as zero."""
+    0.001).  The moments live in two flat float32 buffers on `device`, so
+    one step is a few dozen device ops whatever the number of parameters; a
+    missing gradient counts as zero.  The list may be empty (the VAE
+    optimizer of a net without a VAE): its state is the count alone."""
 
-    def __init__(self, named_params, max_norm: float, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8, injected: bool = False):
+    def __init__(self, named_params, max_norm: float, device,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 injected: bool = False):
         named_params = list(named_params)
         self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
@@ -68,7 +82,7 @@ class ClippedAdam:
         one = np.float32(1.0) if injected else 1.0
         self.c1 = float(one - (np.float32(b1) if injected else b1))
         self.c2 = float(one - (np.float32(b2) if injected else b2))
-        dev = self.params[0].device
+        dev = torch.device(device)
         size = sum(p.numel() for p in self.params)
         self.mu = torch.zeros(size, device=dev)
         self.nu = torch.zeros(size, device=dev)
@@ -121,12 +135,14 @@ class ClippedAdam:
 def make_optimizers(net, alg: AlgorithmCfg):
     """(main, vae) optimizers (ppo.py:40-50): the main one spans every
     parameter, its learning rate injected each minibatch; the VAE one spans
-    the vae subtree only (mask_non_vae, ppo.py:519-525) at
-    vae_learning_rate, clipped on the VAE gradient's own norm."""
+    the vae subtree only (mask_non_vae, ppo.py:519-525; none of the MLP and
+    recurrent nets) at vae_learning_rate, clipped on the VAE gradient's own
+    norm."""
     named = list(net.named_parameters())
-    main = ClippedAdam(named, alg.max_grad_norm, injected=True)
+    dev = net.std.device
+    main = ClippedAdam(named, alg.max_grad_norm, dev, injected=True)
     vae = ClippedAdam([(n, p) for n, p in named if n.startswith("vae.")],
-                      alg.max_grad_norm)
+                      alg.max_grad_norm, dev)
     return main, vae
 
 
@@ -152,14 +168,19 @@ def shuffle_layout(alg: AlgorithmCfg, T: int, N: int, n_env_shards: int = 1):
 
 @dataclasses.dataclass
 class PPO:
-    """PPO over an ActorCriticDecoder (the reference's teacher path).  With
-    a net it owns the two optimizers and the learning rate, a 0-d tensor on
-    the net's device."""
+    """PPO over an actor-critic of `policy_kind` (POLICY_KINDS: the
+    ActorCriticDecoder, ActorCritic or ActorCriticRecurrent).  With a net
+    it owns the two optimizers and the learning rate, a 0-d tensor on the
+    net's device."""
     net: Any
     alg: AlgorithmCfg
     n_env_shards: int = 1
+    policy_kind: str = "decoder"
 
     def __post_init__(self):
+        if self.policy_kind not in POLICY_KINDS:
+            raise ValueError(f"policy_kind {self.policy_kind!r}: one of "
+                             f"{POLICY_KINDS}")
         if self.net is not None:
             self.optimizer, self.vae_optimizer = make_optimizers(self.net,
                                                                  self.alg)
@@ -168,28 +189,63 @@ class PPO:
                 device=self.net.std.device)
 
     def value(self, obs, privileged_obs, base_vel):
-        return self.net.evaluate(obs, privileged_obs, base_vel)
+        """The critic of a decoder or MLP net (the MLP's reads the obs)."""
+        if self.policy_kind == "decoder":
+            return self.net.evaluate(obs, privileged_obs, base_vel)
+        return self.net(obs, obs)[2]
+
+    @staticmethod
+    def _sample(mean, std, eps_a, generator):
+        if eps_a is None:
+            eps_a = torch.randn(mean.shape, generator=generator,
+                                device=mean.device)
+        actions = mean + std * eps_a
+        return dict(actions=actions,
+                    log_prob=normal_log_prob(mean, std, actions),
+                    mu=mean, sigma=std)
 
     @torch.no_grad()
     def act(self, obs, obs_history, privileged_obs, base_vel,
             generator: torch.Generator, eps_z=None, eps_a=None):
-        """Sample actions + stats (PPO.act, ppo.py:137-155).  eps_z
-        (N, z_dim) and eps_a (N, num_actions) are the standard normal draws
-        of the latent and the action; drawn from `generator` when None."""
-        N = obs.shape[0]
-        if eps_z is None:
-            eps_z = torch.randn((N, self.net.z_dim), generator=generator,
-                                device=obs.device)
-        mean, std, _, _ = self.net.act_stats(obs, obs_history, privileged_obs,
-                                             eps_z)
-        if eps_a is None:
-            eps_a = torch.randn(mean.shape, generator=generator,
-                                device=obs.device)
-        actions = mean + std * eps_a
-        return dict(actions=actions,
-                    log_prob=normal_log_prob(mean, std, actions),
-                    values=self.value(obs, privileged_obs, base_vel),
-                    mu=mean, sigma=std)
+        """Sample actions + stats (PPO.act, ppo.py:137-155) of a decoder or
+        MLP net.  eps_z (N, z_dim; the decoder's only) and eps_a
+        (N, num_actions) are the standard normal draws of the latent and
+        the action; drawn from `generator` when None."""
+        if self.policy_kind == "decoder":
+            if eps_z is None:
+                eps_z = torch.randn((obs.shape[0], self.net.z_dim),
+                                    generator=generator, device=obs.device)
+            mean, std, _, _ = self.net.act_stats(obs, obs_history,
+                                                 privileged_obs, eps_z)
+            values = self.value(obs, privileged_obs, base_vel)
+        else:
+            mean, std, values = self.net(obs, obs)
+        return dict(self._sample(mean, std, eps_a, generator), values=values)
+
+    @torch.no_grad()
+    def act_recurrent(self, obs, carry_a, carry_c,
+                      generator: torch.Generator | None = None, eps_a=None):
+        """One recurrent acting step (ppo.py:103-110): (stats, carry_a,
+        carry_c) with the carries advanced by obs; eps_a (N, num_actions)
+        is the action draw, from `generator` when None."""
+        mean, std, values, carry_a, carry_c = self.net(obs, obs, carry_a,
+                                                       carry_c)
+        return (dict(self._sample(mean, std, eps_a, generator),
+                     values=values), carry_a, carry_c)
+
+    def replay(self, obs_seq, dones, init_a, init_c):
+        """The recurrent net over a stored (T, M, D) rollout from the
+        rollout-start carries (ppo.py:112-129): dones[t] is the done that
+        env.step returned at step t, so the carries are zeroed after obs[t]
+        is consumed, as the collection resets them.  Returns (mean, std,
+        value) stacked over T."""
+        def step(carry, obs):
+            mean, std, value, ca, cc = self.net(obs, obs, *carry)
+            return (ca, cc), (mean, std, value)
+        init = (init_a, init_c)
+        _, out = rnn_replay(step, init, obs_seq, dones,
+                            tree_map(torch.zeros_like, init))
+        return out
 
     def compute_gae(self, rewards, dones, values, last_values):
         """compute_returns (rollout_storage.py:138-152): rewards/dones/values
@@ -295,17 +351,31 @@ class PPO:
 
     def draw(self, T: int, N: int, generator: torch.Generator, device):
         """The update's random draws: the group permutation of each stratum
-        (S, rows_s // G) and the standard normal latent draws
-        (steps, 2, minibatch rows, z_dim), [:, 0] for the VAE head and
-        [:, 1] for the policy."""
+        (S, rows_s // G) and, for the decoder (else None), the standard
+        normal latent draws (steps, 2, minibatch rows, z_dim), [:, 0] for
+        the VAE head and [:, 1] for the policy."""
         alg = self.alg
         S, rows_s, _, G = shuffle_layout(alg, T, N, self.n_env_shards)
         perm = torch.stack([torch.randperm(rows_s // G, generator=generator,
                                            device=device) for _ in range(S)])
+        if self.policy_kind != "decoder":
+            return perm, None
         steps = alg.num_learning_epochs * alg.num_mini_batches
         eps = torch.randn((steps, 2, T * N // alg.num_mini_batches,
                            self.net.z_dim), generator=generator, device=device)
         return perm, eps
+
+    def draw_recurrent(self, N: int, generator: torch.Generator, device):
+        """The recurrent update's draw (ppo.py:179-181): a fresh permutation
+        of the N envs each epoch, cut to nmb * (N // nmb) and split into the
+        nmb minibatches: (epochs * nmb, N // nmb) env indices."""
+        alg = self.alg
+        nmb = alg.num_mini_batches
+        mb_envs = N // nmb
+        return torch.cat([
+            torch.randperm(N, generator=generator, device=device)
+            [:nmb * mb_envs].reshape(nmb, mb_envs)
+            for _ in range(alg.num_learning_epochs)])
 
     def shuffle(self, batch: dict, perm) -> dict:
         """The batch permuted once for the whole update (ppo.py:307-346):
@@ -351,22 +421,34 @@ class PPO:
         batch: (T, N, ...) fields obs, next_obs, privileged_obs,
         obs_history, base_vel, actions, values, returns, advantages,
         old_log_prob, old_mu, old_sigma.  perm (S, rows_s // G) and eps
-        (steps, 2, minibatch rows, z_dim) as `draw` makes them from
-        `generator` when not given.  Returns the nine stats (STAT_NAMES),
-        0-d tensors averaged over the minibatch steps."""
+        (steps, 2, minibatch rows, z_dim; the decoder's only) as `draw`
+        makes them from `generator` when not given.  The MLP net's step is
+        the policy step alone (ppo.py:445-472), its VAE stats zeros.
+        Returns the nine stats (STAT_NAMES), 0-d tensors averaged over the
+        minibatch steps."""
         alg = self.alg
         T, N = batch["values"].shape
+        dev = batch["values"].device
         S = shuffle_layout(alg, T, N, self.n_env_shards)[0]
-        if perm is None or eps is None:
-            dperm, deps = self.draw(T, N, generator, batch["values"].device)
+        decoder = self.policy_kind == "decoder"
+        if perm is None or (decoder and eps is None):
+            dperm, deps = self.draw(T, N, generator, dev)
             perm = dperm if perm is None else perm
             eps = deps if eps is None else eps
         flat = self.shuffle(batch, perm)
         lr = self.learning_rate
+        zeros = (torch.zeros((), device=dev),) * 4
         stats = []
         for i in range(alg.num_learning_epochs * alg.num_mini_batches):
             mb = self.minibatch(flat, i, S)
-            if alg.fused_joint_step:
+            if not decoder:
+                with torch.enable_grad():
+                    mean, std, value = self.net(mb["obs"], mb["obs"])
+                    pol = self._pol_terms(mean, std, value, mb)
+                    grads = torch.autograd.grad(pol[0], self.optimizer.params,
+                                                allow_unused=True)
+                parts = zeros
+            elif alg.fused_joint_step:
                 parts, pol, vae_grads, grads = self.joint_grads(
                     mb, eps[i, 0], eps[i, 1])
                 self.vae_optimizer.step(vae_grads, alg.vae_learning_rate)
@@ -377,6 +459,58 @@ class PPO:
             lr = self.adapt_lr(lr, kl)
             self.optimizer.step(grads, lr)
             stats.append(torch.stack([value_loss, surr, entropy, kl, *parts,
+                                      lr]).detach())
+        self.learning_rate = lr
+        means = torch.stack(stats).mean(dim=0)
+        return dict(zip(STAT_NAMES, means.unbind()))
+
+    def recurrent_grads(self, batch: dict, idx):
+        """One recurrent minibatch (ppo.py:183-216): the envs idx of every
+        field, taken on the env axis (axis 0 of the carries), the replay
+        and its policy terms; returns (terms, gradients over every
+        parameter) as _pol_terms and joint_grads give them."""
+        mb = {k: tree_map(lambda x: x.index_select(
+                  0 if k.startswith("init_carry") else 1, idx), v)
+              for k, v in batch.items()}
+        with torch.enable_grad():
+            mean, std, value = self.replay(mb["obs"], mb["dones"],
+                                           mb["init_carry_a"],
+                                           mb["init_carry_c"])
+            pol = self._pol_terms(mean, std, value, mb)
+            grads = torch.autograd.grad(pol[0], self.optimizer.params,
+                                        allow_unused=True)
+        return pol, grads
+
+    @torch.no_grad()
+    def update_recurrent(self, batch: dict,
+                         generator: torch.Generator | None = None,
+                         env_idx=None) -> dict:
+        """Recurrent PPO update (ppo.py:167-244): each minibatch takes its
+        envs on the env axis of every (T, N, ...) field and of the
+        rollout-start carries (N, H), replays the net over the T steps
+        (BPTT through the carries) and steps the main optimizer at the
+        adaptive-KL rate; no VAE step, its four stats zeros.
+
+        batch: obs, actions, values, returns, advantages, old_log_prob,
+        old_mu, old_sigma, dones (T, N) and init_carry_a/init_carry_c.
+        env_idx (epochs * nmb, N // nmb) as `draw_recurrent` makes it from
+        `generator` when None.  The value loss honours
+        use_clipped_value_loss (the JAX update always clips).  Returns the
+        nine stats (STAT_NAMES), averaged over the minibatch steps."""
+        N = batch["values"].shape[1]
+        dev = batch["values"].device
+        if env_idx is None:
+            env_idx = self.draw_recurrent(N, generator, dev)
+        env_idx = env_idx.to(device=dev, dtype=torch.int64)
+        lr = self.learning_rate
+        zeros = (torch.zeros((), device=dev),) * 4
+        stats = []
+        for idx in env_idx:
+            pol, grads = self.recurrent_grads(batch, idx)
+            _, surr, value_loss, entropy, kl = pol
+            lr = self.adapt_lr(lr, kl)
+            self.optimizer.step(grads, lr)
+            stats.append(torch.stack([value_loss, surr, entropy, kl, *zeros,
                                       lr]).detach())
         self.learning_rate = lr
         means = torch.stack(stats).mean(dim=0)

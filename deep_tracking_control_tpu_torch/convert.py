@@ -3,8 +3,9 @@
 Both functions take plain numpy trees (``jax.tree.map(np.asarray, tree)``
 on the JAX side), so this module needs no JAX.
 
-  params_from_flax(tree)   flax ActorCriticDecoder params -> the
-                           state_dict of models.networks.ActorCriticDecoder
+  params_from_flax(tree)   flax ActorCriticDecoder, ActorCritic or
+                           ActorCriticRecurrent params -> the state_dict
+                           of the same class in models.networks
   opt_state_from_optax(..) the optax states of the JAX update's two
                            optimizers and its learning rate -> the state of
                            this package's PPO optimizers
@@ -24,9 +25,10 @@ from .terrain.grid import TerrainGrid
 
 def params_from_flax(tree) -> dict:
     """flax params (nested dicts of numpy arrays, with or without the
-    top-level "params" key) -> ActorCriticDecoder state_dict.  A flax Dense
-    kernel is (in, out); a torch weight is (out, in), so kernels are
-    transposed.  Submodules named Dense_i become layers.i."""
+    top-level "params" key) -> the state_dict of the same net here.  A flax
+    Dense kernel is (in, out); a torch weight is (out, in), so kernels are
+    transposed.  Submodules named Dense_i become layers.i, and a Memory's
+    GRUCell_0 / OptimizedLSTMCell_0 its cell."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     out = {}
@@ -36,7 +38,9 @@ def params_from_flax(tree) -> dict:
             for k, v in node.items():
                 walk(v, path + [k])
             return
-        names = [re.sub(r"^Dense_(\d+)$", r"layers.\1", p) for p in path]
+        names = [re.sub(r"^(GRUCell|OptimizedLSTMCell)_0$", "cell",
+                        re.sub(r"^Dense_(\d+)$", r"layers.\1", p))
+                 for p in path]
         arr = np.asarray(node, dtype=np.float32)
         if names[-1] == "kernel":
             names[-1] = "weight"
@@ -69,11 +73,17 @@ def opt_state_from_optax(opt_state, vae_opt_state, lr) -> dict:
     PPO.optimizer / PPO.vae_optimizer `load_state_dict` and
     PPO.learning_rate: the Adam moments per parameter under the leaf
     mapping of params_from_flax (the VAE optimizer keeps only the vae
-    subtree: its moments elsewhere are zero, mask_non_vae)."""
+    subtree: its moments elsewhere are zero, mask_non_vae; for the MLP and
+    recurrent nets, which have none, it keeps no moments, and
+    vae_opt_state may be None: update_recurrent has no VAE state)."""
     out = {}
     for name, state, keep in (("opt_state", opt_state, lambda n: True),
                               ("vae_opt_state", vae_opt_state,
                                lambda n: n.startswith("vae."))):
+        if state is None and name == "vae_opt_state":
+            out[name] = dict(count=torch.tensor(0, dtype=torch.int32),
+                             mu={}, nu={})
+            continue
         adam = _adam_state(state)
         if adam is None:
             raise ValueError(f"{name}: no Adam state (count, mu, nu) found")

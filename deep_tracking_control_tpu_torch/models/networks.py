@@ -1,7 +1,9 @@
-"""Actor-critic networks as torch nn.Modules — the ActorCriticDecoder.
+"""Actor-critic networks as torch nn.Modules: the ActorCriticDecoder, the
+plain ActorCritic and the GRU/LSTM ActorCriticRecurrent.
 
 Counterpart of the JAX package's models/networks.py (parity with
-rsl_rl/modules/actor_critic_decoder.py, the live teacher path).
+rsl_rl/modules/actor_critic_decoder.py, the live teacher path, and
+actor_critic.py:38 / actor_critic_recurrent.py:40).
 
 Architecture (dims from AC_Args, actor_critic_decoder.py:36-88,118-119):
   Vae:
@@ -15,10 +17,15 @@ Architecture (dims from AC_Args, actor_critic_decoder.py:36-88,118-119):
   actor_body  (53+16+3+512) -> 512 -> 256 -> 128 -> 12   (ELU)
   critic_body (53+3+3+693)=752 -> 512 -> 256 -> 128 -> 1 (ELU)
   learned global std (12,), init 1.0 (:364)
+ActorCritic: actor and critic MLPs on the obs.  ActorCriticRecurrent: a
+GRU or LSTM Memory per head (flax's GRUCell / OptimizedLSTMCell, float32)
+in front of the actor and critic MLPs.
 
 The MLPs keep float32 parameters and compute in bfloat16 with a float32
 output, rounding where the JAX package rounds: inputs cast to bf16 before
-the concat, the matmul rounded to bf16, then the bias added in bf16.
+the concat, the matmul rounded to bf16, then the bias added in bf16.  The
+recurrent cells compute in float32, as flax does (dtype None).  Submodule
+names follow flax's, so convert.params_from_flax maps the weights.
 """
 from __future__ import annotations
 
@@ -39,16 +46,18 @@ _ACTIVATIONS = {"elu": F.elu, "relu": F.relu, "selu": F.selu, "crelu": F.relu,
 class Dense(nn.Module):
     """y = x W^T + b with the weight (out, in); `init` is "lecun" (flax's
     default Dense init: truncated normal, variance 1/fan_in) or
-    "orthogonal" (gain 0.01, layer_init :268-272).  Biases start at 0."""
+    "orthogonal" (gain 0.01 as layer_init :268-272; 1 for the recurrent
+    cells' hidden layers).  Biases start at 0; use_bias=False has none."""
 
     def __init__(self, fan_in: int, fan_out: int, init: str = "lecun",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, gain: float = 0.01,
+                 use_bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(fan_out, fan_in))
-        self.bias = nn.Parameter(torch.zeros(fan_out))
+        self.bias = nn.Parameter(torch.zeros(fan_out)) if use_bias else None
         with torch.no_grad():
             if init == "orthogonal":
-                nn.init.orthogonal_(self.weight, gain=0.01, generator=generator)
+                nn.init.orthogonal_(self.weight, gain=gain, generator=generator)
             else:
                 # stddev of the [-2, 2]-truncated unit normal (flax)
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -57,7 +66,8 @@ class Dense(nn.Module):
 
     def forward(self, x):
         if x.dtype == BF16:
-            return F.linear(x, self.weight.to(BF16)) + self.bias.to(BF16)
+            y = F.linear(x, self.weight.to(BF16))
+            return y if self.bias is None else y + self.bias.to(BF16)
         return F.linear(x, self.weight, self.bias)
 
 
@@ -295,3 +305,132 @@ class ActorCriticDecoder(nn.Module):
         mean = self.actor_body(bf16_concat(obs, z_p, mu[..., :3], l_t))
         value = self.evaluate(obs, privileged_obs, base_vel)
         return parts, mean, self.std.expand_as(mean), value
+
+
+class ActorCritic(nn.Module):
+    """Baseline MLP actor-critic (actor_critic.py:38-155)."""
+
+    def __init__(self, num_obs=53, num_critic_obs=53, num_actions=12,
+                 actor_hidden=(512, 256, 128), critic_hidden=(512, 256, 128),
+                 activation="elu", init_noise_std=1.0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.actor = MLP(num_obs, actor_hidden, num_actions, activation,
+                         generator=generator)
+        self.critic = MLP(num_critic_obs, critic_hidden, 1, activation,
+                          generator=generator)
+        self.std = nn.Parameter(init_noise_std * torch.ones(num_actions))
+
+    def forward(self, obs, critic_obs):
+        """(mean, std, value)."""
+        mean = self.actor(obs)
+        return mean, self.std.expand_as(mean), self.critic(critic_obs)[..., 0]
+
+
+class GRUCell(nn.Module):
+    """flax.linen.GRUCell in float32: r = sigmoid(ir(x) + hr(h)),
+    z = sigmoid(iz(x) + hz(h)), n = tanh(in(x) + r * hn(h)),
+    h' = (1 - z) n + z h.  The input layers ir/iz/in (lecun-normal) and hn
+    have biases, hr and hz none; the hidden layers start orthogonal."""
+
+    def __init__(self, fan_in: int, hidden: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        for g in "rzn":
+            self.add_module("i" + g, Dense(fan_in, hidden, "lecun", generator))
+            self.add_module("h" + g, Dense(hidden, hidden, "orthogonal",
+                                           generator, gain=1.0,
+                                           use_bias=g == "n"))
+
+    def forward(self, h, x):
+        """(carry, output) = (h', h') for the carry h (N, H) and input x."""
+        m = self._modules
+        r = torch.sigmoid(m["ir"](x) + m["hr"](h))
+        z = torch.sigmoid(m["iz"](x) + m["hz"](h))
+        n = torch.tanh(m["in"](x) + r * m["hn"](h))
+        h = (1.0 - z) * n + z * h
+        return h, h
+
+
+class LSTMCell(nn.Module):
+    """flax.linen.OptimizedLSTMCell in float32 on the carry (c, h): gates
+    i, f, o = sigmoid(h·(x) + i·(x)), g = tanh(...), c' = f c + i g,
+    h' = o tanh(c').  The input layers ii/if/ig/io (lecun-normal) have no
+    bias, the hidden layers hi/hf/hg/ho (orthogonal) have one; no
+    forget-gate offset."""
+
+    def __init__(self, fan_in: int, hidden: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        for g in "ifgo":
+            self.add_module("i" + g, Dense(fan_in, hidden, "lecun", generator,
+                                           use_bias=False))
+            self.add_module("h" + g, Dense(hidden, hidden, "orthogonal",
+                                           generator, gain=1.0))
+
+    def forward(self, carry, x):
+        """((c', h'), h') for the carry (c, h), each (N, H), and input x."""
+        c, h = carry
+        m = self._modules
+        i = torch.sigmoid(m["hi"](h) + m["ii"](x))
+        f = torch.sigmoid(m["hf"](h) + m["if"](x))
+        g = torch.tanh(m["hg"](h) + m["ig"](x))
+        o = torch.sigmoid(m["ho"](h) + m["io"](x))
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        return (c, h), h
+
+
+class Memory(nn.Module):
+    """GRU/LSTM memory (Memory, actor_critic_decoder.py:584-614): one cell,
+    rnn_type "gru" or "lstm"."""
+
+    def __init__(self, fan_in: int, hidden_size: int = 256,
+                 rnn_type: str = "gru",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        cells = {"gru": GRUCell, "lstm": LSTMCell}
+        if rnn_type not in cells:
+            raise ValueError(f"rnn_type {rnn_type!r}: 'gru' or 'lstm'")
+        self.rnn_type = rnn_type
+        self.hidden_size = hidden_size
+        self.cell = cells[rnn_type](fan_in, hidden_size, generator)
+
+    def forward(self, x, carry):
+        """(carry, output) after one step on the input x."""
+        return self.cell(carry, x)
+
+    def initialize_carry(self, batch: int, device=None):
+        """The zero carry of `batch` rows: (N, H) for a GRU, (c, h) for an
+        LSTM (flax's cell defaults)."""
+        z = torch.zeros((batch, self.hidden_size), device=device)
+        return z if self.rnn_type == "gru" else (z, z.clone())
+
+
+class ActorCriticRecurrent(nn.Module):
+    """RNN actor-critic (actor_critic_recurrent.py:40-115): obs -> memory ->
+    MLP head, for the actor and the critic each; the carries of both
+    memories are threaded through by the caller."""
+
+    def __init__(self, num_obs=53, num_critic_obs=53, num_actions=12,
+                 rnn_hidden_size=256, rnn_type="gru",
+                 actor_hidden=(512, 256, 128), critic_hidden=(512, 256, 128),
+                 activation="elu", init_noise_std=1.0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        g = generator
+        self.memory_a = Memory(num_obs, rnn_hidden_size, rnn_type, g)
+        self.memory_c = Memory(num_critic_obs, rnn_hidden_size, rnn_type, g)
+        self.actor = MLP(rnn_hidden_size, actor_hidden, num_actions,
+                         activation, generator=g)
+        self.critic = MLP(rnn_hidden_size, critic_hidden, 1, activation,
+                          generator=g)
+        self.std = nn.Parameter(init_noise_std * torch.ones(num_actions))
+
+    def forward(self, obs, critic_obs, carry_a, carry_c):
+        """(mean, std, value, carry_a, carry_c) after one step."""
+        carry_a, ha = self.memory_a(obs, carry_a)
+        carry_c, hc = self.memory_c(critic_obs, carry_c)
+        mean = self.actor(ha)
+        value = self.critic(hc)[..., 0]
+        return mean, self.std.expand_as(mean), value, carry_a, carry_c

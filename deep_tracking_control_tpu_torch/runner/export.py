@@ -41,7 +41,12 @@ def export_policy(net, num_obs: int, num_obs_history: int,
                   batch_size: int = 1) -> str:
     """Write act_teacher(obs, obs_history, privileged_obs) -> actions at a
     fixed deployment batch (default 1 robot), float32 inputs on the net's
-    device.  Returns the written file (<path>/policy.pt2)."""
+    device.  Returns the written file (<path>/policy.pt2).  Only the
+    ActorCriticDecoder has act_teacher, as in the JAX package: another net
+    raises ValueError."""
+    if not hasattr(net, "act_teacher"):
+        raise ValueError(f"export_policy exports act_teacher, which "
+                         f"{type(net).__name__} does not have")
     os.makedirs(path, exist_ok=True)
     dev = next(net.parameters()).device
     args = tuple(torch.zeros((batch_size, d), device=dev)

@@ -1,13 +1,18 @@
-"""OnPolicyRunner — rollout collection, the PPO+VAE update, the training
-loop and checkpoints.
+"""OnPolicyRunner — rollout collection, the PPO update, the training loop
+and checkpoints.
 
 Counterpart of the JAX package's runner/train.py (rsl_rl
-on_policy_runner.py:45-274) for the ActorCriticDecoder.  Each iteration
-of `learn` runs `collect` (24 x PPO.act -> LeggedEnv.step with the timeout
-bootstrap, bf16 storage of the privileged obs and the obs history,
-episode bookkeeping, the last values and GAE), then `PPO.update`, in one
-plain loop on the env's device; the stats leave the device once per
-iteration as one packed tensor.  The JAX runner's iters_per_dispatch,
+on_policy_runner.py:45-274) for its three policy classes, picked by
+`PolicyCfg.policy_class_name`: ActorCriticDecoder (the DTC teacher, PPO
+with the VAE step), ActorCritic (PPO's MLP path) and
+ActorCriticRecurrent (GRU or LSTM, `PolicyCfg.rnn_type`; the carries live
+in the log state, are reset at dones and are not checkpointed).  Each
+iteration of `learn` runs `collect` (24 x PPO.act or act_recurrent ->
+LeggedEnv.step with the timeout bootstrap, bf16 storage of the privileged
+obs and the obs history, episode bookkeeping, the last values and GAE),
+then `PPO.update` or `update_recurrent`, in one plain loop on the env's
+device; the stats leave the device once per iteration as one packed
+tensor.  The JAX runner's iters_per_dispatch,
 perf_split and asynchronous saves were host tricks of a remote TPU and
 have no counterpart: the collection and learning seconds are measured
 every iteration (synchronized) and logged under the reference's names.
@@ -24,9 +29,11 @@ import numpy as np
 import torch
 
 from ..agent.ppo import PPO
+from ..agent.trajectories import tree_map
 from ..env.config import TrainCfg
 from ..env.legged_env import LeggedEnv
-from ..models.networks import ActorCriticDecoder
+from ..models.networks import (ActorCritic, ActorCriticDecoder,
+                               ActorCriticRecurrent)
 from ..utils import flags
 from . import checkpoint as ckpt
 
@@ -48,9 +55,6 @@ class OnPolicyRunner:
     def __init__(self, env: LeggedEnv, train_cfg: TrainCfg,
                  log_dir: Optional[str] = None, writer=None):
         pol = train_cfg.policy
-        if pol.policy_class_name != "ActorCriticDecoder":
-            raise NotImplementedError(
-                f"{pol.policy_class_name} is not ported yet")
         if flags.strict_parity():
             # the reference's update: sequential VAE-then-policy steps and
             # a per-row permutation (runner/train.py:34-44 of the JAX
@@ -72,26 +76,65 @@ class OnPolicyRunner:
         # every device; the rollout and the update draw from a generator on
         # the device
         init_gen = torch.Generator().manual_seed(seed)
-        self.net = ActorCriticDecoder(
-            num_obs=env.num_obs, num_privileged_obs=env.num_privileged_obs,
-            num_actions=env.num_actions, obs_history_dim=env.num_obs_history,
-            terrain_dim=env.num_height_points,
-            terrain_latent=pol.terrain_latent, z_dim=pol.cenet_latent,
-            actor_hidden=tuple(pol.actor_hidden_dims),
-            critic_hidden=tuple(pol.critic_hidden_dims),
-            activation=pol.activation, init_noise_std=pol.init_noise_std,
-            outlier_filter=pol.outlier_filter,
-            generator=init_gen).to(self.device)
-        self.ppo = PPO(net=self.net, alg=train_cfg.algorithm)
+        heads = dict(actor_hidden=tuple(pol.actor_hidden_dims),
+                     critic_hidden=tuple(pol.critic_hidden_dims),
+                     activation=pol.activation,
+                     init_noise_std=pol.init_noise_std, generator=init_gen)
+        if pol.policy_class_name == "ActorCriticDecoder":
+            net = ActorCriticDecoder(
+                num_obs=env.num_obs,
+                num_privileged_obs=env.num_privileged_obs,
+                num_actions=env.num_actions,
+                obs_history_dim=env.num_obs_history,
+                terrain_dim=env.num_height_points,
+                terrain_latent=pol.terrain_latent, z_dim=pol.cenet_latent,
+                outlier_filter=pol.outlier_filter, **heads)
+            kind = "decoder"
+        elif pol.policy_class_name == "ActorCritic":
+            net = ActorCritic(num_obs=env.num_obs, num_critic_obs=env.num_obs,
+                              num_actions=env.num_actions, **heads)
+            kind = "mlp"
+        elif pol.policy_class_name == "ActorCriticRecurrent":
+            net = ActorCriticRecurrent(
+                num_obs=env.num_obs, num_critic_obs=env.num_obs,
+                num_actions=env.num_actions,
+                rnn_hidden_size=pol.rnn_hidden_size, rnn_type=pol.rnn_type,
+                **heads)
+            kind = "recurrent"
+        else:
+            raise ValueError(
+                f"unsupported policy_class_name {pol.policy_class_name!r}")
+        self.net = net.to(self.device)
+        self.ppo = PPO(net=self.net, alg=train_cfg.algorithm,
+                       policy_kind=kind)
         self.generator = torch.Generator(self.device).manual_seed(seed + 1)
         self.env_params, self.env_state = env.init(self.generator)
         N = env.num_envs
         self.log_state = dict(
             cur_reward_sum=torch.zeros(N, device=self.device),
             cur_episode_length=torch.zeros(N, device=self.device))
+        self._fresh_carries()
         # episode stats (on_policy_runner.py:103-106)
         self.rewbuffer = deque(maxlen=100)
         self.lenbuffer = deque(maxlen=100)
+
+    @property
+    def recurrent(self) -> bool:
+        return self.ppo.policy_kind == "recurrent"
+
+    def init_carry(self, num_envs: int):
+        """A fresh carry of the recurrent policy on the runner's device:
+        zeros (N, H) for a GRU, (c, h) zeros for an LSTM (both memories
+        share the layout)."""
+        return self.net.memory_a.initialize_carry(num_envs, self.device)
+
+    def _fresh_carries(self):
+        """Zero carries of the recurrent policy in the log state (a new or
+        just loaded runner); no-op for the other policies."""
+        if self.recurrent:
+            N = self.env.num_envs
+            self.log_state.update(carry_a=self.init_carry(N),
+                                  carry_c=self.init_carry(N))
 
     @torch.no_grad()
     def collect(self):
@@ -99,35 +142,46 @@ class OnPolicyRunner:
 
         Returns (batch, aux): batch holds (T, N, ...) tensors obs,
         privileged_obs, obs_history, base_vel, actions, values,
-        old_log_prob, old_mu, old_sigma, next_obs, returns, advantages;
-        aux holds the summed step metrics ("metric_*") and the episode
-        sums ep_rew_sum / ep_len_sum / ep_count.  Advances the runner's
-        env and log state."""
+        old_log_prob, old_mu, old_sigma, next_obs, returns, advantages; for
+        the recurrent policy obs, the PPO fields and dones (T, N), with the
+        rollout-start carries init_carry_a/init_carry_c (N, H) and no
+        privileged obs or history (runner/train.py:254-264 of the JAX
+        package).  aux holds the summed step metrics ("metric_*") and the
+        episode sums ep_rew_sum / ep_len_sum / ep_count.  Advances the
+        runner's env and log state (and the carries, zeroed at dones)."""
         env, ppo, gen = self.env, self.ppo, self.generator
         T = self.cfg.runner.num_steps_per_env
         gamma = self.cfg.algorithm.gamma
+        recurrent = self.recurrent
         # priv/hist are consumed only as network inputs (cast to bf16 at
         # the first layer) and as the VAE height target; DTC_STRICT_PARITY
         # restores the reference's float32 storage
         store_dt = torch.float32 if flags.strict_parity() else torch.bfloat16
         params, state, log = self.env_params, self.env_state, self.log_state
+        if recurrent:
+            init_a, init_c = log["carry_a"], log["carry_c"]
         steps = []
         metrics = {}
         ep = dict(ep_rew_sum=0.0, ep_len_sum=0.0, ep_count=0.0)
         for _ in range(T):
             obs, priv = state["obs"], state["privileged_obs"]
             hist, base_vel = state["obs_history"], state["base_vel"]
-            a = ppo.act(obs, hist, priv, base_vel, gen)
+            if recurrent:
+                a, ca, cc = ppo.act_recurrent(obs, log["carry_a"],
+                                              log["carry_c"], gen)
+            else:
+                a = ppo.act(obs, hist, priv, base_vel, gen)
             state, out = env.step(params, state, a["actions"], gen)
             # timeout bootstrap (ppo.py:160-163)
             rew = out["rew"] + gamma * a["values"] * out["time_out"]
-            steps.append(dict(obs=obs, privileged_obs=priv.to(store_dt),
-                              obs_history=hist.to(store_dt),
-                              base_vel=base_vel, actions=a["actions"],
-                              values=a["values"], old_log_prob=a["log_prob"],
-                              old_mu=a["mu"], old_sigma=a["sigma"],
-                              next_obs=out["obs"], rewards=rew,
-                              dones=out["done"]))
+            step = dict(obs=obs, actions=a["actions"], values=a["values"],
+                        old_log_prob=a["log_prob"], old_mu=a["mu"],
+                        old_sigma=a["sigma"], rewards=rew, dones=out["done"])
+            if not recurrent:
+                step.update(privileged_obs=priv.to(store_dt),
+                            obs_history=hist.to(store_dt),
+                            base_vel=base_vel, next_obs=out["obs"])
+            steps.append(step)
             # episode bookkeeping (on_policy_runner.py:130-140)
             crs = log["cur_reward_sum"] + out["rew"]
             cel = log["cur_episode_length"] + 1.0
@@ -137,15 +191,28 @@ class OnPolicyRunner:
             ep["ep_count"] = ep["ep_count"] + done_f.sum()
             log = dict(cur_reward_sum=crs * (1.0 - done_f),
                        cur_episode_length=cel * (1.0 - done_f))
+            if recurrent:
+                # the carries restart after a done (ppo.py:170)
+                reset = out["done"][:, None]
+                log["carry_a"], log["carry_c"] = (
+                    tree_map(lambda c: torch.where(reset, 0.0, c), x)
+                    for x in (ca, cc))
             for k, v in out["metrics"].items():
                 metrics[k] = metrics[k] + v if k in metrics else v
 
         batch = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
-        last_values = ppo.value(state["obs"], state["privileged_obs"],
-                                state["base_vel"])
+        if recurrent:
+            last_values = self.net(state["obs"], state["obs"],
+                                   log["carry_a"], log["carry_c"])[2]
+        else:
+            last_values = ppo.value(state["obs"], state["privileged_obs"],
+                                    state["base_vel"])
+        dones = batch.pop("dones")
         batch["returns"], batch["advantages"] = ppo.compute_gae(
-            batch.pop("rewards"), batch.pop("dones"), batch["values"],
-            last_values)
+            batch.pop("rewards"), dones, batch["values"], last_values)
+        if recurrent:
+            batch.update(dones=dones, init_carry_a=init_a,
+                         init_carry_c=init_c)
         self.env_state, self.log_state = state, log
         aux = {**{"metric_" + k: v for k, v in metrics.items()}, **ep}
         return batch, aux
@@ -180,7 +247,9 @@ class OnPolicyRunner:
             t0 = self._clock()
             batch, aux = self.collect()
             t1 = self._clock()
-            stats = self.ppo.update(batch, self.generator)
+            update = (self.ppo.update_recurrent if self.recurrent
+                      else self.ppo.update)
+            stats = update(batch, self.generator)
             stats = {**stats, **aux, "mean_noise_std": self.net.std.mean()}
             names = sorted(stats)
             # one device -> host transfer of every scalar of the iteration
@@ -257,7 +326,8 @@ class OnPolicyRunner:
         states, the learning rate, the iteration and the generator state;
         with full=True (the default) also the env state, the per-env
         params (the terrain tables are rebuilt from the seed, not saved)
-        and the episode bookkeeping."""
+        and the episode bookkeeping (not the recurrent carries, as in the
+        JAX package)."""
         tree = dict(
             params=self.net.state_dict(),
             opt_state=self.ppo.optimizer.state_dict(),
@@ -270,8 +340,13 @@ class OnPolicyRunner:
             tree.update(env_state=self.env_state,
                         env_params={k: v for k, v in self.env_params.items()
                                     if k != "terrain"},
-                        log_state=self.log_state)
+                        log_state=self._episode_log())
         ckpt.save(path, tree)
+
+    def _episode_log(self) -> dict:
+        """The log state without the carries: the episode bookkeeping."""
+        return {k: v for k, v in self.log_state.items()
+                if not k.startswith("carry_")}
 
     def load(self, path: str, load_optimizer: bool = True):
         """Restore a checkpoint: params, the iteration and the generator,
@@ -284,8 +359,10 @@ class OnPolicyRunner:
         (on_policy_runner.py:257-264).  So a checkpoint of another env
         count, or of another task whose episode-sum rows differ (the
         staged x30_rough -> x30_dtc protocol), hands over the policy (and
-        its optimizers) and leaves the env fresh."""
+        its optimizers) and leaves the env fresh.  The recurrent carries
+        start from zeros after any load."""
         d = ckpt.load(path, self.device)
+        self._fresh_carries()
         self.net.load_state_dict(d["params"])
         if load_optimizer:
             self.ppo.optimizer.load_state_dict(d["opt_state"])
@@ -307,8 +384,8 @@ class OnPolicyRunner:
             self.env_state = d["env_state"]
             self.env_params = {**d["env_params"],
                                "terrain": self.env_params["terrain"]}
-            if _same_layout(d.get("log_state"), self.log_state):
-                self.log_state = d["log_state"]
+            if _same_layout(d.get("log_state"), self._episode_log()):
+                self.log_state.update(d["log_state"])
         else:
             ours = {**self.env_state, **params}
             differ = sorted(k for k, v in {**d["env_state"],
@@ -323,11 +400,25 @@ class OnPolicyRunner:
     # ------------------------------------------------------------------
     def get_inference_policy(self, teacher: bool = True):
         """act_expert analog (on_policy_runner.py:266-273): a deterministic
-        policy (obs, obs_history, privileged_obs) -> actions, through the
-        teacher's belief path or, with teacher=False, the training input
-        layout (act_deterministic)."""
-        method = (self.net.act_teacher if teacher
-                  else self.net.act_deterministic)
+        policy.  The decoder's is (obs, obs_history, privileged_obs) ->
+        actions, through the teacher's belief path or, with teacher=False,
+        the training input layout (act_deterministic); the MLP's has the
+        same signature and reads the obs alone; the recurrent one threads
+        its carries, (obs, (carry_a, carry_c)) -> (actions, (carry_a,
+        carry_c)), from (init_carry(N), init_carry(N))."""
+        net = self.net
+        if self.ppo.policy_kind == "mlp":
+            @torch.no_grad()
+            def policy(obs, obs_history, privileged_obs):
+                return net(obs, obs)[0]
+            return policy
+        if self.recurrent:
+            @torch.no_grad()
+            def policy(obs, carry):
+                mean, _, _, ca, cc = net(obs, obs, *carry)
+                return mean, (ca, cc)
+            return policy
+        method = net.act_teacher if teacher else net.act_deterministic
 
         @torch.no_grad()
         def policy(obs, obs_history, privileged_obs):

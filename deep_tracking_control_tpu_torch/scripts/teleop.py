@@ -47,8 +47,9 @@ def configure(task_cfg, train_cfg, num_envs: int = NUM_ENVS):
 
 
 def build(args, transform=None):
-    """A TeleopSession over the loaded policy, or with --zero_policy over
-    zero actions (no checkpoint needed)."""
+    """A TeleopSession over the loaded policy (a recurrent one carries its
+    hidden state from step to step), or with --zero_policy over zero
+    actions (no checkpoint needed)."""
     zero = getattr(args, "zero_policy", False)
     task_cfg, train_cfg = configure(
         *common.task_cfgs(args, transform),
@@ -61,6 +62,16 @@ def build(args, transform=None):
         def policy(obs, obs_history, privileged_obs):
             return torch.zeros((env.num_envs, env.num_actions),
                                device=env.device)
+    elif runner.recurrent:
+        # the carry-threading policy (obs, (ca, cc)) -> (actions, (ca, cc))
+        # behind the session's (obs, obs_history, privileged_obs) call
+        raw = runner.get_inference_policy()
+        carry = [(runner.init_carry(env.num_envs),
+                  runner.init_carry(env.num_envs))]
+
+        def policy(obs, obs_history, privileged_obs):
+            actions, carry[0] = raw(obs, carry[0])
+            return actions
     else:
         policy = runner.get_inference_policy(teacher=True)
     return TeleopSession(env, runner.env_params, runner.env_state, policy,

@@ -20,7 +20,10 @@ all 33 terms with and without the plane fit and the positive clip, the
 obs kernel in the 45-dim layout, without obs noise, and on inputs laid
 out otherwise than the env's: a contiguous scan, a strided history); and
 every kernel of the default route on a real step of the eval_stones
-world at the evaluation widths 1 and 100 envs.
+world at the evaluation widths 1 and 100 envs.  The other policies: one
+collect of each (ActorCritic, GRU and LSTM ActorCriticRecurrent) launches
+the default route's kernels once a step, and update_recurrent of a small
+net on the card against the CPU (TF32 off), as chip_smoke.py phase 11.
 """
 import dataclasses
 
@@ -28,8 +31,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (check_planner, plain_float64, planner_near_ties,
-                        synthetic_ctx)
+from chip_smoke import (DEFAULT_ROUTE, POLICIES, check_planner,
+                        expected_launches, launch_counts, plain_float64,
+                        planner_near_ties, small_recurrent_update_check,
+                        synthetic_ctx, with_policy, zero_launches)
 from deep_tracking_control_tpu_torch import cuda_build
 from deep_tracking_control_tpu_torch.env import (cuda_obs, cuda_planner,
                                                  cuda_rewards)
@@ -663,3 +668,62 @@ def test_default_route_kernels_at_eval_widths(eval_width, kernel):
         assert tuple(shape)[0] == n
         assert torch.equal(cuda_rng.uniform_pm1(seed, shape),
                            cuda_rng.uniform_pm1_plain(seed, shape))
+
+
+# ---- the other policies -------------------------------------------------
+
+@pytest.fixture(scope="module")
+def policy_env():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cuda_build.build()
+    task, train = get_cfgs("lite3_dtc")
+    task = dataclasses.replace(
+        task, env=dataclasses.replace(task.env, num_envs=N),
+        terrain=dataclasses.replace(task.terrain, num_rows=3, num_cols=2,
+                                    border_size=4.0))
+    return LeggedEnv(task, device="cuda"), train
+
+
+@pytest.mark.parametrize("label", sorted(POLICIES))
+def test_policy_collect_launch_counts(policy_env, label):
+    """One collect of each policy at the PolicyCfg widths: every kernel of
+    the default route once a step, no gather (the update's), a finite
+    batch; the recurrent one stores the dones and its start carries."""
+    from deep_tracking_control_tpu_torch.runner.train import OnPolicyRunner
+    env, train = policy_env
+    runner = OnPolicyRunner(env, with_policy(train, label))
+    zero_launches()
+    batch, _ = runner.collect()
+    torch.cuda.synchronize()
+    T = train.runner.num_steps_per_env
+    assert launch_counts() == expected_launches(DEFAULT_ROUTE, T)
+    for k, v in batch.items():
+        for x in (v if isinstance(v, tuple) else (v,)):
+            assert x.is_cuda and torch.isfinite(x.float()).all(), k
+    assert ("init_carry_a" in batch) == (label != "ActorCritic")
+
+
+@pytest.fixture
+def tf32_off():
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved[:2]
+    torch.set_float32_matmul_precision(saved[2])
+
+
+@pytest.mark.parametrize("rnn_type", ["gru", "lstm"])
+def test_recurrent_update_card_vs_cpu(tf32_off, rnn_type):
+    """update_recurrent of a small net on the card against the CPU (same
+    weights, batch and env draws): gradient cosine >= 0.999 per group,
+    stats at rtol 1e-3 (chip_smoke.small_recurrent_update_check)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cos, rel = small_recurrent_update_check(rnn_type)
+    assert cos >= 0.999 and rel <= 1e-3
