@@ -93,6 +93,21 @@ Phases (each prints its own line; any failure ends the run non-zero):
      CPU (TF32 checked off there); a GRU checkpoint through teleop's
      set-up at 4 envs (keys sent) and an MLP one through play_single's
      for 50 steps;
+  12. more physics substeps, the generic FK/ABA and a robot that is not a
+     4x3 quadruped (run before phase 9's lines), on the route of physics
+     off (the patch copy, the plain decimation loop over sim_step, the
+     plain samplers and planner; the reward, obs and noise kernels): (a)
+     lite3_dtc at 4096 envs with two substeps a sim step, (b) a
+     three-legged robot (Lite3's URDF without its HR_ leg, written at run
+     time) on lite3_rough at 2048 envs, registered with registry.register;
+     for each a warm-up and a timed collect, a profiled collect and
+     learn(1) with every launch counted (the patch copy, reward, obs and
+     noise kernels once a step, the gather once an update, no decimation,
+     sampler or planner kernel) and a 16-env step on the card against the
+     CPU; in (b) also the patch copy, reward, obs and noise kernels against
+     their plain versions on a recorded step (rows "kernel (three-leg)");
+     (c) one sim_step of the generic FK/ABA against the leg-batched one at
+     4096 envs of Lite3 from (a)'s state, with the device time of each;
   9. a check that no kernel reads under its bytes read over the memory
      rate, a JSON line of the kernels (the main path's, then each at the
      other tasks' and the scripts' shapes), the nvidia-smi line, and the
@@ -675,6 +690,34 @@ def bound(read, written, ops):
                 read_ms=read / PEAK_BYTES_S * 1e3)
 
 
+def three_leg_urdf(path):
+    """Write a robot that is not a 4x3 quadruped to `path`: Lite3's URDF
+    (the port's `to_urdf`, so nothing is downloaded) with every HR_ link
+    and joint removed, three legs of three joints on the torso (10 dynamic
+    bodies, 9 joints, 3 feet).  Returns `path`."""
+    import xml.etree.ElementTree as ET
+    from deep_tracking_control_tpu_torch.robot import quadrupeds
+    root = ET.fromstring(quadrupeds.to_urdf(quadrupeds.lite3()))
+    for el in list(root):
+        if el.get("name", "").startswith("HR_"):
+            root.remove(el)
+    with open(path, "w") as f:
+        f.write(ET.tostring(root, encoding="unicode"))
+    return path
+
+
+def three_leg_task(registry, urdf, num_envs=None):
+    """lite3_rough (no planner, the 45-dim layout) with the three-legged
+    robot of `urdf`: 9 actions and 36-dim obs; its registry width unless
+    num_envs is given.  Returns (task, train)."""
+    task, train = registry.get_cfgs("lite3_rough")
+    env = dataclasses.replace(task.env, num_actions=9, num_observations=36)
+    if num_envs is not None:
+        env = dataclasses.replace(env, num_envs=num_envs)
+    return dataclasses.replace(
+        task, env=env, asset=dataclasses.replace(task.asset, robot=urdf)), train
+
+
 def synthetic_ctx(N: int, seed: int, device):
     """Random step quantities on which every branch of every term is taken
     by some env: the inputs that hold the kernel to its plain version on
@@ -1205,7 +1248,7 @@ def compare_kernels(calls, tables, phase=3, main_path=True,
     return results
 
 
-def compare_route_kernels(calls, tables, results):
+def compare_route_kernels(calls, tables, results, phase=7):
     """Phase 7: the copies (bit for bit) and the decimation kernel's window
     variant (bit for bit against the fused kernel on the same state, and
     within K1's budget of its plain version) on a route's recorded step.
@@ -1226,7 +1269,7 @@ def compare_route_kernels(calls, tables, results):
         if not torch.equal(got, want):
             raise AssertionError(f"{name}: differs from its plain version")
         blocks, starts = args[0], args[1]
-        say(7, f"{name} vs plain: bit-exact, {tuple(got.shape)} from "
+        say(phase, f"{name} vs plain: bit-exact, {tuple(got.shape)} from "
                f"{starts.shape[0]} starts")
         if name in results:
             continue
@@ -1248,7 +1291,7 @@ def compare_route_kernels(calls, tables, results):
         touched = int(torch.unique(b * blocks.shape[2] + r).numel())
         read = (T * touched * blocks.shape[3] * blocks.element_size()
                 + tensor_bytes(starts))
-        say(7, f"{name}: {T} x {touched} distinct table rows touched, "
+        say(phase, f"{name}: {T} x {touched} distinct table rows touched, "
                f"{read} bytes read, {tensor_bytes(got)} written")
         results[name] = dict(
             max_abs_err=0.0, **bound(read, tensor_bytes(got), 0),
@@ -1281,7 +1324,7 @@ def compare_route_kernels(calls, tables, results):
                     1e-2 if k == "contact_forces" else 1e-4, 1e-4)
         if k != "contact_forces":
             err = max(err, float((a - p).abs().max()))
-    say(7, f"decimation_step_window: bit-exact with the fused kernel on the "
+    say(phase, f"decimation_step_window: bit-exact with the fused kernel on the "
            f"same state; vs plain max abs err {err:.3e} (budget 1e-4 + 1e-4 "
            f"rel; contact forces 1e-2 N)")
     if "decimation_step_window" in results:
@@ -1296,7 +1339,7 @@ def compare_route_kernels(calls, tables, results):
         **timings(torch, "decimation_step_window",
                   lambda: cuda_substep.decimation_step(*args, **kwargs),
                   lambda: cuda_substep.decimation_step_plain(*args, **kw), 5))
-    say(7, f"decimation_step_window: {shape_text(cuda_substep.launch_shape(n))}"
+    say(phase, f"decimation_step_window: {shape_text(cuda_substep.launch_shape(n))}"
            f", device {r['ms']:.4f} ms a call")
 
 
@@ -1378,9 +1421,12 @@ def strict_learn(runner, card, iters=2):
            f"G={G}, launches {counts} ({card})")
 
 
-def small_reference_check(registry, LeggedEnv, device="cuda"):
-    """One step of a 16-env lite3_dtc on the card against the same step on
-    the CPU (plain versions), from the same state, lag draw and noise seed.
+def small_reference_check(registry, LeggedEnv, device="cuda",
+                          name="lite3_dtc", transform=None):
+    """One step of a 16-env task (lite3_dtc unless `name` says another
+    registered task; `transform` edits its config) on the card against
+    the same step on the CPU (plain versions), from the same state, lag
+    draw and noise seed.
     A reset env respawns from its side's own draws and is left out; so is
     an env whose planner picked another cell at a near-tie (its foothold
     obs and foothold reward differ by design).  Physics 1e-4 + 1e-4 rel,
@@ -1388,17 +1434,20 @@ def small_reference_check(registry, LeggedEnv, device="cuda"):
     physics' difference through scaled sums: 1e-3 + 1e-3 rel."""
     import dataclasses
     import torch
-    task, _ = registry.get_cfgs("lite3_dtc")
+    task, _ = registry.get_cfgs(name)
     task = dataclasses.replace(
         task, env=dataclasses.replace(task.env, num_envs=16),
         terrain=dataclasses.replace(task.terrain, num_rows=3, num_cols=2,
                                     border_size=4.0))
+    if transform is not None:
+        task = transform(task)
     genv = LeggedEnv(task, device=device)
     cenv = LeggedEnv(task, device="cpu")
+    na = cenv.num_actions
     cgen = torch.Generator().manual_seed(5)
     cparams, cstate = cenv.init(cgen)
     for _ in range(2):
-        cstate, _ = cenv.step(cparams, cstate, torch.zeros(16, 12), cgen)
+        cstate, _ = cenv.step(cparams, cstate, torch.zeros(16, na), cgen)
 
     def to(tree, dev):
         if isinstance(tree, dict):
@@ -1409,9 +1458,9 @@ def small_reference_check(registry, LeggedEnv, device="cuda"):
     gstate = to(cstate, genv.device)
     gparams = dict(to({k: v for k, v in cparams.items() if k != "terrain"},
                       genv.device), terrain=genv.patch_src)
-    draws = dict(lag=torch.tensor([2, 1, 3, 4]),
+    draws = dict(lag=torch.tensor([2, 1, 3, 4] * 2)[:task.control.decimation],
                  noise_seed=torch.tensor([1234567, 7654321]))
-    actions = 0.3 * torch.randn((16, 12), generator=cgen)
+    actions = 0.3 * torch.randn((16, na), generator=cgen)
     cs, co = cenv.step(cparams, cstate, actions, cgen, draws=draws)
     gs, go = genv.step(gparams, gstate, actions.to(genv.device),
                        torch.Generator(genv.device).manual_seed(0),
@@ -1438,6 +1487,257 @@ def small_reference_check(registry, LeggedEnv, device="cuda"):
         check_close(f"small step {k}", go[k].cpu()[same], co[k][same],
                     1e-3, 1e-3)
     return err, int(same.sum())
+
+
+# the routes off the decimation kernel (phase 12): the patch copy beside
+# the reward, obs and noise kernels; the plain decimation loop over
+# sim_step, the plain samplers and the plain planner
+PLAIN_ROUTE = ("extract_patches",)
+# steps a phase-12 profile covers: a profiler session's events take
+# ~0.1 ms each to sum on the host, and a collect of these routes queues
+# ~300,000 device ops
+PROFILED_STEPS = 4
+
+
+def profiled_steps(runner, steps=PROFILED_STEPS):
+    """`steps` steps of the runner's acting and env step, as collect takes
+    them, in one profiler session (`device_busy`): (wall ms, device ms,
+    device ops), each a step.  The runner's env state moves on; its
+    episode log does not see these steps."""
+    params, gen = runner.env_params, runner.generator
+    state = runner.env_state
+
+    def run():
+        nonlocal state
+        for _ in range(steps):
+            a = runner.ppo.act(state["obs"], state["obs_history"],
+                               state["privileged_obs"], state["base_vel"],
+                               gen)
+            state, _ = runner.env.step(params, state, a["actions"], gen)
+    wall, busy, ops, _, _ = device_busy(run)
+    runner.env_state = state
+    if not ops:
+        raise AssertionError("the profiler saw no device time")
+    return wall / steps, busy / steps, ops / steps
+
+
+def plain_route_rates(label, runner, card, warm_up=True):
+    """Phase 12: on a runner whose env takes the plain decimation loop, one
+    warm-up collect (unless the caller ran it), a timed collect,
+    PROFILED_STEPS profiled steps (device ms, device ops and busy share a
+    step) and learn(1), every launch counted from zero and held to
+    PLAIN_ROUTE: K4, K6, K7 and K8 once a step, K9 once an update, no K1,
+    K2 or K3.  Returns the timed collect's launch counts."""
+    import torch
+    env = runner.env
+    if env._kernel_physics or env._consts is not None:
+        raise AssertionError(f"{label}: the env took the decimation kernel")
+    T, N = runner.cfg.runner.num_steps_per_env, env.num_envs
+    if warm_up:
+        runner.collect()
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    batch, _ = runner.collect()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if counts != expected_launches(PLAIN_ROUTE, T):
+        raise AssertionError(f"{label} collect: launches {counts}, expected "
+                             f"{expected_launches(PLAIN_ROUTE, T)}")
+    for k, v in batch.items():
+        if not bool(torch.isfinite(v.float()).all()):
+            raise AssertionError(f"{label} collect: batch[{k}] not finite")
+    if batch["obs"].shape != (T, N, env.num_obs):
+        raise AssertionError(f"{label}: obs {tuple(batch['obs'].shape)}")
+    del batch
+    pwall, busy, ops = profiled_steps(runner)
+    zero_launches()
+    t0 = time.perf_counter()
+    rows = runner.learn(1)
+    torch.cuda.synchronize()
+    lwall = time.perf_counter() - t0
+    learn_counts = launch_counts()
+    if learn_counts != expected_launches(PLAIN_ROUTE, T, 1):
+        raise AssertionError(f"{label} learn(1): launches {learn_counts}")
+    check_rows(f"{label} learn", rows)
+    share = rows[0]["learning_time"] / (rows[0]["collection_time"]
+                                        + rows[0]["learning_time"])
+    say(12, f"{label}: collect of {T} steps x {N} envs after one warm-up "
+            f"collect: {wall:.3f} s, {T * N / wall:.1f} env-steps/s; "
+            f"launches {counts}; {PROFILED_STEPS} profiled steps (act and "
+            f"env step), a step: wall {pwall:.1f} ms, device {busy:.2f} ms "
+            f"(busy share {busy / pwall:.3f}), {ops:.0f} device ops; "
+            f"learn(1): {lwall:.3f} s, {T * N / lwall:.1f} "
+            f"train-iteration env-steps/s (update share {share:.3f}), "
+            f"launches {learn_counts} ({card})")
+    return counts
+
+
+def substeps_route(registry, LeggedEnv, OnPolicyRunner, card):
+    """Phase 12 (a): lite3_dtc at its registry width with two physics
+    substeps a sim step, which the decimation kernel does not take: the
+    plain decimation loop over sim_step (the leg-batched FK/ABA, every
+    contact point at every substep).  Its rates and launches, (c) on its
+    state after the warm-up collect, and a 16-env step on the card
+    against the CPU."""
+    task, train = registry.get_cfgs("lite3_dtc")
+
+    def two_substeps(t):
+        return dataclasses.replace(t, sim=dataclasses.replace(t.sim,
+                                                              substeps=2))
+    t0 = time.perf_counter()
+    env = LeggedEnv(two_substeps(task), device="cuda")
+    runner = OnPolicyRunner(env, train)
+    if env.terrain.backend != "native":
+        raise AssertionError(f"terrain backend {env.terrain.backend!r}")
+    say(12, f"(a) lite3_dtc at substeps=2: {env.num_envs} envs, "
+            f"{env.num_obs}-dim obs; set up in "
+            f"{time.perf_counter() - t0:.1f} s")
+    # the warm-up collect, then (c) on its state, ahead of the profiled
+    # steps: after a profiler session of many device ops the next sessions
+    # may record nothing for seconds
+    runner.collect()
+    engines_on_card(runner, card)
+    plain_route_rates("(a) lite3_dtc, substeps=2", runner, card,
+                      warm_up=False)
+    err, same = small_reference_check(registry, LeggedEnv,
+                                      transform=two_substeps)
+    say(12, f"(a) 16-env step at substeps=2 on the card vs on the CPU: "
+            f"physics max abs err {err:.3e} (budget 1e-4); rewards, sums, "
+            f"obs and privileged obs within 1e-3 + 1e-3 rel on {same} of 16 "
+            f"envs")
+
+
+def three_leg_route(registry, LeggedEnv, OnPolicyRunner, card, root):
+    """Phase 12 (b): a robot that is not a 4x3 quadruped, through the
+    entry points a user takes: its URDF (`three_leg_urdf`, written under
+    `root`) on lite3_rough, registered with `registry.register`, at the
+    registry width.  The generic FK/ABA in the plain decimation loop; K4,
+    K6, K7 and K8 against their plain versions on a recorded step (rows
+    "kernel (three-leg)"), the rates and launches, and a 16-env step on
+    the card against the CPU.  Returns the kernel rows."""
+    from deep_tracking_control_tpu_torch.env import cuda_obs, cuda_rewards
+    from deep_tracking_control_tpu_torch.ops import cuda_patch, cuda_rng
+    from deep_tracking_control_tpu_torch.physics import quadruped
+    urdf = three_leg_urdf(os.path.join(root, "three_leg.urdf"))
+    registry.register("three_leg_rough",
+                      lambda: three_leg_task(registry, urdf))
+    task, train = registry.get_cfgs("three_leg_rough")
+    t0 = time.perf_counter()
+    env = LeggedEnv(task, device="cuda")
+    runner = OnPolicyRunner(env, train)
+    m = env.model
+    if (quadruped.quad_layout(m) is not None or m.nq != 9
+            or len(m.foot_body_index) != 3):
+        raise AssertionError(f"three-leg robot: nb {m.nb}, nq {m.nq}, "
+                             f"{len(m.foot_body_index)} feet")
+    say(12, f"(b) three-leg lite3_rough: {env.num_envs} envs, {m.nb} dynamic "
+            f"bodies, {m.nq} joints, {len(m.foot_body_index)} feet, "
+            f"{env.num_obs}-dim obs, {env.num_actions} actions; set up in "
+            f"{time.perf_counter() - t0:.1f} s")
+    slots = ((cuda_patch, "extract_patches", "extract_patches"),
+             (cuda_rewards, "compute_rewards_fused", "compute_rewards"),
+             (cuda_obs, "compute_observations_fused", "compute_observations"),
+             (cuda_rng, "uniform_pm1", "uniform_pm1"))
+    calls, runner.env_state = record_kernel_inputs(
+        env, runner.env_params, runner.env_state, runner.generator, steps=2,
+        slots=slots)
+    if set(calls) != {s[2] for s in slots}:
+        raise AssertionError(f"three-leg step ran {sorted(calls)}")
+    tables = {id(env.patch_src.blocks), id(env.patch_src.blocks16)}
+    results = {}
+    compare_route_kernels({"extract_patches": calls["extract_patches"]},
+                          tables, results, phase=12)
+    results.update(compare_kernels(calls, tables, phase=12, main_path=False))
+    del calls
+    counts = plain_route_rates("(b) three-leg lite3_rough", runner, card)
+    err, same = small_reference_check(registry, LeggedEnv,
+                                      name="three_leg_rough")
+    say(12, f"(b) 16-env three-leg step on the card vs on the CPU: physics "
+            f"max abs err {err:.3e} (budget 1e-4); rewards, sums, obs and "
+            f"privileged obs within 1e-3 + 1e-3 rel on {same} of 16 envs")
+    del runner, env
+    return {f"{k} (three-leg)": dict(r, launches=counts[k])
+            for k, r in results.items()}
+
+
+@contextlib.contextmanager
+def generic_engine():
+    """sim_step through the generic FK/ABA for every robot: the port's
+    quadruped detection finds no layout for the `with` block."""
+    from deep_tracking_control_tpu_torch.physics import quadruped
+    saved = quadruped.quad_layout
+    quadruped.quad_layout = lambda model: None
+    try:
+        yield
+    finally:
+        quadruped.quad_layout = saved
+
+
+def check_engines(got, want):
+    """One sim_step of the generic FK/ABA (`got`) against the leg-batched
+    one (`want`), each (state, anchors, info) from the same state: 1e-4 +
+    1e-4 rel on the state, anchors, foot positions and velocities; contact
+    forces 1e-2 N + 1e-4 rel (12 kN/m springs: 1e-6 m is 1e-2 N).
+    Returns the max abs err over the state and anchors."""
+    (gs, ga, gi), (ws, wa, wi) = got, want
+    pairs = [(k, gs[k], ws[k]) for k in ws] + [("anchors", ga, wa)] + [
+        (k, gi[k], wi[k]) for k in ("foot_pos", "foot_vel")]
+    for k, a, b in pairs:
+        check_close(f"generic vs leg-batched {k}", a, b, 1e-4, 1e-4)
+    check_close("generic vs leg-batched contact_forces",
+                gi["contact_forces"], wi["contact_forces"], 1e-2, 1e-4)
+    if float(wi["contact_forces"][:, 2].abs().sum()) <= 1.0:
+        raise AssertionError("generic vs leg-batched: no contact")
+    return max_err([(gs[k], ws[k]) for k in ws] + [(ga, wa)])
+
+
+def engines_on_card(runner, card, repeats=5):
+    """Phase 12 (c): one sim_step of the generic FK/ABA against one of the
+    leg-batched FK/ABA at the width of `runner`'s Lite3 env, from its
+    state after (a)'s warm-up collect (the last torques held, its terrain
+    patches, one substep): `check_engines`, and the device ms, device ops
+    and stream ms of a call of each."""
+    import torch
+    from deep_tracking_control_tpu_torch.physics import sim as psim
+    from deep_tracking_control_tpu_torch.terrain import patch as tpatch
+    env, params, state = runner.env, runner.env_params, runner.env_state
+    phys = {k: v.contiguous() for k, v in state["phys"].items()}
+    src = params["terrain"]
+    starts, origin = tpatch.patch_starts(src, phys["pos"].T[:, :2])
+    patches = tpatch.extract(src, starts)
+    hs = src.horizontal_scale
+
+    def terrain_fn(x, y):
+        h, dx, dy, hmx = tpatch.sample_bilinear_slope(patches[0], origin, hs,
+                                                      x.T, y.T)
+        return h.T, dx.T, dy.T, hmx.T
+    sim = dataclasses.replace(env.cfg.sim, substeps=1)
+    args = (env.model, env.geom, sim, params["inertias"], phys,
+            state["anchors"].contiguous(), state["torques"].T.contiguous(),
+            terrain_fn, params["friction"], params["restitution"])
+
+    def step():
+        return psim.sim_step(*args)
+    rows = {}
+    for label in ("leg-batched", "generic"):
+        with (generic_engine() if label == "generic"
+              else contextlib.nullcontext()):
+            out = step()
+            events, seen = device_profile(torch, step, repeats)
+            rows[label] = dict(
+                out=out, ms=sum(us for _, us, _ in events) / 1e3 / seen,
+                ops=sum(c for _, _, c in events) / seen,
+                wall=wall_ms(torch, step, repeats))
+    err = check_engines(rows["generic"]["out"], rows["leg-batched"]["out"])
+    g, b = rows["generic"], rows["leg-batched"]
+    say(12, f"(c) one sim_step at {env.num_envs} envs of Lite3, generic vs "
+            f"leg-batched FK/ABA from the same state: max abs err "
+            f"{err:.3e} (budget 1e-4 + 1e-4 rel; contact forces 1e-2 N); "
+            f"device ms a call {g['ms']:.3f} vs {b['ms']:.3f}, device ops "
+            f"{g['ops']:.0f} vs {b['ops']:.0f}, stream ms {g['wall']:.3f} vs "
+            f"{b['wall']:.3f} ({card})")
 
 
 def check_gather_bit_exact(ppo, batch, gen):
@@ -2522,6 +2822,20 @@ def main():
 
     # ---- 11: the other policies ------------------------------------------
     other_policies(env, train, card)
+    del env
+
+    # ---- 12: more substeps, the generic FK/ABA, a three-legged robot ------
+    t0 = time.perf_counter()
+    substeps_route(registry, LeggedEnv, OnPolicyRunner, card)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    robot_root = tempfile.mkdtemp(dir=HERE)
+    atexit.register(shutil.rmtree, robot_root, True)
+    results.update(three_leg_route(registry, LeggedEnv, OnPolicyRunner, card,
+                                   robot_root))
+    torch.cuda.empty_cache()
+    say(12, f"phase 12 in {time.perf_counter() - t0:.1f} s ((a) and (c) "
+            f"{t1 - t0:.1f} s, (b) {time.perf_counter() - t1:.1f} s)")
 
     # ---- 9: result lines ----------------------------------------------
     # each timed call found its inputs in HBM (`timing_probes`): a kernel

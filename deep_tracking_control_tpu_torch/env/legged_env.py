@@ -25,7 +25,13 @@ switches read at the same points (utils/flags.py):
     plain samplers, and the body planes left as they are;
   * DTC_PALLAS_PLANNER=0, physics off, or strict parity: the plain
     planner.
-The reward, obs and noise kernels (K6-K8) run on every route.
+The reward, obs and noise kernels (K6-K8) run on every route.  The
+decimation kernel steps a 4x3 quadruped at one physics substep on blocked
+tables, as in the JAX package (legged_env.py:194-198 there); any other
+revolute tree the URDF reader accepts (`AssetCfg.robot` a .urdf path), or
+`cfg.sim.substeps` above 1, takes the route of physics off: K4, the plain
+decimation loop over `sim_step` (the generic FK/ABA for a robot without
+the 4x3 layout), the plain samplers and planner.
 
 Every registry task steps here.  Tasks without the DTC planner
 (lite3_rough, x30_rough, lite3_fast) launch no planner kernel: their
@@ -95,10 +101,6 @@ class LeggedEnv:
             self.model = quadrupeds.get_robot(cfg.asset.robot)
         m = self.model
         self.geom = psim.default_contact_geometry(m)
-        if quadruped.quad_layout(m) is None or cfg.sim.substeps != 1:
-            raise NotImplementedError(
-                "the physics steps quadruped models with one substep only "
-                "(generic FK/ABA is not ported yet)")
 
         # --- terrain (the native generator where g++ builds it, as the JAX
         # package's env: Terrain's backend="auto"); a plane task steps a
@@ -213,7 +215,9 @@ class LeggedEnv:
             raise ValueError(
                 f"num_observations={self.num_obs} matches neither the "
                 f"{base_w}-dim base layout nor the {base_w + 8}-dim DTC "
-                f"layout")
+                f"layout of {m.name} ({m.nq} joints, "
+                f"{len(m.foot_body_index)} feet) with {self.num_actions} "
+                f"actions")
 
         # device copies of the constants used every step
         def t(a, dtype=F32):
@@ -235,14 +239,20 @@ class LeggedEnv:
             hip_dof_idx=t(self.hip_dof_idx, torch.long),
             thigh_dyn_idx=t(self.thigh_dyn_idx, torch.long),
             win_offset=t([cuda_substep.WIN_R0, cuda_substep.WIN_C0]))
-        self._consts = torch.as_tensor(cuda_substep.pack_constants(
+        # the decimation kernel for a 4x3 quadruped at one substep on
+        # blocked tables (legged_env.py:194-198 of the JAX package); else
+        # the plain decimation loop over sim_step: DTC_PALLAS_PHYSICS=0,
+        # DTC_STRICT_PARITY=1, a plane, more than one substep, or another
+        # robot (the generic FK/ABA)
+        self._kernel_physics = (kernel_flag("DTC_PALLAS_PHYSICS", "1")
+                                and self.patch_src is not None
+                                and quadruped.quad_layout(m) is not None
+                                and cfg.sim.substeps == 1)
+        # the kernel's constant table: 4x3 rows, so on its route only
+        self._consts = (torch.as_tensor(cuda_substep.pack_constants(
             m, self.geom, cfg.sim, self.thigh_dyn_idx,
             cfg.terrain.horizontal_scale), device=dev)
-        # the decimation kernel, or the plain decimation loop over
-        # sim_step: DTC_PALLAS_PHYSICS=0, DTC_STRICT_PARITY=1, or a plane
-        # (no blocked tables; the JAX package runs its XLA loop there too)
-        self._kernel_physics = (kernel_flag("DTC_PALLAS_PHYSICS", "1")
-                                and self.patch_src is not None)
+            if self._kernel_physics else None)
 
     # ------------------------------------------------------------------
     @staticmethod

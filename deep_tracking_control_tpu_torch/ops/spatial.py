@@ -10,68 +10,74 @@ Layout: component axes FIRST, environment batch axis LAST — motion (6, N),
 rotation (3, 3, N), inertia (6, 6, N) — as in the JAX package, so both
 compare element for element.  The small products are unrolled
 multiply-adds over the leading axes, which keeps the order of the float
-operations the JAX package uses.
+operations the JAX package uses; each term is taken for every output
+element at once (a broadcast product), so a product costs a few tensor
+ops, not one per element.
 """
 from __future__ import annotations
 
 import torch
 
 
+def _batch(x, lead, nb):
+    """x with `lead` component axes and its batch axes widened to nb by
+    singleton axes after the components: batches broadcast from the
+    right, as in the element-wise forms of these products."""
+    extra = nb - (x.dim() - lead)
+    if extra <= 0:
+        return x
+    return x.reshape(x.shape[:lead] + (1,) * extra + x.shape[lead:])
+
+
+def _sum_in_order(terms):
+    """terms[0] + terms[1] + ... in that order."""
+    acc = terms[0]
+    for t in terms[1:]:
+        acc = acc + t
+    return acc
+
+
 def cross3(a, b):
-    """Cross product over leading component axis: (3, ...) x (3, ...)."""
-    return torch.stack([
-        a[1] * b[2] - a[2] * b[1],
-        a[2] * b[0] - a[0] * b[2],
-        a[0] * b[1] - a[1] * b[0],
-    ])
+    """Cross product over leading component axis: (3, ...) x (3, ...);
+    component i is a[i+1] b[i+2] - a[i+2] b[i+1], indices mod 3."""
+    nb = max(a.dim(), b.dim()) - 1
+    a, b = _batch(a, 1, nb), _batch(b, 1, nb)
+    return a.roll(-1, 0) * b.roll(-2, 0) - a.roll(-2, 0) * b.roll(-1, 0)
 
 
 def rmul(R, v):
-    """(3,3,...) @ (3,...) -> (3,...). R maps coords; batch trails."""
-    return torch.stack([
-        R[0, 0] * v[0] + R[0, 1] * v[1] + R[0, 2] * v[2],
-        R[1, 0] * v[0] + R[1, 1] * v[1] + R[1, 2] * v[2],
-        R[2, 0] * v[0] + R[2, 1] * v[1] + R[2, 2] * v[2],
-    ])
+    """(n,n,...) @ (n,...) -> (n,...). R maps coords; batch trails."""
+    nb = max(R.dim() - 2, v.dim() - 1)
+    R, v = _batch(R, 2, nb), _batch(v, 1, nb)
+    return _sum_in_order((R * v.unsqueeze(0)).unbind(1))
 
 
 def rtmul(R, v):
     """R^T @ v with trailing batch."""
-    return torch.stack([
-        R[0, 0] * v[0] + R[1, 0] * v[1] + R[2, 0] * v[2],
-        R[0, 1] * v[0] + R[1, 1] * v[1] + R[2, 1] * v[2],
-        R[0, 2] * v[0] + R[1, 2] * v[1] + R[2, 2] * v[2],
-    ])
+    nb = max(R.dim() - 2, v.dim() - 1)
+    R, v = _batch(R, 2, nb), _batch(v, 1, nb)
+    return _sum_in_order((R * v.unsqueeze(1)).unbind(0))
 
 
 def mmul(A, B):
-    """(r,k,...) @ (k,c,...) -> (r,c,...) as unrolled multiply-adds."""
-    r, k = A.shape[0], A.shape[1]
-    c = B.shape[1]
-    rows = []
-    for i in range(r):
-        cols = []
-        for j in range(c):
-            acc = A[i, 0] * B[0, j]
-            for l in range(1, k):
-                acc = acc + A[i, l] * B[l, j]
-            cols.append(acc)
-        rows.append(torch.stack(cols))
-    return torch.stack(rows)
+    """(r,k,...) @ (k,c,...) -> (r,c,...) as unrolled multiply-adds: every
+    output element is A[i,0]B[0,j] + A[i,1]B[1,j] + ... in that order,
+    each term taken for all (i, j) at once."""
+    nb = max(A.dim(), B.dim()) - 2
+    A, B = _batch(A, 2, nb), _batch(B, 2, nb)
+    return _sum_in_order((A.unsqueeze(2) * B.unsqueeze(0)).unbind(1))
 
 
 def dot_leading(a, b):
     """Sum_i a[i]*b[i] over the leading axis (unrolled)."""
-    acc = a[0] * b[0]
-    for i in range(1, a.shape[0]):
-        acc = acc + a[i] * b[i]
-    return acc
+    nb = max(a.dim(), b.dim()) - 1
+    return _sum_in_order((_batch(a, 1, nb) * _batch(b, 1, nb)).unbind(0))
 
 
 def outer_leading(a, b):
     """(n,...),(m,...) -> (n,m,...) outer product on leading axes."""
-    return torch.stack([torch.stack([a[i] * b[j] for j in range(b.shape[0])])
-                        for i in range(a.shape[0])])
+    nb = max(a.dim(), b.dim()) - 1
+    return _batch(a, 1, nb).unsqueeze(1) * _batch(b, 1, nb).unsqueeze(0)
 
 
 # A child frame c has origin r (in parent coords) and rotation E = c_R_p
@@ -186,14 +192,9 @@ def spatial_inertia(mass, com, inertia_com):
 
 
 def imul(I, m):
-    """(6,6,...) @ (6,...) -> (6,...) as unrolled multiply-adds."""
-    out = []
-    for i in range(6):
-        acc = I[i, 0] * m[0]
-        for j in range(1, 6):
-            acc = acc + I[i, j] * m[j]
-        out.append(acc)
-    return torch.stack(out)
+    """(6,6,...) @ (6,...) -> (6,...) as unrolled multiply-adds (in the
+    order j = 0..5, each term for all six rows at once)."""
+    return rmul(I, m)
 
 
 def solve_spd6(A, b, reg: float = 1e-8):

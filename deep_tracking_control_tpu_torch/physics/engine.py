@@ -1,12 +1,19 @@
-"""Articulated rigid-body physics pieces on torch tensors.
+"""Articulated rigid-body physics on torch tensors.
 
-Counterpart of the JAX package's physics/engine.py for the quadruped
-path: per-env spatial inertias with domain randomization, the world state
-of contact points, the anchored penalty contact, the per-body force sums
-and the semi-implicit integration of the plain decimation loop
-(`integrate`, for physics/sim.py sim_step; the decimation step,
+Counterpart of the JAX package's physics/engine.py: per-env spatial
+inertias with domain randomization, the generic forward kinematics and
+articulated-body algorithm (`fk`, `aba`: Featherstone's recursions body by
+body over any revolute tree the URDF reader accepts), the world state of
+contact points, the anchored penalty contact, the per-body force sums and
+the semi-implicit integration of the plain decimation loop (`integrate`,
+for physics/sim.py `sim_step`; the decimation kernel,
 physics/cuda_substep.py, integrates in the association of the TPU
-kernel).  Layout: component axes lead, the env batch axis trails (ops/spatial.py).
+kernel).  `sim_step` takes `fk`/`aba` wherever physics/quadruped.py finds
+no 4x3 quadruped, as the JAX package does.  The JAX package runs this
+engine as plain XLA, with no Pallas kernel, so here it is plain PyTorch on
+every device: that is its port, not a fallback.  Layout: component axes
+lead, the env batch axis trails (ops/spatial.py); the sums keep the JAX
+package's association.
 """
 from __future__ import annotations
 
@@ -50,6 +57,106 @@ def make_inertias(model: RobotModel, payload=None, com_disp=None,
         total_mass = total_mass + m
         inertias.append(sp.spatial_inertia(m, c, Ic))
     return torch.stack(inertias), total_mass
+
+
+def motion_axis(axis, device):
+    """A revolute joint's motion subspace [axis; 0] as a (6, 1) column."""
+    return torch.tensor([float(a) for a in axis] + [0.0, 0.0, 0.0],
+                        dtype=torch.float32, device=device)[:, None]
+
+
+def fk(model: RobotModel, state: dict):
+    """Forward kinematics and velocities, body by body.
+
+    Returns, per dynamic body b over nb: R (nb,3,3,N) body->world, x
+    (nb,3,N) world origin, v (nb,6,N) spatial velocity in BODY coords;
+    and per joint the child transform E (list of (3,3,N)) and origin r
+    (list of (3,1)), None at the base."""
+    N = state["pos"].shape[-1]
+    dev = state["pos"].device
+    R0 = qm.quat_to_rotmat(state["quat"].movedim(0, -1)).movedim(0, -1)
+    w0_b = sp.rtmul(R0, state["ang_vel"])
+    v0_b = sp.rtmul(R0, state["lin_vel"])
+    R, x, v = [R0], [state["pos"]], [torch.cat([w0_b, v0_b])]
+    E_list, r_list = [None], [None]
+    for i in range(1, model.nb):
+        j = i - 1
+        p = int(model.parent[i])
+        Rj = sp.axis_rotation(model.joint_axis[j], state["q"][j])  # (3,3,N)
+        R_pc = torch.as_tensor(model.joint_R[j], dtype=torch.float32,
+                               device=dev)[:, :, None].expand(3, 3, N)
+        R_pc = sp.mmul(R_pc, Rj)              # child axes in parent coords
+        E = R_pc.transpose(0, 1)              # parent -> child coords
+        r = torch.as_tensor(model.joint_t[j], dtype=torch.float32,
+                            device=dev)[:, None]
+        vi = (sp.xm_apply(E, r, v[p])
+              + motion_axis(model.joint_axis[j], dev) * state["qd"][j])
+        R.append(sp.mmul(R[p], R_pc))
+        x.append(x[p] + sp.rmul(R[p], r.expand(3, N)))
+        v.append(vi)
+        E_list.append(E)
+        r_list.append(r)
+    return dict(R=torch.stack(R), x=torch.stack(x), v=torch.stack(v),
+                E=E_list, r=r_list)
+
+
+def aba(model: RobotModel, inertias, kin, qd, tau, f_ext, sim: SimParams):
+    """Featherstone's articulated-body algorithm, body by body.
+
+    inertias (nb,6,6,N); qd, tau (nq,N); f_ext (nb,6,N) spatial forces on
+    each body, world-aligned at the body origin ([torque; force]).
+    Returns (qdd (nq,N), a0 (6,N)): the base's spatial acceleration in
+    base coords, gravity taken as an apparent acceleration."""
+    nb = model.nb
+    v = kin["v"]
+    N = v.shape[-1]
+    dev = v.device
+    S = [motion_axis(model.joint_axis[j], dev).expand(6, N)
+         for j in range(nb - 1)]
+
+    IA = [inertias[i] for i in range(nb)]
+    pA = []
+    for i in range(nb):
+        vi = v[i]
+        p_i = sp.crf(vi, sp.imul(IA[i], vi))
+        # external force: world-aligned at the body origin -> body coords
+        Rb = kin["R"][i]
+        n_b = sp.rtmul(Rb, f_ext[i][:3])
+        f_b = sp.rtmul(Rb, f_ext[i][3:])
+        pA.append(p_i - torch.cat([n_b, f_b]))
+
+    U, d, u, c = [None] * nb, [None] * nb, [None] * nb, [None] * nb
+    for i in range(1, nb):
+        c[i] = sp.crm(v[i], S[i - 1] * qd[i - 1])      # v_i x (S qdot)
+
+    # backward pass: articulated inertias and bias forces to the parents
+    for i in range(nb - 1, 0, -1):
+        j = i - 1
+        p = int(model.parent[i])
+        Ui = sp.imul(IA[i], S[j])
+        di = sp.dot_leading(S[j], Ui) + sim.armature
+        ui = ((tau[j] - sim.joint_friction * qd[j])
+              - sp.dot_leading(S[j], pA[i]))
+        U[i], d[i], u[i] = Ui, di, ui
+        Ia = IA[i] - sp.outer_leading(Ui, Ui) / di
+        pa = pA[i] + sp.imul(Ia, c[i]) + Ui * (ui / di)
+        E, r = kin["E"][i], kin["r"][i]
+        IA[p] = IA[p] + sp.inertia_transform_to_parent(E, r, Ia)
+        pA[p] = pA[p] + sp.xf_inv_apply(E, r, pa)
+
+    # the base: IA0 a0 = -pA0, by the unrolled LDL^T
+    a0 = -sp.solve_spd6(IA[0], pA[0])
+
+    a = [a0]
+    qdd = []
+    for i in range(1, nb):
+        j = i - 1
+        p = int(model.parent[i])
+        a_p = sp.xm_apply(kin["E"][i], kin["r"][i], a[p]) + c[i]
+        qdd_j = (u[i] - sp.dot_leading(U[i], a_p)) / d[i]
+        a.append(a_p + S[j] * qdd_j)
+        qdd.append(qdd_j)
+    return torch.stack(qdd), a0
 
 
 def body_point_state(kin, dyn_idx: np.ndarray, offsets: np.ndarray):

@@ -14,7 +14,7 @@ import torch
 from ..ops import quat as qm
 from ..ops import spatial as sp
 from ..robot.model import RobotModel
-from .engine import SimParams
+from .engine import SimParams, motion_axis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,11 +53,6 @@ def quad_layout(model: RobotModel) -> QuadLayout | None:
     return QuadLayout(body_idx=body_idx, joint_idx=joint_idx, axis=axis, r=r)
 
 
-def _motion_axis(axis, device):
-    return torch.tensor([float(a) for a in axis] + [0.0, 0.0, 0.0],
-                        dtype=torch.float32, device=device)[:, None, None]
-
-
 def fk(model: RobotModel, layout: QuadLayout, state: dict):
     """Leg-batched forward kinematics.
 
@@ -83,8 +78,8 @@ def fk(model: RobotModel, layout: QuadLayout, state: dict):
         E = Rj.transpose(0, 1)
         r = torch.as_tensor(layout.r[d].T, dtype=torch.float32,
                             device=dev)[:, :, None]            # (3,4,1)
-        v = sp.xm_apply(E, r, v_par) + _motion_axis(layout.axis[d], dev) \
-            * dq_cols[None]
+        v = (sp.xm_apply(E, r, v_par)
+             + motion_axis(layout.axis[d], dev)[:, None] * dq_cols[None])
         R = sp.mmul(R_par, Rj)
         x = x_par + sp.rmul(R_par, r.expand(3, 4, N))
         R_depth.append(R); x_depth.append(x); v_depth.append(v)
@@ -123,7 +118,7 @@ def aba(model: RobotModel, layout: QuadLayout, inertias, kin, qd, tau,
     fx_depth = [f_ext[bidx[d]].movedim(0, -2) for d in range(3)]    # (6,4,N)
     qd_depth = [qd[jidx[d]] for d in range(3)]                      # (4,N)
     tau_depth = [tau[jidx[d]] for d in range(3)]
-    S_depth = [_motion_axis(layout.axis[d], dev) for d in range(3)]
+    S_depth = [motion_axis(layout.axis[d], dev)[:, None] for d in range(3)]
 
     IA, pA = [], []
     for d in range(3):

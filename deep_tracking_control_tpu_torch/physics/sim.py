@@ -3,10 +3,14 @@ physics step.
 
 Counterpart of the JAX package's physics/sim.py (ContactGeometry,
 default_contact_geometry, init_anchors, sim_step).  `sim_step` is the
-physics of the reference route (DTC_PALLAS_PHYSICS=0 or
-DTC_STRICT_PARITY=1): every contact point, body points included, samples
-the terrain at every substep.  It is plain PyTorch on every device, as the
-JAX package's XLA route has no Pallas kernel.  The default route steps
+physics of every route off the decimation kernel (DTC_PALLAS_PHYSICS=0,
+DTC_STRICT_PARITY=1, a plane, more than one substep, a robot that is not
+a 4x3 quadruped): every contact point, body points included, samples the
+terrain at every substep.  It steps a 4x3 quadruped through the
+leg-batched FK/ABA (physics/quadruped.py) and any other revolute tree
+through the generic engine (engine.fk/aba), as the JAX package's
+sim_step does.  It is plain PyTorch on every device, as the JAX
+package's XLA route has no Pallas kernel.  The default route steps
 physics through the decimation kernel (physics/cuda_substep.py).
 """
 from __future__ import annotations
@@ -111,10 +115,8 @@ def sim_step(model: RobotModel, geom: ContactGeometry, sim: SimParams,
     lim_lo, lim_hi = col(model.pos_limit[:, 0]), col(model.pos_limit[:, 1])
     radius = torch.as_tensor(geom.radius, dtype=torch.float32, device=dev)
     eff_mass = torch.as_tensor(geom.eff_mass, dtype=torch.float32, device=dev)
+    # the leg-batched FK/ABA for a 4x3 quadruped, else the generic engine
     layout = quadruped.quad_layout(model)
-    if layout is None:
-        raise NotImplementedError("sim_step needs the quadruped layout (the "
-                                  "generic FK/ABA is not ported yet)")
     contact_rep = None
     for _ in range(sim.substeps):
         q = state["q"]
@@ -123,7 +125,8 @@ def sim_step(model: RobotModel, geom: ContactGeometry, sim: SimParams,
                                           - torch.clamp(q - lim_hi, min=0.0))
                    - sim.limit_damping * state["qd"]
                    * ((q < lim_lo) | (q > lim_hi)))
-        kin = quadruped.fk(model, layout, state)
+        kin = (quadruped.fk(model, layout, state) if layout is not None
+               else engine.fk(model, state))
         pts_pos, pts_vel = engine.body_point_state(kin, geom.dyn_idx,
                                                    geom.offset)
         terrain = terrain_fn(pts_pos[:, 0], pts_pos[:, 1])
@@ -132,8 +135,12 @@ def sim_step(model: RobotModel, geom: ContactGeometry, sim: SimParams,
             restitution, sim, dt)
         f_ext = engine.accumulate_body_forces(model.nb, geom.dyn_idx, kin,
                                               pts_pos, forces)
-        qdd, a0 = quadruped.aba(model, layout, inertias, kin, state["qd"],
-                                tau + tau_lim, f_ext, sim)
+        if layout is not None:
+            qdd, a0 = quadruped.aba(model, layout, inertias, kin,
+                                    state["qd"], tau + tau_lim, f_ext, sim)
+        else:
+            qdd, a0 = engine.aba(model, inertias, kin, state["qd"],
+                                 tau + tau_lim, f_ext, sim)
         state = engine.integrate(model, state, kin, qdd, a0, sim, dt)
 
         # reporting-body contact force sums, as static per-body adds

@@ -232,6 +232,42 @@ def test_utils_copies_equal(name):
     assert _without_imports(got) == _without_imports(want)
 
 
+@pytest.mark.parametrize("robot", ["lite3", "three_leg"])
+def test_viewer3d_fk_matches_generic_fk(robot, tmp_path):
+    """viewer3d's numpy FK, a mirror of the JAX engine's generic fk, equals
+    the port's generic engine.fk (body origins, orientations and the
+    welded feet) on Lite3 and on a three-legged robot (Lite3's URDF
+    without its HR_ leg, chip_smoke.three_leg_urdf), as
+    tests/test_viewer3d.py holds it to the JAX engine's."""
+    import torch
+    from chip_smoke import three_leg_urdf
+    from deep_tracking_control_tpu_torch.physics import engine
+    from deep_tracking_control_tpu_torch.robot.model import load_urdf
+    model = (load_urdf(three_leg_urdf(str(tmp_path / "three_leg.urdf")))
+             if robot == "three_leg" else trobots.get_robot(robot))
+    rng = np.random.default_rng(3)
+    for _ in range(3):
+        pos = np.array([1.0, 2.0, 0.4]) + rng.normal(scale=0.1, size=3)
+        q4 = rng.normal(size=4)
+        q4 /= np.linalg.norm(q4)
+        q = rng.uniform(model.pos_limit[:, 0], model.pos_limit[:, 1])
+        x_np, R_np = tviewer3d.fk_positions(model, pos, q4, q)
+        feet_np = tviewer3d.foot_positions_from_fk(model, x_np, R_np)
+
+        def col(a):
+            return torch.as_tensor(np.asarray(a, np.float32))[:, None]
+        state = engine.make_state(col(pos), col(q4), torch.zeros(3, 1),
+                                  torch.zeros(3, 1), col(q),
+                                  torch.zeros(model.nq, 1))
+        kin = engine.fk(model, state)
+        np.testing.assert_allclose(x_np, kin["x"][..., 0].numpy(), atol=2e-5)
+        np.testing.assert_allclose(R_np, kin["R"][..., 0].numpy(), atol=2e-5)
+        fpos, _ = engine.body_point_state(kin, model.foot_dyn_index,
+                                          model.foot_offset)
+        assert fpos.shape[0] == len(model.foot_body_index)
+        np.testing.assert_allclose(feet_np, fpos[..., 0].numpy(), atol=2e-5)
+
+
 @pytest.mark.parametrize("robot", ["lite3", "x30"])
 def test_viewer3d_fk_matches_port_fk(robot):
     """viewer3d's numpy FK (body origins and orientations, and the welded

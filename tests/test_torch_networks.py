@@ -252,3 +252,39 @@ def test_mean_outlier_filter_matches(nets):
     # the replaced entries all hold one value, the mean of the others
     np.testing.assert_allclose(glv.numpy()[replaced],
                                raw.numpy()[~replaced].mean(), rtol=1e-5)
+
+
+def test_params_from_flax_three_leg_widths():
+    """The converter at the widths of a robot that is not a 4x3 quadruped
+    (chip_smoke.three_leg_task: 9 joints, 36-dim obs, 9 actions, 5 x 36
+    history): every weight carried, and the teacher actor and the critic
+    agree at the bf16 budget."""
+    rng = np.random.default_rng(1)
+    f32 = np.float32
+    x = dict(obs=rng.normal(0, 1, (N, 36)).astype(f32),
+             hist=rng.normal(0, 1, (N, 180)).astype(f32),
+             priv=rng.normal(0, 1, (N, 1389)).astype(f32),
+             base_vel=rng.normal(0, 1, (N, 3)).astype(f32))
+    widths = dict(num_obs=36, num_actions=9, obs_history_dim=180)
+    jm = jnet.ActorCriticDecoder(**widths)
+    key = jax.random.PRNGKey(5)
+    params = jax.jit(jm.init)(key, *(jnp.asarray(x[k]) for k in
+                                     ("obs", "hist", "priv", "base_vel")), key)
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, v: v * 50.0 if "Dense_0" not in jax.tree_util.keystr(p)
+        and "kernel" in jax.tree_util.keystr(p) else v, params)
+    tm = tnet.ActorCriticDecoder(**widths)
+    tm.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)),
+                       strict=True)
+    assert (sum(np.asarray(v).size for v in jax.tree.leaves(params))
+            == sum(p.numel() for p in tm.parameters()))
+    want = jm.apply(params, _j(x, "obs"), _j(x, "hist"), _j(x, "priv"),
+                    method=jm.act_teacher)
+    value = jm.apply(params, _j(x, "obs"), _j(x, "priv"), _j(x, "base_vel"),
+                     method=jm.evaluate)
+    with torch.no_grad():
+        got = tm.act_teacher(_t(x, "obs"), _t(x, "hist"), _t(x, "priv"))
+        tvalue = tm.evaluate(_t(x, "obs"), _t(x, "priv"), _t(x, "base_vel"))
+    assert got.shape == (N, 9)
+    _close_bf16(got, want, "act_teacher")
+    _close_bf16(tvalue, value, "value")
