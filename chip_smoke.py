@@ -108,6 +108,32 @@ Phases (each prints its own line; any failure ends the run non-zero):
      their plain versions on a recorded step (rows "kernel (three-leg)");
      (c) one sim_step of the generic FK/ABA against the leg-batched one at
      4096 envs of Lite3 from (a)'s state, with the device time of each;
+  13. the env axis sharded over torch.distributed ranks (run before phase
+     9's lines): (a) the noise kernel at row offsets (D = 20, 17, 693 and
+     53, rows 1, 2, 3, 5, 2048 and 4089) and the obs kernel at row0 2048
+     on a 4096-env step's inputs cut in half, each bit for bit against the
+     rows of the full-size output and against its plain version, with
+     their times (rows "kernel (row offset)"); (b) one rank through
+     parallel/distributed.py `initialize` (nccl), lite3_dtc at 4096 envs,
+     learn(2) against the plain runner from the same seed: stats and
+     params max abs err 0, the default route's launch counts, both
+     env-steps/s; (c) two rank processes on the one card (gloo: NCCL
+     refuses two ranks on one device), 2048 envs each, learn(2) at
+     shuffle_strata 2 against one process at shuffle_strata 2: rank 1's
+     noise draws of the first collect are rows 2048-4095 of the
+     unsharded run's, bit for bit; params and generator states equal on
+     both ranks, bit for bit; iteration 1's stats over its first two
+     minibatch steps within 2e-3 rel + 1e-5 (the JAX package's budget
+     for sharded against unsharded training), over all its steps within
+     SHARD_WHOLE_LIMIT; the first VAE and main gradients, summed over
+     the ranks, within SHARD_GRAD_REL / SHARD_GRAD_COS of W=1's; the
+     first minibatch's CE-net outputs within SHARD_CENET_ATOL; beside
+     them three noise witnesses, read the same way: W=1 with every
+     minibatch's rows reversed, its gradients summed from its two
+     halves, or its dense layers run on each half apart; each rank's
+     launches the default route's; a rank that fails or outlives its
+     time ends the run.  `--only 13` runs phases 1, 2 and 13 alone (and
+     exits non-zero): a quicker check while the sharded path changes;
   9. a check that no kernel reads under its bytes read over the memory
      rate, a JSON line of the kernels (the main path's, then each at the
      other tasks' and the scripts' shapes), the nvidia-smi line, and the
@@ -155,21 +181,21 @@ KERNELS = {
         "deep_tracking_control_tpu_torch/csrc/substep.cu",
         "deep_tracking_control_tpu/physics/pallas_substep.py:771"),
     "extract_patches": ("deep_tracking_control_tpu_torch/csrc/patch.cu",
-                        "deep_tracking_control_tpu/ops/pallas_patch.py:49"),
+                        "deep_tracking_control_tpu/ops/pallas_patch.py:63"),
     "extract_windows": ("deep_tracking_control_tpu_torch/csrc/patch.cu",
-                        "deep_tracking_control_tpu/ops/pallas_patch.py:104"),
+                        "deep_tracking_control_tpu/ops/pallas_patch.py:118"),
     "sample_all": ("deep_tracking_control_tpu_torch/csrc/sampler.cu",
-                   "deep_tracking_control_tpu/terrain/pallas_sampler.py:150"),
+                   "deep_tracking_control_tpu/terrain/pallas_sampler.py:184"),
     "plan_footholds": ("deep_tracking_control_tpu_torch/csrc/planner.cu",
-                       "deep_tracking_control_tpu/env/pallas_planner.py:133"),
+                       "deep_tracking_control_tpu/env/pallas_planner.py:143"),
     "permute_groups": ("deep_tracking_control_tpu_torch/csrc/gather.cu",
                        "deep_tracking_control_tpu/experimental/pallas_gather.py:58"),
     "compute_rewards": ("deep_tracking_control_tpu_torch/csrc/rewards.cu",
-                        "deep_tracking_control_tpu/experimental/pallas_rewards.py:376"),
+                        "deep_tracking_control_tpu/experimental/pallas_rewards.py:495"),
     "compute_observations": ("deep_tracking_control_tpu_torch/csrc/obs.cu",
-                             "deep_tracking_control_tpu/experimental/pallas_obs.py:98"),
+                             "deep_tracking_control_tpu/experimental/pallas_obs.py:157"),
     "uniform_pm1": ("deep_tracking_control_tpu_torch/csrc/rng.cu",
-                    "deep_tracking_control_tpu/experimental/pallas_rng.py:49"),
+                    "deep_tracking_control_tpu/experimental/pallas_rng.py:64"),
 }
 
 
@@ -1393,7 +1419,7 @@ def strict_learn(runner, card, iters=2):
     from deep_tracking_control_tpu_torch.agent.ppo import shuffle_layout
     alg = runner.ppo.alg
     T, N = runner.cfg.runner.num_steps_per_env, runner.env.num_envs
-    G = shuffle_layout(alg, T, N, runner.ppo.n_env_shards)[3]
+    G = shuffle_layout(alg, T, N, runner.ppo.world)[3]
     if (alg.fused_joint_step, alg.minibatch_perm_granule, G) != (False, 1, 1):
         raise AssertionError(f"strict parity: fused_joint_step "
                              f"{alg.fused_joint_step}, granule "
@@ -1748,7 +1774,7 @@ def check_gather_bit_exact(ppo, batch, gen):
     from deep_tracking_control_tpu_torch.agent.ppo import shuffle_layout
     from deep_tracking_control_tpu_torch.ops import cuda_gather
     T, N = batch["values"].shape
-    S, _, _, G = shuffle_layout(ppo.alg, T, N, ppo.n_env_shards)
+    S, _, _, G = shuffle_layout(ppo.alg, T, N, ppo.world)
     if S != 1:
         raise AssertionError(f"one card should shuffle in one stratum, not {S}")
     flat = {k: x.reshape((T * N,) + x.shape[2:]) for k, x in batch.items()}
@@ -2642,7 +2668,552 @@ def other_policies(env, train, card):
     say(11, f"other policies in {time.perf_counter() - t0:.1f} s")
 
 
-def main():
+# ---------------------------------------------------------------------------
+# phase 13: the env axis sharded over torch.distributed ranks
+# ---------------------------------------------------------------------------
+SHARD_STATS = ("value_loss", "surrogate_loss", "recons_loss", "height_loss")
+# the minibatch steps of iteration 1 whose stats (c) holds to the JAX
+# package's budget: tests/test_multichip_equiv.py reads its iteration-1
+# stats over two steps (one epoch of two minibatches); over the registry's
+# 20 steps Adam's sign-sized first moves amplify the bf16 reduction-order
+# noise of the gradient sums (the means over all 20 are printed)
+SHARD_GATE_STEPS = 2
+# limits on iteration 1's stats over all its steps, W=2 against W=1
+# (relative), and on the first VAE and main gradients summed over the
+# ranks against W=1's (relative L2 error, least cosine over the parameter
+# tensors): twice the farthest reading of (c)'s three noise witnesses on
+# the H100, rounded up (PERF.md; lr, a step function of kl, is
+# read but not held)
+SHARD_WHOLE_LIMIT = dict(value_loss=7e-3, surrogate_loss=0.3, entropy=4e-5,
+                         kl=9e-2, recons_loss=8e-5, vel_loss=1e-3,
+                         kld_loss=0.8, height_loss=2e-2)
+SHARD_GRAD_REL = 6e-4
+SHARD_GRAD_COS = 0.999
+# the first minibatch's CE-net (mu, filtered logvar), the ranks' rows
+# against W=1's: an outlier the ranks judge otherwise, or another center,
+# moves an entry by ~1 (the ranks' GEMMs round a few entries by < 1e-6)
+SHARD_CENET_ATOL = 1e-5
+SHARD_ITERS = 2
+SHARD_TIMEOUT = 600      # seconds a rank of (c) may take
+
+
+def shard_learn(shard, strata, record=False, witness=None):
+    """A fresh lite3_dtc runner (NUM_ENVS envs in all, `shard`'s block of
+    them; shuffle_strata `strata`, None as registered) and learn(2) from
+    zero launch counts.  Returns (runner, dict(rows, params, generator,
+    launches, seconds, draws, step_stats, grads, cenet)); with `record`,
+    draws holds the first collect's K8 outputs and the (seed, row0) of each
+    K7 call, grads the gradients (this rank's, before the sum over the
+    ranks) that the VAE and main optimizers step on first, by parameter
+    name, and cenet the CE-net's (mu, filtered logvar) of the first
+    minibatch; step_stats holds the stats of every minibatch step of the first
+    update.  `witness` changes only the order of the sums over a
+    minibatch's rows in the fused step: "reversed" reverses its rows (its
+    latent draws with them), "halves" sums its gradients (and terms) from
+    its two halves' shares of each mean, each share from a backward pass
+    of its own, as two ranks do, and "split" runs every dense layer on
+    each half of the rows apart, with a GEMM of two ranks' shape."""
+    import torch
+    from deep_tracking_control_tpu_torch.agent import ppo as tppo
+    from deep_tracking_control_tpu_torch.env import cuda_obs
+    from deep_tracking_control_tpu_torch.env.legged_env import LeggedEnv
+    from deep_tracking_control_tpu_torch.models import networks as tnet
+    from deep_tracking_control_tpu_torch.ops import cuda_rng
+    from deep_tracking_control_tpu_torch.parallel import mesh as pmesh
+    from deep_tracking_control_tpu_torch.runner.train import OnPolicyRunner
+    from deep_tracking_control_tpu_torch.tasks import registry
+    task, train = registry.get_cfgs("lite3_dtc")
+    if strata is not None:
+        train = dataclasses.replace(train, algorithm=dataclasses.replace(
+            train.algorithm, shuffle_strata=strata))
+    env = LeggedEnv(task, device="cuda", shard=shard)
+    runner = OnPolicyRunner(env, train)
+    T = train.runner.num_steps_per_env
+    alg = train.algorithm
+    draws = dict(k8=[], k7=[], H=env.num_height_points, num_obs=env.num_obs)
+    originals = (cuda_rng.uniform_pm1, cuda_obs.compute_observations_fused)
+
+    def k8(*args, **kwargs):
+        out = originals[0](*args, **kwargs)
+        if len(draws["k8"]) < T:
+            draws["k8"].append(out.clone())
+        return out
+
+    def k7(*args, **kwargs):
+        if len(draws["k7"]) < T:
+            draws["k7"].append((args[-1].clone(), kwargs.get("row0", 0)))
+        return originals[1](*args, **kwargs)
+    torch.cuda.synchronize()
+    zero_launches()
+    # the recorders stand in for the wrappers (whose counts they leave to
+    # them) during the run only
+    if record:
+        cuda_rng.uniform_pm1, cuda_obs.compute_observations_fused = k8, k7
+    step_main = tppo.PPO._step_main
+    steps = alg.num_learning_epochs * alg.num_mini_batches
+    step_stats = []
+
+    def recorded_step(self, *args):
+        lr = step_main(self, *args)
+        if len(step_stats) < steps:
+            step_stats.append(args[-1][-1].cpu())
+        return lr
+    tppo.PPO._step_main = recorded_step
+    adam_step, joint_grads = tppo.ClippedAdam.step, tppo.PPO.joint_grads
+    cenet_stats = tnet.Vae.cenet_stats
+    grads, latest, cenet = [], [], []
+
+    def recorded_cenet(self, obs_history):
+        latest[:] = [cenet_stats(self, obs_history)]
+        return latest[0]
+
+    def recorded_adam(self, gs, lr):
+        if len(grads) < 2:
+            grads.append({n: (torch.zeros_like(p) if g is None else g)
+                          .detach().float().cpu()
+                          for n, g, p in zip(self.names, gs, self.params)})
+            if not cenet:           # the first minibatch's (mu, logvar)
+                cenet.append([t.detach().float().cpu() for t in latest[0]])
+        return adam_step(self, gs, lr)
+
+    def reversed_grads(self, mb, eps_vae, eps_pol):
+        idx = torch.arange(eps_vae.shape[0] - 1, -1, -1,
+                           device=eps_vae.device)
+        return joint_grads(self, {k: v[idx] for k, v in mb.items()},
+                           eps_vae[idx], eps_pol[idx])
+
+    def halved_grads(self, mb, eps_vae, eps_pol):
+        halves = []
+        for h in (0, 1):
+            def share(x, shard=None, count=None, h=h):
+                m = x.shape[0] // 2
+                return (x[:m] if h == 0 else x[m:]).sum() / x.numel()
+            pmesh.mean = share
+            try:
+                halves.append(joint_grads(self, mb, eps_vae, eps_pol))
+            finally:
+                pmesh.mean = plain_mean
+        (p0, q0, v0, g0), (p1, q1, v1, g1) = halves
+
+        def add(a, b):
+            return b if a is None else a if b is None else a + b
+        return (tuple(map(add, p0, p1)), tuple(map(add, q0, q1)),
+                list(map(add, v0, v1)), list(map(add, g0, g1)))
+    def split_dense(layer, x):
+        m = x.shape[0] // 2
+        return torch.cat([dense_forward(layer, x[:m]),
+                          dense_forward(layer, x[m:])])
+
+    def split_grads(self, mb, eps_vae, eps_pol):
+        tnet.Dense.forward = split_dense
+        try:
+            return joint_grads(self, mb, eps_vae, eps_pol)
+        finally:
+            tnet.Dense.forward = dense_forward
+    plain_mean, dense_forward = pmesh.mean, tnet.Dense.forward
+    if record:
+        tppo.ClippedAdam.step = recorded_adam
+        tnet.Vae.cenet_stats = recorded_cenet
+    if witness is not None:
+        tppo.PPO.joint_grads = dict(reversed=reversed_grads,
+                                    halves=halved_grads,
+                                    split=split_grads)[witness]
+    try:
+        t0 = time.perf_counter()
+        rows = runner.learn(SHARD_ITERS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        cuda_rng.uniform_pm1, cuda_obs.compute_observations_fused = originals
+        tppo.PPO._step_main = step_main
+        tppo.ClippedAdam.step, tppo.PPO.joint_grads = adam_step, joint_grads
+        tnet.Vae.cenet_stats = cenet_stats
+    launches = launch_counts()
+    want = expected_launches(DEFAULT_ROUTE, SHARD_ITERS * T, SHARD_ITERS)
+    if launches != want:
+        raise AssertionError(f"learn({SHARD_ITERS}) of {env.num_envs} envs: "
+                             f"launches {launches}, expected {want}")
+    check_rows("sharded learn", rows)
+    n_all = env.num_envs if shard is None else shard.num_envs
+    last = rows[-1]["collection_time"] + rows[-1]["learning_time"]
+    return runner, dict(
+        rows=rows, launches=launches, seconds=seconds, draws=draws,
+        step_stats=torch.stack(step_stats), rate=T * n_all / last,
+        grads=grads, cenet=cenet[0] if cenet else None,
+        params={k: v.detach().clone()
+                for k, v in runner.net.state_dict().items()},
+        generator=runner.generator.get_state(), n_local=env.num_envs)
+
+
+def shard_rank_main(rank, world, store, out):
+    """A rank of phase 13 (c), in its own process: the group over gloo (NCCL
+    refuses two ranks on one device), its block of lite3_dtc and learn(2)
+    at shuffle_strata 2; its results go to out/rank{rank}.pt."""
+    import torch
+    sys.path.insert(0, HERE)
+    from deep_tracking_control_tpu_torch.parallel import distributed as pdist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pdist.initialize(backend="gloo", init_method="file://" + store,
+                     world_size=world, rank=rank)
+    shard = pdist.global_shard(NUM_ENVS)
+    runner, res = shard_learn(shard, world, record=True)
+    del runner
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    pdist.barrier()
+    pdist.shutdown()
+
+
+def run_ranks(world, root, timeout=SHARD_TIMEOUT):
+    """Start `world` rank processes of this script on the card and wait for
+    all; a rank that fails or outlives `timeout` ends them all and fails
+    the phase with its output.  Returns each rank's results."""
+    import torch
+    store = os.path.join(root, "store")
+    procs, logs = [], []
+    for r in range(world):
+        logs.append(open(os.path.join(root, f"rank{r}.log"), "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--shard-rank", str(r),
+             "--world", str(world), "--store", store, "--out", root],
+            stdout=logs[-1], stderr=subprocess.STDOUT, cwd=HERE))
+    deadline = time.monotonic() + timeout
+    failed = None
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs)
+                   if p.poll() not in (None, 0)]
+            if bad or time.monotonic() > deadline:
+                failed = bad[0] if bad else "timeout"
+                break
+            time.sleep(0.5)
+        if failed is None:
+            bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+            failed = bad[0] if bad else None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if failed is not None:
+        text = []
+        for r, f in enumerate(logs):
+            f.seek(0)
+            text.append(f"--- rank {r} (exit {procs[r].returncode}) ---\n"
+                        + "".join(f.readlines()[-40:]))
+        raise AssertionError(f"phase 13: rank {failed} failed\n"
+                             + "\n".join(text))
+    for f in logs:
+        f.close()
+    return [torch.load(os.path.join(root, f"rank{r}.pt"), map_location="cpu",
+                       weights_only=False) for r in range(world)]
+
+
+def offset_kernels(runner, card):
+    """Phase 13 (a): K8 at element offsets and K7 at row0 = NUM_ENVS / 2,
+    each bit for bit against the rows of the full-size kernel output and
+    against its plain version; the offset rows' times and bounds."""
+    import torch
+    from deep_tracking_control_tpu_torch.env import cuda_obs
+    from deep_tracking_control_tpu_torch.ops import cuda_rng
+    g = torch.Generator("cuda").manual_seed(13)
+    seed = cuda_rng.draw_seed(g, "cuda")
+    half = NUM_ENVS // 2
+    checked = 0
+    for D in (20, 17, 693, 53):
+        full = cuda_rng.uniform_pm1(seed, (NUM_ENVS, D), 1)
+        for r in (1, 2, 3, 5, half, NUM_ENVS - 7):
+            n = min(NUM_ENVS - r, half)
+            got = cuda_rng.uniform_pm1(seed, (n, D), 1, r * D)
+            if not torch.equal(got, full[r:r + n]):
+                raise AssertionError(f"uniform_pm1 ({n}, {D}) at row {r}: not "
+                                     f"the rows of the ({NUM_ENVS}, {D}) draw")
+            if not torch.equal(got, cuda_rng.uniform_pm1_plain(seed, (n, D), 1,
+                                                               r * D)):
+                raise AssertionError(f"uniform_pm1 ({n}, {D}) at row {r}: "
+                                     f"differs from plain")
+            checked += 1
+    env = runner.env
+    calls, runner.env_state = record_kernel_inputs(
+        env, runner.env_params, runner.env_state, runner.generator, steps=1)
+    args, _ = calls["compute_observations"]
+    # the step's inputs cut in half: env-leading rows, q and qd columns
+    cut = [a[half:] if i in (2, 3, 4, 7, 8, 9, 10, 11, 12, 13)
+           else a[:, half:] if i in (5, 6) else a for i, a in enumerate(args)]
+    whole = cuda_obs.compute_observations_fused(*args)
+    got = cuda_obs.compute_observations_fused(*cut, row0=half)
+    plain = cuda_obs.observations_plain(*cut, row0=half)
+    for name, w, a, b in zip(("obs", "privileged", "history"), whole, got,
+                             plain):
+        if not torch.equal(a, w[half:]):
+            raise AssertionError(f"compute_observations {name} at row0 "
+                                 f"{half}: not the rows of the full output")
+        if not torch.equal(a, b):
+            raise AssertionError(f"compute_observations {name} at row0 "
+                                 f"{half}: differs from plain")
+    say(13, f"(a) uniform_pm1 bit for bit at {checked} row offsets (D = 20, "
+            f"17, 693, 53; rows 1, 2, 3, 5, {half}, {NUM_ENVS - 7}) against "
+            f"the rows of the ({NUM_ENVS}, D) draw and the plain version; "
+            f"compute_observations at row0 {half} on the {NUM_ENVS}-env "
+            f"step's inputs cut in half bit for bit against rows "
+            f"{half}-{NUM_ENVS - 1} of the full output and the plain version")
+    results = {}
+    H, num_obs = args[10].shape[1], args[14].shape[0]
+    drawn = half * H + (half * num_obs if args[0].noise.add_noise else 0)
+    r = results["compute_observations (row offset)"] = dict(
+        max_abs_err=0.0, **timings(
+            torch, "compute_observations",
+            lambda: cuda_obs.compute_observations_fused(*cut, row0=half),
+            lambda: cuda_obs.observations_plain(*cut, row0=half)))
+    check_launch("compute_observations (row offset)", r["launch"],
+                 *cuda_obs.launch_shape(half)[:2])
+    r.update(bound(tensor_bytes(cut), tensor_bytes(got), count_ops(
+        lambda: cuda_obs.observations_plain(*cut, row0=half))
+        + PHILOX_OPS * drawn))
+    shape = (half, env.num_actions + 8)
+    off = half * shape[1]
+
+    def library():
+        return torch.empty(shape, device="cuda").uniform_(-1.0, 1.0,
+                                                          generator=g)
+    r = results["uniform_pm1 (row offset)"] = dict(
+        max_abs_err=0.0, library_ms=device_ms(torch, library), **timings(
+            torch, "uniform_pm1",
+            lambda: cuda_rng.uniform_pm1(seed, shape, 0, off),
+            lambda: cuda_rng.uniform_pm1_plain(seed, shape, 0, off)))
+    check_launch("uniform_pm1 (row offset)", r["launch"],
+                 *cuda_rng.launch_shape(shape[0] * shape[1], off))
+    r.update(bound(16, shape[0] * shape[1] * 4,
+                   PHILOX_OPS * shape[0] * shape[1]))
+    for k, r in results.items():
+        say(13, f"(a) {k}: device time per call, mean of {REPEATS}: kernel "
+                f"call {r['ms']:.4f} ms (its CUDA kernel alone "
+                f"{r['kernel_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms"
+                + (f", uniform_ {r['library_ms']:.4f} ms"
+                   if r.get("library_ms") is not None else "")
+                + f"; bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+                  f"({card})")
+    return results
+
+
+def max_abs(a, b):
+    return max(float((x.double() - y.double()).abs().max())
+               for x, y in zip(a, b))
+
+
+def grad_gap(got, want):
+    """(relative L2 error, least cosine over the parameter tensors, that
+    tensor's name) of gradients `got` against `want` (name -> tensor)."""
+    num = den = 0.0
+    least, where = 1.0, None
+    for n, w in want.items():
+        g, w = got[n].double(), w.double()
+        num += float((g - w).square().sum())
+        den += float(w.square().sum())
+        gn, wn = float(g.norm()), float(w.norm())
+        cos = (float((g * w).sum()) / (gn * wn) if gn and wn
+               else float(gn == wn))
+        if cos < least:
+            least, where = cos, n
+    return math.sqrt(num / den), least, where
+
+
+def reading(step_stats, grads, ref):
+    """How far a run of phase 13 (c) is from W=1 (`ref`): the relative
+    diff of each of iteration 1's stats in its first minibatch step
+    ("one"), over its first SHARD_GATE_STEPS ("two", with the values in
+    "two_abs") and over all of them ("whole"), and grad_gap of its first
+    VAE and main gradients."""
+    from deep_tracking_control_tpu_torch.agent.ppo import STAT_NAMES
+    out = dict(one={}, two={}, two_abs={}, whole={})
+    for i, k in enumerate(STAT_NAMES):
+        for key, n in (("one", 1), ("two", SHARD_GATE_STEPS),
+                       ("whole", None)):
+            a = float(step_stats[:n, i].mean())
+            b = float(ref["step_stats"][:n, i].mean())
+            out[key][k] = abs(a - b) / max(abs(b), 1e-12)
+            if key == "two":
+                out["two_abs"][k] = (a, b)
+    out["grads"] = [grad_gap(g, w) for g, w in zip(grads, ref["grads"])]
+    return out
+
+
+def sharded_training(card):
+    """Phase 13: (a) the noise kernels at a row offset, (b) W=1 through
+    `initialize` (nccl) against the plain runner, exact, (c) W=2 on the one
+    card (gloo) against W=1 at shuffle_strata 2.  Returns the kernel rows
+    of (a)."""
+    import torch
+    from deep_tracking_control_tpu_torch.ops import cuda_rng
+    from deep_tracking_control_tpu_torch.parallel import distributed as pdist
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(dir=HERE)
+    atexit.register(shutil.rmtree, root, True)
+    # (b) the plain runner, then W=1 through initialize, from one seed
+    plain_runner, plain = shard_learn(None, None)
+    store = "file://" + os.path.join(root, "store1")
+    dev = pdist.initialize(backend="nccl", init_method=store, world_size=1,
+                           rank=0)
+    if dev != torch.device("cuda", 0):
+        raise AssertionError(f"initialize: device {dev}")
+    try:
+        shard = pdist.global_shard(NUM_ENVS)
+        runner1, one = shard_learn(shard, None)
+        del runner1
+    finally:
+        pdist.shutdown()
+    keys = [k for k in plain["rows"][0] if not k.endswith("_time")]
+    err_stats = max(abs(a[k] - b[k])
+                    for a, b in zip(plain["rows"], one["rows"]) for k in keys)
+    err_params = max_abs(plain["params"].values(), one["params"].values())
+    if err_stats or err_params:
+        raise AssertionError(f"(b) W=1 through initialize vs the plain "
+                             f"runner: stats max abs err {err_stats}, params "
+                             f"{err_params}; expected 0")
+    say(13, f"(b) W=1 through initialize (nccl, one rank, shard "
+            f"{shard.row0}-{shard.row0 + shard.n_local - 1}) vs the plain "
+            f"runner, learn({SHARD_ITERS}) from one seed at {NUM_ENVS} envs: "
+            f"stats ({len(keys)} a row) and params max abs err 0; launches "
+            f"{one['launches']}; train-iteration env-steps/s of iteration 2 "
+            f"{one['rate']:.1f} sharded, {plain['rate']:.1f} plain "
+            f"(learn({SHARD_ITERS}) {one['seconds']:.2f} s and "
+            f"{plain['seconds']:.2f} s) ({card})")
+    results = offset_kernels(plain_runner, card)
+    del plain_runner
+    torch.cuda.empty_cache()
+
+    # (c) W=2 on the one card against W=1 at shuffle_strata 2
+    ref_runner, ref = shard_learn(None, 2, record=True)
+    del ref_runner
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(2, root)
+    rank_s = time.perf_counter() - t0
+    half = NUM_ENVS // 2
+    for k in ranks[0]["params"]:
+        if not torch.equal(ranks[0]["params"][k], ranks[1]["params"][k]):
+            raise AssertionError(f"(c) params {k} differ between the ranks")
+    if not torch.equal(ranks[0]["generator"], ranks[1]["generator"]):
+        raise AssertionError("(c) the ranks' generator states differ")
+    if not torch.equal(ranks[0]["generator"], ref["generator"].cpu()):
+        raise AssertionError("(c) the ranks' generator state is not W=1's")
+    got, want = ranks[1]["draws"], ref["draws"]
+    if len(got["k8"]) != len(want["k8"]) or len(got["k7"]) != len(want["k7"]):
+        raise AssertionError(f"(c) draws recorded: rank 1 {len(got['k8'])} "
+                             f"K8, {len(got['k7'])} K7; W=1 {len(want['k8'])},"
+                             f" {len(want['k7'])}")
+    for a, b in zip(got["k8"], want["k8"]):
+        if not torch.equal(a, b[half:].cpu()):
+            raise AssertionError("(c) rank 1's reset uniforms are not rows "
+                                 f"{half}-{NUM_ENVS - 1} of W=1's")
+    H, num_obs = want["H"], want["num_obs"]
+    for (s1, row0), (s0, _) in zip(got["k7"], want["k7"]):
+        if row0 != half or not torch.equal(s1, s0.cpu()):
+            raise AssertionError(f"(c) rank 1's obs noise seed or row0 "
+                                 f"({row0}) is not W=1's")
+        s0 = s0.cuda()
+        for stream, D in ((0, H), (1, num_obs)):
+            if not torch.equal(
+                    cuda_rng.uniform_pm1(s0, (half, D), stream, half * D),
+                    cuda_rng.uniform_pm1(s0, (NUM_ENVS, D), stream)[half:]):
+                raise AssertionError("(c) rank 1's obs noise is not rows "
+                                     f"{half}-{NUM_ENVS - 1} of W=1's")
+    # the noise witnesses: W=1 with only the order and rounding of the
+    # sums over a minibatch's rows changed (no shard, the same rows and
+    # draws)
+    witnesses = {}
+    for label in ("reversed", "halves", "split"):
+        w_runner, witnesses[label] = shard_learn(None, 2, record=True,
+                                                 witness=label)
+        del w_runner
+        torch.cuda.empty_cache()
+    summed = [{n: ranks[0]["grads"][j][n] + ranks[1]["grads"][j][n]
+               for n in ranks[0]["grads"][j]} for j in range(2)]
+    readings = {"W=2": reading(ranks[0]["step_stats"], summed, ref)}
+    for label, w in witnesses.items():
+        readings[label] = reading(w["step_stats"], w["grads"], ref)
+    got_w2 = readings["W=2"]
+    for k in SHARD_STATS:
+        a, b = got_w2["two_abs"][k]
+        if not abs(a - b) <= 1e-5 + 2e-3 * abs(b):
+            raise AssertionError(
+                f"(c) iteration 1, first {SHARD_GATE_STEPS} minibatch steps, "
+                f"{k}: {a} at W=2, {b} at W=1 (budget 2e-3 rel + 1e-5)")
+    for k, limit in SHARD_WHOLE_LIMIT.items():
+        if not got_w2["whole"][k] <= limit:
+            raise AssertionError(
+                f"(c) iteration 1, all its minibatch steps, {k}: rel diff "
+                f"{got_w2['whole'][k]:.3e} W=2 against W=1 (limit {limit}; "
+                f"the witnesses': " + ", ".join(
+                    f"{lb} {r['whole'][k]:.3e}" for lb, r in readings.items()
+                    if lb != "W=2") + ")")
+    for j, opt in enumerate(("VAE", "main")):
+        rel_l2, cos, name = got_w2["grads"][j]
+        if not (rel_l2 <= SHARD_GRAD_REL and cos >= SHARD_GRAD_COS):
+            raise AssertionError(
+                f"(c) the {opt} optimizer's first gradients, summed over the "
+                f"ranks, against W=1's: rel L2 err {rel_l2:.3e} (limit "
+                f"{SHARD_GRAD_REL}), least cosine {cos:.6f} at {name} "
+                f"(limit {SHARD_GRAD_COS})")
+    say(13, f"(c) W=2 on one card (gloo, two processes of {half} envs) vs "
+            f"W=1, shuffle_strata 2, learn({SHARD_ITERS}): rank 1's K8 and K7 "
+            f"draws of the first collect ({len(got['k8'])} steps) are rows "
+            f"{half}-{NUM_ENVS - 1} of W=1's bit for bit; params and "
+            f"generator states equal on both ranks bit for bit; iteration 1's "
+            f"{', '.join(SHARD_STATS)} over its first {SHARD_GATE_STEPS} "
+            f"minibatch steps within 2e-3 rel + 1e-5; its stats over all "
+            f"steps within {SHARD_WHOLE_LIMIT}; the first VAE and main "
+            f"gradients summed over the ranks within rel L2 "
+            f"{SHARD_GRAD_REL} and cosine >= {SHARD_GRAD_COS} per tensor; "
+            f"each rank's launches {ranks[0]['launches']} (the default "
+            f"route's)")
+    want_mu, want_lv = ref["cenet"]
+    for label, (mu, lv) in (
+            ("W=2", [torch.cat(t) for t in zip(*(r["cenet"] for r in ranks))]),
+            *((k, w["cenet"]) for k, w in witnesses.items()
+              if k != "reversed")):
+        err = max(float((mu - want_mu).abs().max()),
+                  float((lv - want_lv).abs().max()))
+        if label == "W=2" and not err <= SHARD_CENET_ATOL:
+            raise AssertionError(
+                f"(c) the first minibatch's CE-net (mu, filtered logvar) on "
+                f"the ranks against W=1's rows: max abs err {err:.3e} "
+                f"(limit {SHARD_CENET_ATOL}; the outlier filter's mean, std "
+                f"and median are global)")
+        say(13, f"(c) the first minibatch's CE-net, {label} against W=1: mu "
+                f"{int((mu != want_mu).sum())} of {mu.numel()} entries "
+                f"differ, filtered logvar {int((lv != want_lv).sum())} of "
+                f"{lv.numel()}; max abs err {err:.3e}"
+                + (f" (limit {SHARD_CENET_ATOL})" if label == "W=2" else ""))
+    for label, r in readings.items():
+        say(13, f"(c) reading {label} against W=1: first VAE / main "
+                f"gradients rel L2 err {r['grads'][0][0]:.3e} / "
+                f"{r['grads'][1][0]:.3e}, least cosine {r['grads'][0][1]:.7f}"
+                f" ({r['grads'][0][2]}) / {r['grads'][1][1]:.7f} "
+                f"({r['grads'][1][2]}); iteration 1's stats rel diff in its "
+                f"first step " + ", ".join(
+                    f"{k} {r['one'][k]:.3e}" for k in r["one"])
+                + f"; over its first {SHARD_GATE_STEPS} steps " + ", ".join(
+                    f"{k} {r['two'][k]:.3e}" for k in r["two"])
+                + "; over all its steps " + ", ".join(
+                    f"{k} {r['whole'][k]:.3e}" for k in r["whole"]))
+    say(13, f"(c) train-iteration env-steps/s of iteration 2: W=2 "
+            f"{ranks[0]['rate']:.1f} (rank 0's learn({SHARD_ITERS}) "
+            f"{ranks[0]['seconds']:.2f} s; the two processes share one card "
+            f"and all-reduce through the host, so this is no scaling number), "
+            f"W=1 {ref['rate']:.1f} (learn({SHARD_ITERS}) {ref['seconds']:.2f}"
+            f" s); the ranks' processes took {rank_s:.1f} s with start-up "
+            f"({card})")
+    for name, r in results.items():
+        r["launches"] = ranks[1]["launches"][name.split(" (")[0]]
+    say(13, f"phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
+def main(only=None):
+    """Every phase, or with `only` ("13") phases 1, 2 and that one, without
+    the result lines (a quicker check of one phase; it exits non-zero so
+    that it can never stand for the whole run)."""
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs a GPU")
@@ -2672,6 +3243,10 @@ def main():
     for line in cuda_build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say(2, line.strip())
+    if only == "13":
+        sharded_training(card)
+        raise SystemExit("chip_smoke: phase 13 alone passed; run without "
+                         "--only for the whole run")
 
     # ---- 3: kernels vs plain on a real step ------------------------------
     task, train = registry.get_cfgs("lite3_dtc")
@@ -2837,6 +3412,9 @@ def main():
     say(12, f"phase 12 in {time.perf_counter() - t0:.1f} s ((a) and (c) "
             f"{t1 - t0:.1f} s, (b) {time.perf_counter() - t1:.1f} s)")
 
+    # ---- 13: the env axis sharded over torch.distributed ranks -------------
+    results.update(sharded_training(card))
+
     # ---- 9: result lines ----------------------------------------------
     # each timed call found its inputs in HBM (`timing_probes`): a kernel
     # that reads under the time of its bytes read has them miscounted.
@@ -2879,4 +3457,17 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", choices=["13"], default=None,
+                    help="phases 1, 2 and this one alone (exits non-zero)")
+    # a rank process of phase 13 (c), started by the phase itself
+    ap.add_argument("--shard-rank", type=int, default=None)
+    ap.add_argument("--world", type=int, default=2)
+    ap.add_argument("--store", default=None)
+    ap.add_argument("--out", default=None)
+    a = ap.parse_args()
+    if a.shard_rank is not None:
+        shard_rank_main(a.shard_rank, a.world, a.store, a.out)
+    else:
+        main(a.only)

@@ -22,11 +22,25 @@ Random draws (the group or env permutations, the standard normal draws of
 the actions and of the reparameterized latents) are arguments; they come
 from a torch.Generator when not given, so tests can feed the JAX
 package's draws.
+
+Data-parallel over torch.distributed ranks (`shard`, a parallel/mesh.py
+EnvShard of W ranks; the runner passes the env's): every rank holds
+its block of envs and the same params.  Each rank draws every draw at
+its global shape (the permutations of all S strata, the latents of the
+whole minibatch, the env permutation) and keeps its part: whole strata
+under the stratified shuffle (W must divide S), its rows of each
+minibatch, its envs of each recurrent minibatch.  The advantage
+normalization reads the global mean and std; each loss term is the
+rank's share of the global mean, its gradients are summed over the ranks
+before the clip, and the stats (the KL that sets the learning rate among
+them) are summed, so every rank takes the same step.  Without a shard of
+two or more ranks nothing of this runs.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Any
 
 import numpy as np
@@ -34,6 +48,7 @@ import torch
 
 from ..env.config import AlgorithmCfg
 from ..ops import cuda_gather
+from ..parallel import mesh as pmesh
 from ..utils.flags import strict_parity
 from .trajectories import rnn_replay, tree_map
 
@@ -74,7 +89,7 @@ class ClippedAdam:
 
     def __init__(self, named_params, max_norm: float, device,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 injected: bool = False):
+                 injected: bool = False, shard=None):
         named_params = list(named_params)
         self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
@@ -87,6 +102,9 @@ class ClippedAdam:
         self.mu = torch.zeros(size, device=dev)
         self.nu = torch.zeros(size, device=dev)
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
+        # a sharded run's EnvShard: the gradients are summed over the
+        # ranks before the clip
+        self.shard = shard
 
     def _views(self, flat):
         out, i = [], 0
@@ -101,6 +119,7 @@ class ClippedAdam:
         None for zero) at learning rate lr (a float or a 0-d tensor)."""
         g = torch.cat([(torch.zeros_like(p) if gi is None else gi).reshape(-1)
                        for gi, p in zip(grads, self.params)])
+        g = pmesh.all_sum(g, self.shard)
         # sqrt of a plain sum of squares (vector_norm on the CPU loses
         # ~5e-5 of a 20k-entry f32 norm)
         norm = torch.sqrt(torch.sum(torch.square(g)))
@@ -132,26 +151,29 @@ class ClippedAdam:
                 v.copy_(sd[name][n])
 
 
-def make_optimizers(net, alg: AlgorithmCfg):
+def make_optimizers(net, alg: AlgorithmCfg, shard=None):
     """(main, vae) optimizers (ppo.py:40-50): the main one spans every
     parameter, its learning rate injected each minibatch; the VAE one spans
     the vae subtree only (mask_non_vae, ppo.py:519-525; none of the MLP and
     recurrent nets) at vae_learning_rate, clipped on the VAE gradient's own
-    norm."""
+    norm.  Both sum the gradients over `shard`'s ranks."""
     named = list(net.named_parameters())
     dev = net.std.device
-    main = ClippedAdam(named, alg.max_grad_norm, dev, injected=True)
+    main = ClippedAdam(named, alg.max_grad_norm, dev, injected=True,
+                       shard=shard)
     vae = ClippedAdam([(n, p) for n, p in named if n.startswith("vae.")],
-                      alg.max_grad_norm, dev)
+                      alg.max_grad_norm, dev, shard=shard)
     return main, vae
 
 
 def shuffle_layout(alg: AlgorithmCfg, T: int, N: int, n_env_shards: int = 1):
     """(S, rows per stratum, minibatch rows per stratum, G) of the update
-    (ppo.py:287-300): S strata (0 = auto: the env-shard count, 1 on one
-    device; 1 under DTC_STRICT_PARITY), shrunk until every stratum splits
-    into whole minibatches, and the granule G capped at gcd(granule, mb_s).
-    """
+    (ppo.py:287-300) over N envs in all: S strata (0 = auto: the env-shard
+    count, 1 on one device; 1 under DTC_STRICT_PARITY), shrunk until every
+    stratum splits into whole minibatches (with a warning: the JAX package
+    shrinks silently), and the granule G capped at gcd(granule, mb_s).
+    Over n_env_shards > 1 ranks each rank must hold whole strata: raises
+    unless n_env_shards divides S."""
     total, nmb = T * N, alg.num_mini_batches
     want_s = (int(alg.shuffle_strata) if alg.shuffle_strata > 0
               else max(int(n_env_shards), 1))
@@ -160,6 +182,14 @@ def shuffle_layout(alg: AlgorithmCfg, T: int, N: int, n_env_shards: int = 1):
         S -= 1
         while N % S:
             S -= 1
+    if S < want_s and not strict_parity():
+        warnings.warn(f"shuffle_strata: {S} strata in place of {want_s} "
+                      f"({N} envs, {T} steps, {nmb} minibatches)",
+                      stacklevel=2)
+    if n_env_shards > 1 and S % n_env_shards:
+        raise ValueError(f"{S} strata over {n_env_shards} ranks: each rank "
+                         "must hold whole strata (set shuffle_strata to a "
+                         "multiple of the rank count)")
     rows_s = total // S
     mb_s = rows_s // nmb
     G = math.gcd(max(int(alg.minibatch_perm_granule), 1), mb_s)
@@ -171,22 +201,35 @@ class PPO:
     """PPO over an actor-critic of `policy_kind` (POLICY_KINDS: the
     ActorCriticDecoder, ActorCritic or ActorCriticRecurrent).  With a net
     it owns the two optimizers and the learning rate, a 0-d tensor on the
-    net's device."""
+    net's device.  Sharded, `shard` is the rank's EnvShard (a decoder net
+    is built with the same one, for its CE-net stats and VAE losses)."""
     net: Any
     alg: AlgorithmCfg
-    n_env_shards: int = 1
     policy_kind: str = "decoder"
+    shard: Any = None
 
     def __post_init__(self):
         if self.policy_kind not in POLICY_KINDS:
             raise ValueError(f"policy_kind {self.policy_kind!r}: one of "
                              f"{POLICY_KINDS}")
         if self.net is not None:
-            self.optimizer, self.vae_optimizer = make_optimizers(self.net,
-                                                                 self.alg)
+            self.optimizer, self.vae_optimizer = make_optimizers(
+                self.net, self.alg, self.shard)
             self.learning_rate = torch.tensor(
                 self.alg.learning_rate, dtype=torch.float32,
                 device=self.net.std.device)
+
+    @property
+    def world(self) -> int:
+        """The env-shard count: the ranks of the shard, 1 without one."""
+        return 1 if self.shard is None else self.shard.world
+
+    def _randn_rows(self, n, d, generator, device):
+        """This rank's n rows of an (N, d) standard normal draw at the
+        global env count."""
+        return pmesh.rows(torch.randn(pmesh.global_shape((n, d), self.shard),
+                                      generator=generator, device=device),
+                          self.shard)
 
     def value(self, obs, privileged_obs, base_vel):
         """The critic of a decoder or MLP net (the MLP's reads the obs)."""
@@ -194,11 +237,9 @@ class PPO:
             return self.net.evaluate(obs, privileged_obs, base_vel)
         return self.net(obs, obs)[2]
 
-    @staticmethod
-    def _sample(mean, std, eps_a, generator):
+    def _sample(self, mean, std, eps_a, generator):
         if eps_a is None:
-            eps_a = torch.randn(mean.shape, generator=generator,
-                                device=mean.device)
+            eps_a = self._randn_rows(*mean.shape, generator, mean.device)
         actions = mean + std * eps_a
         return dict(actions=actions,
                     log_prob=normal_log_prob(mean, std, actions),
@@ -213,8 +254,8 @@ class PPO:
         the action; drawn from `generator` when None."""
         if self.policy_kind == "decoder":
             if eps_z is None:
-                eps_z = torch.randn((obs.shape[0], self.net.z_dim),
-                                    generator=generator, device=obs.device)
+                eps_z = self._randn_rows(obs.shape[0], self.net.z_dim,
+                                         generator, obs.device)
             mean, std, _, _ = self.net.act_stats(obs, obs_history,
                                                  privileged_obs, eps_z)
             values = self.value(obs, privileged_obs, base_vel)
@@ -261,36 +302,47 @@ class PPO:
             adv = delta + not_terminal[t] * gamma * lam * adv
             advs[t] = adv
         returns = advs + values
-        advantages = (advs - advs.mean()) / (advs.std(correction=0) + 1e-8)
-        return returns, advantages
+        if not pmesh.spans(self.shard):
+            advantages = (advs - advs.mean()) / (advs.std(correction=0) + 1e-8)
+            return returns, advantages
+        # the global mean and std, in two passes as std(correction=0)
+        count = advs.numel() * self.world
+        m = pmesh.all_sum(advs.sum(), self.shard) / count
+        var = pmesh.all_sum(torch.square(advs - m).sum(), self.shard) / count
+        return returns, (advs - m) / (torch.sqrt(var) + 1e-8)
 
     # ---------------- update ----------------
-    def _pol_terms(self, mean, std, value, mb):
-        """(loss, surrogate, value loss, entropy, mean KL) (ppo.py:265-335)."""
+    def _pol_terms(self, mean, std, value, mb, count=None):
+        """(loss, surrogate, value loss, entropy, mean KL) (ppo.py:265-335).
+        Sharded, each mean is this rank's share of the mean over `count`
+        rows in all (default: the same rows on every rank)."""
         alg = self.alg
+
+        def avg(x):
+            return pmesh.mean(x, self.shard, count)
         log_prob = normal_log_prob(mean, std, mb["actions"])
         ratio = torch.exp(log_prob - mb["old_log_prob"])
         adv = mb["advantages"]
         surr = -adv * ratio
         surr_clipped = -adv * torch.clamp(ratio, 1.0 - alg.clip_param,
                                           1.0 + alg.clip_param)
-        surrogate_loss = torch.mean(torch.maximum(surr, surr_clipped))
+        surrogate_loss = avg(torch.maximum(surr, surr_clipped))
         if alg.use_clipped_value_loss:                    # ppo.py:318-323
             v_clipped = mb["values"] + torch.clamp(
                 value - mb["values"], -alg.clip_param, alg.clip_param)
-            value_loss = torch.mean(torch.maximum(
+            value_loss = avg(torch.maximum(
                 torch.square(value - mb["returns"]),
                 torch.square(v_clipped - mb["returns"])))
         else:
-            value_loss = torch.mean(torch.square(mb["returns"] - value))
-        entropy = torch.mean(normal_entropy(std))
+            value_loss = avg(torch.square(mb["returns"] - value))
+        entropy = avg(normal_entropy(std))
         loss = (surrogate_loss + alg.value_loss_coef * value_loss
                 - alg.entropy_coef * entropy)
         kl = torch.sum(
             torch.log(std / mb["old_sigma"] + 1e-5)
             + (torch.square(mb["old_sigma"]) + torch.square(mb["old_mu"] - mean))
             / (2.0 * torch.square(std)) - 0.5, dim=-1)
-        return loss, surrogate_loss, value_loss, entropy, torch.mean(kl)
+        return loss, surrogate_loss, value_loss, entropy, avg(kl)
 
     def _vae_loss(self, parts, mb):
         alg = self.alg
@@ -339,6 +391,18 @@ class PPO:
                                         allow_unused=True)
         return parts, pol, grads
 
+    def _step_main(self, pol, parts, grads, lr, stats):
+        """The main optimizer's step at the adaptive-KL rate from the
+        minibatch's terms (summed over the ranks: every rank reads the
+        global KL); appends the step's stats and returns the rate."""
+        _, surr, value_loss, entropy, kl = pol
+        terms = pmesh.all_sum(torch.stack([value_loss, surr, entropy, kl,
+                                           *parts]).detach(), self.shard)
+        lr = self.adapt_lr(lr, terms[3])
+        self.optimizer.step(grads, lr)
+        stats.append(torch.cat([terms, lr.reshape(1)]))
+        return lr
+
     def adapt_lr(self, lr, kl):
         """Adaptive-KL learning rate (ppo.py:300-307), on the device."""
         alg = self.alg
@@ -353,9 +417,10 @@ class PPO:
         """The update's random draws: the group permutation of each stratum
         (S, rows_s // G) and, for the decoder (else None), the standard
         normal latent draws (steps, 2, minibatch rows, z_dim), [:, 0] for
-        the VAE head and [:, 1] for the policy."""
+        the VAE head and [:, 1] for the policy.  N is the global env
+        count: every rank draws them whole."""
         alg = self.alg
-        S, rows_s, _, G = shuffle_layout(alg, T, N, self.n_env_shards)
+        S, rows_s, _, G = shuffle_layout(alg, T, N, self.world)
         perm = torch.stack([torch.randperm(rows_s // G, generator=generator,
                                            device=device) for _ in range(S)])
         if self.policy_kind != "decoder":
@@ -377,18 +442,27 @@ class PPO:
             [:nmb * mb_envs].reshape(nmb, mb_envs)
             for _ in range(alg.num_learning_epochs)])
 
+    def _global_n(self, n_local: int) -> int:
+        return n_local * self.world
+
     def shuffle(self, batch: dict, perm) -> dict:
         """The batch permuted once for the whole update (ppo.py:307-346):
         rows in an (S * rows_s) layout — stratum s is env block s over all
         T steps, time-major (S=1: the flat batch, no copy) — with each
         stratum permuted in groups of G by its row of perm (S, rows_s // G),
-        all fields in one gather (K9 on the card)."""
+        all fields in one gather (K9 on the card).  Sharded, the batch is
+        the rank's envs, which are whole strata: it takes their rows of
+        the global perm."""
         T, N = batch["values"].shape
         total = T * N
-        S, rows_s, _, G = shuffle_layout(self.alg, T, N, self.n_env_shards)
+        S, rows_s, _, G = shuffle_layout(self.alg, T, self._global_n(N),
+                                         self.world)
         dev = batch["values"].device
         C_s = rows_s // G
         perm = perm.to(device=dev, dtype=torch.int64).reshape(S, C_s)
+        if self.shard is not None:
+            S //= self.world                     # this rank's strata
+            perm = perm[self.shard.rank * S:(self.shard.rank + 1) * S]
         if S == 1:
             flat = {k: x.reshape((total,) + x.shape[2:])
                     for k, x in batch.items()}
@@ -429,13 +503,18 @@ class PPO:
         alg = self.alg
         T, N = batch["values"].shape
         dev = batch["values"].device
-        S = shuffle_layout(alg, T, N, self.n_env_shards)[0]
+        S = shuffle_layout(alg, T, self._global_n(N), self.world)[0]
         decoder = self.policy_kind == "decoder"
         if perm is None or (decoder and eps is None):
-            dperm, deps = self.draw(T, N, generator, dev)
+            dperm, deps = self.draw(T, self._global_n(N), generator, dev)
             perm = dperm if perm is None else perm
             eps = deps if eps is None else eps
         flat = self.shuffle(batch, perm)
+        S //= self.world
+        if decoder and self.shard is not None:
+            # this rank's rows of each minibatch: its strata's slices
+            m = T * N // alg.num_mini_batches
+            eps = eps[:, :, self.shard.rank * m:(self.shard.rank + 1) * m]
         lr = self.learning_rate
         zeros = (torch.zeros((), device=dev),) * 4
         stats = []
@@ -455,20 +534,17 @@ class PPO:
             else:
                 parts, pol, grads = self._sequential_step(mb, eps[i, 0],
                                                           eps[i, 1])
-            _, surr, value_loss, entropy, kl = pol
-            lr = self.adapt_lr(lr, kl)
-            self.optimizer.step(grads, lr)
-            stats.append(torch.stack([value_loss, surr, entropy, kl, *parts,
-                                      lr]).detach())
+            lr = self._step_main(pol, parts, grads, lr, stats)
         self.learning_rate = lr
         means = torch.stack(stats).mean(dim=0)
         return dict(zip(STAT_NAMES, means.unbind()))
 
-    def recurrent_grads(self, batch: dict, idx):
+    def recurrent_grads(self, batch: dict, idx, count=None):
         """One recurrent minibatch (ppo.py:183-216): the envs idx of every
         field, taken on the env axis (axis 0 of the carries), the replay
         and its policy terms; returns (terms, gradients over every
-        parameter) as _pol_terms and joint_grads give them."""
+        parameter) as _pol_terms and joint_grads give them.  count: the
+        minibatch's (T, envs) rows over all ranks (sharded)."""
         mb = {k: tree_map(lambda x: x.index_select(
                   0 if k.startswith("init_carry") else 1, idx), v)
               for k, v in batch.items()}
@@ -476,7 +552,7 @@ class PPO:
             mean, std, value = self.replay(mb["obs"], mb["dones"],
                                            mb["init_carry_a"],
                                            mb["init_carry_c"])
-            pol = self._pol_terms(mean, std, value, mb)
+            pol = self._pol_terms(mean, std, value, mb, count)
             grads = torch.autograd.grad(pol[0], self.optimizer.params,
                                         allow_unused=True)
         return pol, grads
@@ -494,24 +570,29 @@ class PPO:
         batch: obs, actions, values, returns, advantages, old_log_prob,
         old_mu, old_sigma, dones (T, N) and init_carry_a/init_carry_c.
         env_idx (epochs * nmb, N // nmb) as `draw_recurrent` makes it from
-        `generator` when None.  The value loss honours
-        use_clipped_value_loss (the JAX update always clips).  Returns the
-        nine stats (STAT_NAMES), averaged over the minibatch steps."""
-        N = batch["values"].shape[1]
+        `generator` when None (global env indices; a rank replays those of
+        its block, any number of them, zero included).  The value loss
+        honours use_clipped_value_loss (the JAX update always clips).
+        Returns the nine stats (STAT_NAMES), averaged over the minibatch
+        steps."""
+        T, N = batch["values"].shape
         dev = batch["values"].device
         if env_idx is None:
-            env_idx = self.draw_recurrent(N, generator, dev)
+            env_idx = self.draw_recurrent(self._global_n(N), generator, dev)
         env_idx = env_idx.to(device=dev, dtype=torch.int64)
         lr = self.learning_rate
         zeros = (torch.zeros((), device=dev),) * 4
         stats = []
-        for idx in env_idx:
-            pol, grads = self.recurrent_grads(batch, idx)
-            _, surr, value_loss, entropy, kl = pol
-            lr = self.adapt_lr(lr, kl)
-            self.optimizer.step(grads, lr)
-            stats.append(torch.stack([value_loss, surr, entropy, kl, *zeros,
-                                      lr]).detach())
+        count = None
+        if self.shard is not None:
+            count = T * env_idx.shape[1]
+            mine = ((env_idx >= self.shard.row0)
+                    & (env_idx < self.shard.row0 + N)).cpu()
+        for i, idx in enumerate(env_idx):
+            if self.shard is not None:
+                idx = idx[mine[i].to(dev)] - self.shard.row0
+            pol, grads = self.recurrent_grads(batch, idx, count)
+            lr = self._step_main(pol, zeros, grads, lr, stats)
         self.learning_rate = lr
         means = torch.stack(stats).mean(dim=0)
         return dict(zip(STAT_NAMES, means.unbind()))

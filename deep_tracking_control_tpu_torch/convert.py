@@ -20,6 +20,7 @@ import re
 import numpy as np
 import torch
 
+from .parallel import mesh as pmesh
 from .terrain.grid import TerrainGrid
 
 
@@ -106,7 +107,7 @@ def _to_torch(node, device):
 
 
 def env_from_jax(env_params, env_state, grid_height, env,
-                 terrain_origins=None):
+                 terrain_origins=None, shard=None):
     """The JAX package's env (params, state) -> this package's.
 
     env_params / env_state: numpy trees of the JAX LeggedEnv.init/step
@@ -115,13 +116,17 @@ def env_from_jax(env_params, env_state, grid_height, env,
     terrain_origins: the JAX env's (rows, cols, 3) tile origins (the resets
     respawn there; default: env's own).  A plane world has no tables and
     no tile origins (both None in params; the env steps its own flat grid),
-    so grid_height and terrain_origins may be None there.  Returns
+    so grid_height and terrain_origins may be None there.  With `shard`
+    (a parallel/mesh.py EnvShard) the JAX trees are global and the result
+    is the shard's block of them (pmesh.shard_tree).  Returns
     (params, state)."""
     dev = env.device
     params = {k: _to_torch(v, dev) for k, v in env_params.items()}
+    state = pmesh.shard_tree(_to_torch(env_state, dev), shard)
+    params = pmesh.shard_tree(params, shard)
     if env.terrain is None:
         params.update(terrain=None, terrain_origins=None)
-        return params, _to_torch(env_state, dev)
+        return params, state
     cfg = env.cfg.terrain
     grid = TerrainGrid(height=_to_torch(grid_height, dev),
                        horizontal_scale=cfg.horizontal_scale,
@@ -129,4 +134,4 @@ def env_from_jax(env_params, env_state, grid_height, env,
     params["terrain"] = env.make_patch_source(grid)
     params["terrain_origins"] = (env.terrain_origins if terrain_origins is None
                                  else _to_torch(terrain_origins, dev))
-    return params, _to_torch(env_state, dev)
+    return params, state

@@ -40,11 +40,12 @@
 //      laid out otherwise are copied word by word through their strides.
 //   2. While they arrive: the block's height noise into shared memory,
 //      one Philox block of stream 0 a thread (the span starts at element
-//      n0 * H = 0 mod 4); the narrow state, a warp's threads on adjacent
+//      (row0 + n0) * H = 0 mod 4, row0 the global row of env 0 on a rank
+//      that holds a block of a sharded run); the narrow state, a warp's threads on adjacent
 //      envs (the env hands in transposed views: the block's envs of one
 //      joint row are contiguous), into the obs rows in shared memory;
 //      the obs noise, one Philox block of stream 1 a float4 of the obs
-//      span (it starts at element n0 * num_obs = 0 mod 4), added,
+//      span (it starts at element (row0 + n0) * num_obs = 0 mod 4), added,
 //      clipped and stored as float4.
 //   3. Then the privileged span (the staged rows and noise read with two
 //      aligned 16-byte shared loads a float4) and the history span (the
@@ -85,6 +86,7 @@ struct ObsArgs {
     float* out[N_OUT];
     float f[N_F];
     int N, H, nq, na, num_obs, hist_w;
+    long long row0;  // global row of env 0 (a rank's first env), 0 mod 4
     int add_noise;
     int rows16;      // the height rows copy in 16-byte pieces
     int span16;      // the history is contiguous rows: its span copies so
@@ -228,7 +230,8 @@ __global__ void __launch_bounds__(THREADS) obs_kernel(
     // 2. while they arrive: the block's height noise, elements
     // [n0 H, (n0 + ne) H) of stream 0, a Philox block a thread
     {
-        const long long b0 = (n0 * H) >> 2;             // n0 H = 0 mod 4
+        // global row row0 + n0 = 0 mod 4, so its first element is too
+        const long long b0 = ((a.row0 + n0) * H) >> 2;
         for (int b = t; 4 * b < ne * H; b += THREADS) {
             *reinterpret_cast<float4*>(snoise + 4 * b) =
                 pm1x4(philox_block(b0 + b, 0u, k0, k1));
@@ -285,7 +288,7 @@ __global__ void __launch_bounds__(THREADS) obs_kernel(
     {
         const int cnt = ne * NO;
         float* out = a.out[OBS] + n0 * NO;
-        const long long blk0 = (n0 * NO) >> 2;          // n0 * NO = 0 mod 4
+        const long long blk0 = ((a.row0 + n0) * NO) >> 2;  // 0 mod 4 too
         Cursor c(4 * t, 4 * THREADS, NO);
         for (int i = 4 * t; i < cnt; i += 4 * THREADS, c.advance()) {
             float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -399,10 +402,11 @@ __global__ void __launch_bounds__(THREADS) obs_kernel(
 // ptrs: host int64 [N_IN input addresses | N_IN first strides | N_IN second
 // strides | N_OUT output addresses (16-byte aligned, contiguous)];
 // fparams: host float32 [N_F]; flags: bit 0 foothold block, bit 1 obs
-// noise.  Launch: ceil(N / ENVS) blocks of THREADS threads.
+// noise; row0: the global row of env 0 (0 mod 4), whose draws the noise
+// continues.  Launch: ceil(N / ENVS) blocks of THREADS threads.
 DTC_EXPORT int dtc_observations(const void* ptrs, const void* fparams, int N,
                                 int H, int nq, int na, int num_obs, int hist_w,
-                                int flags, void* stream) {
+                                int flags, int row0, void* stream) {
     const long long* p = (const long long*)ptrs;
     ObsArgs a;
     for (int i = 0; i < N_IN; ++i) {
@@ -418,10 +422,11 @@ DTC_EXPORT int dtc_observations(const void* ptrs, const void* fparams, int N,
     a.na = na;
     a.num_obs = num_obs;
     a.hist_w = hist_w;
+    a.row0 = row0;
     const int has_foot = flags & 1;
     a.add_noise = (flags >> 1) & 1;
     const int base_w = 9 + 2 * nq + na;
-    if (N < 0 || H < 1 || hist_w < num_obs
+    if (N < 0 || H < 1 || hist_w < num_obs || row0 < 0 || (row0 & 3) != 0
         || num_obs != base_w + (has_foot ? 8 : 0)) {
         return (int)cudaErrorInvalidValue;
     }

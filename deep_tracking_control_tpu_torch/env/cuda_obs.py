@@ -16,7 +16,10 @@ the height noise is stream 0 and the obs noise stream 1 of that counter
 layout, drawn inside the kernel.  The plain version may instead be given
 the two draws as arrays (tests feed it the JAX package's); the kernel
 takes only the seed.  Outside the noise the two versions compute the same
-float32 operations in the same order and agree exactly.
+float32 operations in the same order and agree exactly.  `row0` is the
+global row of env 0: a rank that holds envs [row0, row0 + N) of a sharded
+run draws those rows of the unsharded run's noise (the kernel needs row0
+0 mod 4, the plain version takes any).
 
 The kernel runs ENVS envs a block of THREADS threads (constants of
 csrc/obs.cu, mirrored here by `launch_shape`): it stages the block's
@@ -48,9 +51,10 @@ def observations_plain(cfg, has_foothold, base_ang_vel, projected_gravity,
                        commands, q, qd, actions, foothold_obs, base_z,
                        measured_heights, push_force, height_noise_offset,
                        obs_history, noise_scale_vec, default_q, commands_scale,
-                       seed, height_noise=None, obs_noise=None):
+                       seed, height_noise=None, obs_noise=None, row0=0):
     """Plain PyTorch version of the kernel; see compute_observations_fused.
-    Draws not given are made from `seed` on its device."""
+    Draws not given are made from `seed` on its device, from global row
+    `row0` on."""
     os_ = cfg.normalization.obs_scales
     parts = [
         base_ang_vel * os_.ang_vel,
@@ -68,15 +72,16 @@ def observations_plain(cfg, has_foothold, base_ang_vel, projected_gravity,
         base_z[:, None] - cfg.rewards.base_height_target - measured_heights,
         -1.0, 1.0) * os_.height_measurements                     # dtc.py:275
     if height_noise is None:
-        height_noise = cuda_rng.uniform_pm1_plain(seed, heights.shape,
-                                                  HEIGHT_STREAM)
+        height_noise = cuda_rng.uniform_pm1_plain(
+            seed, heights.shape, HEIGHT_STREAM, row0 * heights.shape[1])
     noisy_heights = (heights + height_noise * 0.1
                      + height_noise_offset[:, None])
     privileged = torch.cat([noisy_heights, push_force * os_.force, heights],
                            dim=1)
     if cfg.noise.add_noise:                                      # dtc.py:284-287
         if obs_noise is None:
-            obs_noise = cuda_rng.uniform_pm1_plain(seed, obs.shape, OBS_STREAM)
+            obs_noise = cuda_rng.uniform_pm1_plain(
+                seed, obs.shape, OBS_STREAM, row0 * obs.shape[1])
         obs = obs + obs_noise * noise_scale_vec[None, :]
 
     clip_obs = cfg.normalization.clip_observations
@@ -94,7 +99,8 @@ def compute_observations_fused(cfg, has_foothold, base_ang_vel,
                                foothold_obs, base_z, measured_heights,
                                push_force, height_noise_offset, obs_history,
                                noise_scale_vec, default_q, commands_scale,
-                               seed, height_noise=None, obs_noise=None):
+                               seed, height_noise=None, obs_noise=None,
+                               row0=0):
     """Observations, privileged observations and the rolled history.
 
     Env-leading float32 inputs: base_ang_vel, projected_gravity (N,3),
@@ -102,7 +108,8 @@ def compute_observations_fused(cfg, has_foothold, base_ang_vel,
     measured_heights (N,H), push_force (N,3), height_noise_offset (N,),
     obs_history (N,hist); q and qd are (nq,N) as the physics state holds
     them; noise_scale_vec (num_obs,), default_q (nq,), commands_scale (3,);
-    seed (2,) int64.  Any strides (the kernel reads views where they lie).
+    seed (2,) int64; row0 the global row of env 0 (module docstring).
+    Any strides (the kernel reads views where they lie).
     Returns obs (N,num_obs), privileged (N,2H+3), obs_history (N,hist).
 
     CPU tensors take the plain version, which also takes the draws
@@ -115,19 +122,21 @@ def compute_observations_fused(cfg, has_foothold, base_ang_vel,
     dev = base_ang_vel.device
     if dev.type == "cpu":
         return observations_plain(*args, height_noise=height_noise,
-                                  obs_noise=obs_noise)
+                                  obs_noise=obs_noise, row0=row0)
     if height_noise is not None or obs_noise is not None:
         raise ValueError("the kernel draws its noise from the seed; noise "
                          "arrays are taken on the CPU only")
-    return _launch(*args)
+    return _launch(*args, row0)
 
 
 def _launch(cfg, has_foothold, base_ang_vel, projected_gravity, commands, q,
             qd, actions, foothold_obs, base_z, measured_heights, push_force,
             height_noise_offset, obs_history, noise_scale_vec, default_q,
-            commands_scale, seed):
+            commands_scale, seed, row0):
     dev = base_ang_vel.device
     cuda_rng._check_seed(seed)
+    if row0 < 0 or row0 % 4:
+        raise ValueError(f"row0 {row0}: the kernel takes a multiple of 4")
     if seed.device != dev:
         raise ValueError(f"seed: on {seed.device}, expected {dev}")
     N, H = measured_heights.shape
@@ -177,7 +186,7 @@ def _launch(cfg, has_foothold, base_ang_vel, projected_gravity, commands, q,
         cfg.normalization.clip_observations)
     flags = (1 if has_foothold else 0) | (2 if cfg.noise.add_noise else 0)
     cuda_build.launch("dtc_observations", table, fparams, N, H, nq, na,
-                      num_obs, hist_w, flags, cuda_build.stream_ptr(dev))
+                      num_obs, hist_w, flags, row0, cuda_build.stream_ptr(dev))
     _counter.launches += 1
     return obs, priv, hist
 

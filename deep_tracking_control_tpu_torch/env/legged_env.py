@@ -58,6 +58,16 @@ draw the same noise from the same seed.
 The step updates the (K, N) episode sums of the state it is given in
 place (they are the widest per-step accumulator); do not step one state
 twice.
+
+With `shard` (parallel/mesh.py EnvShard) the env steps one rank's block
+of envs of a run sharded over torch.distributed ranks: `num_envs` is the
+block's count.  `init` builds the whole world's state and keeps the
+block (the terrain types and origins depend on the global env index);
+every draw of a leading env axis is made at the global count and sliced,
+so the ranks' generators stay in lockstep and each rank draws its rows of
+the unsharded run's draws; the noise kernels take the block's first row;
+the command curriculum reads its counts over all envs.  The step's
+metrics are the block's sums (the runner adds them up over the ranks).
 """
 from __future__ import annotations
 
@@ -66,6 +76,7 @@ import torch
 
 from ..ops import cuda_rng
 from ..ops import quat as qm
+from ..parallel import mesh as pmesh
 from ..physics import cuda_substep, engine, quadruped
 from ..physics import sim as psim
 from ..robot import quadrupeds
@@ -91,8 +102,16 @@ class LeggedEnv:
     """Static env object: robot model, terrain, constants.  All step/reset
     logic is in methods over (params, state) dicts."""
 
-    def __init__(self, cfg: TaskCfg, terrain_seed: int = 0, device="cuda"):
+    def __init__(self, cfg: TaskCfg, terrain_seed: int = 0, device="cuda",
+                 shard=None):
+        if shard is not None and shard.num_envs != cfg.env.num_envs:
+            raise ValueError(f"shard of {shard.num_envs} envs for a task of "
+                             f"{cfg.env.num_envs}")
         self.cfg = cfg
+        self.shard = shard
+        # the shard that the draws and reductions read: None while `init`
+        # builds the whole world
+        self._sh = shard
         self.device = torch.device(device)
         dev = self.device
         if cfg.asset.robot.endswith(".urdf"):
@@ -203,7 +222,7 @@ class LeggedEnv:
         self.num_obs = cfg.env.num_observations
         self.num_privileged_obs = cfg.env.num_privileged_obs
         self.num_actions = cfg.env.num_actions
-        self.num_envs = cfg.env.num_envs
+        self.num_envs = cfg.env.num_envs if shard is None else shard.n_local
         self.num_obs_history = cfg.env.num_observation_history * self.num_obs
         self.max_episode_length = cfg.max_episode_length
         base_w = 9 + 2 * m.nq + self.num_actions
@@ -282,6 +301,21 @@ class LeggedEnv:
             return draws[name]
         return fn()
 
+    def _rows(self, draw, *shape):
+        """This block's rows of draw(shape at the global env count)."""
+        return pmesh.rows(draw(pmesh.global_shape(shape, self._sh)), self._sh)
+
+    def _uni(self, gen, shape, lo, hi):
+        return self._rows(lambda sh: _uniform(gen, sh, lo, hi, self.device),
+                          *shape)
+
+    def _offset(self, name, row_width=1) -> dict:
+        """The noise kernels' keyword of a block's first row (element
+        offset row0 * row_width, or row0): none unsharded."""
+        if self._sh is None:
+            return {}
+        return {name: self._sh.row0 * row_width}
+
     # ------------------------------------------------------------------
     # construction of params + initial state
     # ------------------------------------------------------------------
@@ -289,7 +323,20 @@ class LeggedEnv:
         """(params, state): per-env DR draws, zero state, full reset
         (_create_envs legged_robot.py:416-527, _init_buffers :755-905).
         draws: optional injected draws, "init_levels" (N,) and those of
-        `_apply_reset`."""
+        `_apply_reset`, at the global env count.  A sharded env builds the
+        global (params, state) and keeps its block (pmesh.shard_tree)."""
+        if self.shard is None:
+            return self._init(generator, draws)
+        n_local = self.num_envs
+        self.num_envs, self._sh = self.shard.num_envs, None
+        try:
+            params, state = self._init(generator, draws)
+        finally:
+            self.num_envs, self._sh = n_local, self.shard
+        return (pmesh.shard_tree(params, self.shard),
+                pmesh.shard_tree(state, self.shard))
+
+    def _init(self, generator, draws):
         cfg = self.cfg
         N = self.num_envs
         m = self.model
@@ -649,15 +696,15 @@ class LeggedEnv:
             interval = cfg.push_interval
             do_push = (common_step % interval) == 0
             in_window = (common_step % interval) < 2
-            new_vxy = _uniform(gen, (N, 2), -dr.max_push_vel_xy,
-                               dr.max_push_vel_xy, dev)
+            new_vxy = self._uni(gen, (N, 2), -dr.max_push_vel_xy,
+                                dr.max_push_vel_xy)
             pushed = phys["lin_vel"].clone()
             pushed[:2] = new_vxy.T
             phys = {**phys, "lin_vel": torch.where(do_push, pushed,
                                                    phys["lin_vel"])}
             new_force = torch.zeros((N, 3), device=dev)
-            new_force[:, :2] = _uniform(gen, (N, 2), -dr.max_push_force_xy,
-                                        dr.max_push_force_xy, dev)
+            new_force[:, :2] = self._uni(gen, (N, 2), -dr.max_push_force_xy,
+                                         dr.max_push_force_xy)
             push_force = torch.where(
                 in_window, torch.where(do_push, new_force, push_force),
                 torch.zeros_like(push_force))
@@ -824,7 +871,8 @@ class LeggedEnv:
         metrics["term_height"] = term_height.float().sum()
         metrics["term_timeout"] = time_out_buf.float().sum()
         new_state = self._apply_reset(params, mid_state, reset_buf, gen)
-        metrics["terrain_level"] = new_state["terrain_levels"].float().mean()
+        metrics["terrain_level"] = pmesh.mean(
+            new_state["terrain_levels"].float(), self._sh)
 
         # observations (dtc.py:254-288)
         new_state, obs_out = self._compute_observations(
@@ -855,13 +903,13 @@ class LeggedEnv:
         dev = self.device
         r = cfg.commands.ranges
         new_c = torch.zeros_like(commands)
-        new_c[:, 0] = _uniform(gen, (N,), lin_vel_x_range[0],
-                               lin_vel_x_range[1], dev)
-        new_c[:, 1] = _uniform(gen, (N,), *r.lin_vel_y, dev)
+        new_c[:, 0] = self._uni(gen, (N,), lin_vel_x_range[0],
+                                lin_vel_x_range[1])
+        new_c[:, 1] = self._uni(gen, (N,), *r.lin_vel_y)
         if cfg.commands.heading_command:
-            new_c[:, 3] = _uniform(gen, (N,), *r.heading, dev)
+            new_c[:, 3] = self._uni(gen, (N,), *r.heading)
         else:
-            new_c[:, 2] = _uniform(gen, (N,), *r.ang_vel_yaw, dev)
+            new_c[:, 2] = self._uni(gen, (N,), *r.ang_vel_yaw)
         if cfg.env.play_command:                                   # :580-587
             new_c[:, 0] = 0.5
             new_c[:, 1] = 0.0
@@ -886,7 +934,8 @@ class LeggedEnv:
 
     def _reset_metrics(self, state, done):
         """Episode logging at reset (legged_robot.py:252-261): per-term sums
-        over done envs (the host divides by the count)."""
+        over done envs (the host divides by the count; a block's sums,
+        sharded)."""
         out = {"n_done": done.float().sum()}
         sums = torch.where(done[None, :], state["episode_sums"], 0.0).sum(
             dim=1) / self.cfg.env.episode_length_s
@@ -907,21 +956,26 @@ class LeggedEnv:
         T = self._t
         d1 = done[:, None]
 
-        # command curriculum (legged_robot.py:716-726)
+        # command curriculum (legged_robot.py:716-726), its counts over
+        # every env of a sharded run
         cmd_range = state["command_lin_vel_x"]
         if (cfg.commands.curriculum
                 and "tracking_lin_vel" in self.episode_sum_names):
             gate = (state["common_step"] % self.max_episode_length) == 0
-            n_done = torch.clamp(done.float().sum(), min=1.0)
             tl_row = self.episode_sum_names.index("tracking_lin_vel")
-            mean_track = torch.where(done, state["episode_sums"][tl_row],
-                                     0.0).sum() / n_done
+            counts = pmesh.all_sum(torch.stack([
+                done.float().sum(),
+                torch.where(done, state["episode_sums"][tl_row], 0.0).sum()]),
+                self._sh)
+            n_done = torch.clamp(counts[0], min=1.0)
+            mean_track = counts[1] / n_done
             good = (mean_track / self.max_episode_length
                     > 0.8 * self.reward_scales_dt["tracking_lin_vel"])
             mc = cfg.commands.max_curriculum
             widened = torch.stack([torch.clamp(cmd_range[0] - 0.5, -mc, 0.0),
                                    torch.clamp(cmd_range[1] + 0.5, 0.0, mc)])
-            cmd_range = torch.where(gate & good & done.any(), widened, cmd_range)
+            cmd_range = torch.where(gate & good & (counts[0] > 0), widened,
+                                    cmd_range)
 
         # terrain curriculum (legged_robot.py:690-714)
         levels = state["terrain_levels"]
@@ -937,9 +991,10 @@ class LeggedEnv:
             new_levels = levels + move_up.int() - move_down.int()
             max_level = cfg.terrain.num_rows
             rand_levels = self._draw(
-                draws, "reset_levels", lambda: torch.randint(
-                    0, max_level, (N,), generator=gen, device=dev,
-                    dtype=torch.int32))
+                draws, "reset_levels", lambda: self._rows(
+                    lambda sh: torch.randint(0, max_level, sh, generator=gen,
+                                             device=dev, dtype=torch.int32),
+                    N))
             new_levels = torch.where(new_levels >= max_level, rand_levels,
                                      torch.clamp(new_levels, min=0))
             levels = torch.where(done, new_levels, levels).to(torch.int32)
@@ -951,7 +1006,8 @@ class LeggedEnv:
         # the reset's uniforms in one draw: the joint scale, the xy offset
         # and the root velocity
         u = self._draw(draws, "reset_uniforms", lambda: cuda_rng.uniform_pm1(
-            cuda_rng.draw_seed(gen, dev), (N, m.nq + 8)))
+            cuda_rng.draw_seed(gen, dev), (N, m.nq + 8),
+            **self._offset("offset", m.nq + 8)))
 
         # DOF reset: default * U(0.5, 1.5), qd = 0 (legged_robot.py:632-641)
         lo, hi = cfg.domain_rand.init_joint_range
@@ -995,7 +1051,7 @@ class LeggedEnv:
         def dr_field(old, rng, enabled):
             if not enabled:
                 return old
-            new = _uniform(gen, (N, 1), rng[0], rng[1], dev).expand_as(old)
+            new = self._uni(gen, (N, 1), rng[0], rng[1]).expand_as(old)
             return torch.where(d1, new, old)
         motor_strengths = dr_field(state["motor_strengths"], dr.motor_strength,
                                    dr.randomize_motor_strength)
@@ -1005,8 +1061,8 @@ class LeggedEnv:
                               dr.randomize_kd_factor)
 
         # height-scan episode offset ~ N(0, 0.02) (legged_robot.py:229-230)
-        hno = torch.where(done, 0.02 * torch.randn((N,), generator=gen,
-                                                   device=dev),
+        hno = torch.where(done, 0.02 * self._rows(
+            lambda sh: torch.randn(sh, generator=gen, device=dev), N),
                           state["height_noise_offset"])
 
         # anchors snap to the reset base; body planes go contact-free so a
@@ -1071,7 +1127,7 @@ class LeggedEnv:
             state["push_force"], state["height_noise_offset"],
             state["obs_history"], T["noise_scale_vec"], T["default_q"],
             T["commands_scale"], seed, height_noise=draws.get("height_noise"),
-            obs_noise=draws.get("obs_noise"))
+            obs_noise=draws.get("obs_noise"), **self._offset("row0"))
         # get_base_vel
         base_vel = base_lin_vel * self.cfg.normalization.obs_scales.lin_vel
         new_state = {**state, "obs": obs, "privileged_obs": privileged,

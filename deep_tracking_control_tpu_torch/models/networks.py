@@ -26,6 +26,12 @@ output, rounding where the JAX package rounds: inputs cast to bf16 before
 the concat, the matmul rounded to bf16, then the bias added in bf16.  The
 recurrent cells compute in float32, as flax does (dtype None).  Submodule
 names follow flax's, so convert.params_from_flax maps the weights.
+
+In a run sharded over torch.distributed ranks (parallel/mesh.py) the
+decoder's `shard` is the rank's EnvShard: the CE-net's outlier filter
+reads its mean, std and median over every rank's rows (the global batch,
+as the JAX program reads them), and the VAE losses are each rank's share
+of the global means.  Without a shard (None) nothing changes.
 """
 from __future__ import annotations
 
@@ -35,6 +41,8 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel import mesh as pmesh
 
 BF16 = torch.bfloat16
 
@@ -140,13 +148,14 @@ class Vae(nn.Module):
 
     def __init__(self, num_obs=53, obs_history_dim=265, terrain_dim=693,
                  terrain_latent=512, z_dim=16, outlier_filter="median",
-                 generator=None):
+                 generator=None, shard=None):
         super().__init__()
         if outlier_filter not in ("median", "mean"):
             raise ValueError(f"outlier_filter {outlier_filter!r}")
         g = generator
         self.z_dim = z_dim
         self.outlier_filter = outlier_filter
+        self.shard = shard
         self.cenet_encoder = MLP(obs_history_dim, (128,), 64, "relu", generator=g)
         self.latent_mu = Dense(64, 3 + z_dim, "orthogonal", g)
         self.latent_var = Dense(64, z_dim, "orthogonal", g)
@@ -162,19 +171,26 @@ class Vae(nn.Module):
     def cenet_stats(self, obs_history):
         """(mu, logvar) with the latent_var outlier filter (:286-302):
         entries beyond 2 sigma (over the whole batch) take the median of
-        the others ("median", the reference) or their mean ("mean")."""
+        the others ("median", the reference) or their mean ("mean").
+        Sharded, the batch is every rank's rows: each rank computes the
+        statistics of the gathered logvar (its gradient flows back through
+        the gather, ties at the median split over all ranks' rows)."""
         e = self.cenet_encoder(obs_history)
         mu = self.latent_mu(e)
         logvar = self.latent_var(e)
-        m = logvar.mean()
-        s = logvar.std(correction=0)
-        outliers = torch.abs(logvar - m) > 2.0 * s
+        whole = pmesh.all_gather_rows(logvar, self.shard)
+        m = whole.mean()
+        s = whole.std(correction=0)
+        outliers = torch.abs(whole - m) > 2.0 * s
         valid = ~outliers
         if self.outlier_filter == "median":
-            center = masked_median(logvar, valid)
+            center = masked_median(whole, valid)
         else:
-            center = (torch.where(valid, logvar, 0.0).sum()
+            center = (torch.where(valid, whole, 0.0).sum()
                       / torch.clamp(valid.sum(), min=1))
+        if whole is not logvar:                     # this rank's rows
+            n = logvar.shape[0]
+            outliers = outliers.narrow(0, self.shard.rank * n, n)
         return mu, torch.where(outliers, center, logvar)
 
     def reparam(self, mu, logvar, eps):
@@ -209,13 +225,13 @@ class ActorCriticDecoder(nn.Module):
                  z_dim=16, actor_hidden=(512, 256, 128),
                  critic_hidden=(512, 256, 128), activation="elu",
                  init_noise_std=1.0, outlier_filter="median",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, shard=None):
         super().__init__()
         g = generator
         self.terrain_dim = terrain_dim
         self.z_dim = z_dim
         self.vae = Vae(num_obs, obs_history_dim, terrain_dim, terrain_latent,
-                       z_dim, outlier_filter, generator=g)
+                       z_dim, outlier_filter, generator=g, shard=shard)
         self.actor_body = MLP(num_obs + z_dim + 3 + terrain_latent,
                               actor_hidden, num_actions, activation,
                               generator=g)
@@ -261,17 +277,21 @@ class ActorCriticDecoder(nn.Module):
     def _vae_terms(self, mu, logvar, z, l_t, privileged_obs, next_obs,
                    base_vel):
         """(recons, vel, kld, height) losses of the VAE head (ppo.py:197-247)
-        from one encoder pass."""
+        from one encoder pass (sharded: this rank's shares of the global
+        means, pmesh.mean)."""
         td = self.terrain_dim
+        sh = self.vae.shard
         recons = self.vae.decode_cenet(z, mu[..., :3], l_t)
-        recons_loss = torch.mean(torch.mean(torch.square(recons - next_obs),
-                                            dim=-1))
+        recons_loss = pmesh.mean(torch.mean(torch.square(recons - next_obs),
+                                            dim=-1), sh)
         height_recon = self.vae.decode_terrain(l_t)
-        height_loss = torch.mean(torch.square(height_recon
-                                              - privileged_obs[..., td + 3:]))
-        vel_loss = torch.mean(torch.square(mu[..., :3] - base_vel))
-        kld = torch.mean(-0.5 * torch.sum(
-            1 + logvar - torch.square(mu[..., 3:]) - torch.exp(logvar), dim=-1))
+        height_loss = pmesh.mean(torch.square(height_recon
+                                              - privileged_obs[..., td + 3:]),
+                                 sh)
+        vel_loss = pmesh.mean(torch.square(mu[..., :3] - base_vel), sh)
+        kld = pmesh.mean(-0.5 * torch.sum(
+            1 + logvar - torch.square(mu[..., 3:]) - torch.exp(logvar), dim=-1),
+            sh)
         return recons_loss, vel_loss, kld, height_loss
 
     def vae_losses(self, obs_history, privileged_obs, next_obs, base_vel,
@@ -289,7 +309,7 @@ class ActorCriticDecoder(nn.Module):
         l_t = self.vae.encode_terrain(
             privileged_obs[..., :self.terrain_dim]).detach()
         b_t = self.vae.belief(obs_history, l_t)
-        return torch.mean(torch.square(b_t - l_t))
+        return pmesh.mean(torch.square(b_t - l_t), self.vae.shard)
 
     def joint_forward(self, obs, obs_history, privileged_obs, next_obs,
                       base_vel, eps_vae, eps_pol):

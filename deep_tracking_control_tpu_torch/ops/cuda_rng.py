@@ -13,8 +13,12 @@ in float32, so the kernel and the plain version agree bit for bit.
 
 `seed` is a (2,) int64 tensor on the device of the output, drawn from the
 caller's torch.Generator; the kernel reads it through a pointer, so no
-value crosses to the host.  The kernel is bound by bytes (4 bytes written
-per element; the 10 rounds cost 2.5 multiply-high pairs per element).
+value crosses to the host.  `offset` starts the output at flat element
+`offset` of that layout: a rank that holds rows [r, r + n) of an (N, D)
+draw takes offset r * D and gets those rows of the unsharded draw, bit
+for bit, whatever D is (the first counter block may start mid-block).
+The kernel is bound by bytes (4 bytes written per element; the 10 rounds
+cost 2.5 multiply-high pairs per element).
 """
 from __future__ import annotations
 
@@ -32,9 +36,15 @@ THREADS = 256
 MAX_BLOCKS = 65535 * 32
 
 
-def launch_shape(numel: int) -> tuple:
-    """(blocks, threads a block) of the kernel for `numel` elements."""
-    blocks = ((numel + 3) // 4 + THREADS - 1) // THREADS
+def _n_blocks(numel: int, offset: int = 0) -> int:
+    """Counter blocks that elements [offset, offset + numel) touch."""
+    return (offset + numel + 3) // 4 - offset // 4 if numel else 0
+
+
+def launch_shape(numel: int, offset: int = 0) -> tuple:
+    """(blocks, threads a block) of the kernel for `numel` elements from
+    element `offset`."""
+    blocks = (_n_blocks(numel, offset) + THREADS - 1) // THREADS
     return min(blocks, MAX_BLOCKS), THREADS
 
 
@@ -72,19 +82,21 @@ def bits_to_pm1(bits):
     return (bits >> 9).to(torch.float32) * (2.0 ** -22) - 1.0
 
 
-def uniform_pm1_plain(seed, shape, stream: int = 0):
+def uniform_pm1_plain(seed, shape, stream: int = 0, offset: int = 0):
     """Plain PyTorch version of the kernel, on the device of `seed`."""
     dev = seed.device
     numel = 1
     for s in shape:
         numel *= s
-    n_ctr = (numel + 3) // 4
-    c = torch.arange(n_ctr, dtype=torch.int64, device=dev)
+    first = offset // 4
+    c = torch.arange(first, first + _n_blocks(numel, offset),
+                     dtype=torch.int64, device=dev)
     zero = torch.zeros_like(c)
     words = philox4x32(
         [c & _MASK, c >> 32, zero + stream, zero],
         [seed[0] & _MASK, seed[1] & _MASK])
-    bits = torch.stack(words, dim=1).reshape(-1)[:numel]
+    lead = offset - 4 * first
+    bits = torch.stack(words, dim=1).reshape(-1)[lead:lead + numel]
     return bits_to_pm1(bits).reshape(shape)
 
 
@@ -96,28 +108,32 @@ def _check_seed(seed):
         raise ValueError("seed: not contiguous")
 
 
-def uniform_pm1(seed, shape, stream: int = 0):
+def uniform_pm1(seed, shape, stream: int = 0, offset: int = 0):
     """(N, D) float32 uniform in [-1, 1) from Philox4x32-10 keyed by `seed`
-    ((2,) int64) on counter stream `stream`.  A CPU seed takes the plain
-    version; a CUDA seed launches the kernel or raises."""
+    ((2,) int64) on counter stream `stream`, from flat element `offset`
+    of the counter layout on.  A CPU seed takes the plain version; a CUDA
+    seed launches the kernel or raises."""
     _check_seed(seed)
     if not 0 <= stream < 2 ** 31:
         raise ValueError(f"stream {stream} is not in [0, 2**31)")
+    if offset < 0:
+        raise ValueError(f"offset {offset} < 0")
     if seed.device.type == "cpu":
-        return uniform_pm1_plain(seed, shape, stream)
-    return _launch(seed, shape, stream)
+        return uniform_pm1_plain(seed, shape, stream, offset)
+    return _launch(seed, shape, stream, offset)
 
 
-def _launch(seed, shape, stream):
+def _launch(seed, shape, stream, offset):
     numel = 1
     for s in shape:
         numel *= s
-    if numel >= 2 ** 31:
-        raise ValueError(f"{numel} elements: the kernel takes < 2**31")
+    if numel + offset >= 2 ** 31:
+        raise ValueError(f"elements up to {numel + offset}: the kernel takes "
+                         "< 2**31")
     out = torch.empty(shape, dtype=torch.float32, device=seed.device)
     if numel:
         cuda_build.launch("dtc_uniform_pm1", cuda_build.ptr(seed),
-                          cuda_build.ptr(out), numel, stream,
+                          cuda_build.ptr(out), numel, stream, offset,
                           cuda_build.stream_ptr(seed.device))
         _counter.launches += 1
     return out

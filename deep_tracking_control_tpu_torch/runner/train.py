@@ -16,6 +16,16 @@ tensor.  The JAX runner's iters_per_dispatch,
 perf_split and asynchronous saves were host tricks of a remote TPU and
 have no counterpart: the collection and learning seconds are measured
 every iteration (synchronized) and logged under the reference's names.
+
+An env built with a `shard` (parallel/mesh.py EnvShard, from
+parallel/distributed.py `global_shard`) makes the runner one rank of a
+data-parallel run over torch.distributed, the counterpart of the JAX
+runner's `mesh=`: the env steps the rank's block of envs, the net is
+drawn from the seed on every rank, the generator keeps the same seed and
+stays in lockstep (every draw is made at its global shape), the update
+is PPO's sharded one, and the rollout's sums are added up over the ranks
+once an iteration.  Only rank 0 logs and writes checkpoints, which hold
+the global state, so a checkpoint loads at any world size.
 """
 from __future__ import annotations
 
@@ -34,6 +44,8 @@ from ..env.config import TrainCfg
 from ..env.legged_env import LeggedEnv
 from ..models.networks import (ActorCritic, ActorCriticDecoder,
                                ActorCriticRecurrent)
+from ..parallel import distributed as pdist
+from ..parallel import mesh as pmesh
 from ..utils import flags
 from . import checkpoint as ckpt
 
@@ -54,6 +66,8 @@ def _same_layout(a, b) -> bool:
 class OnPolicyRunner:
     def __init__(self, env: LeggedEnv, train_cfg: TrainCfg,
                  log_dir: Optional[str] = None, writer=None):
+        # a sharded env's EnvShard (parallel/mesh.py), else None
+        self.shard = shard = env.shard
         pol = train_cfg.policy
         if flags.strict_parity():
             # the reference's update: sequential VAE-then-policy steps and
@@ -88,7 +102,7 @@ class OnPolicyRunner:
                 obs_history_dim=env.num_obs_history,
                 terrain_dim=env.num_height_points,
                 terrain_latent=pol.terrain_latent, z_dim=pol.cenet_latent,
-                outlier_filter=pol.outlier_filter, **heads)
+                outlier_filter=pol.outlier_filter, shard=shard, **heads)
             kind = "decoder"
         elif pol.policy_class_name == "ActorCritic":
             net = ActorCritic(num_obs=env.num_obs, num_critic_obs=env.num_obs,
@@ -106,7 +120,7 @@ class OnPolicyRunner:
                 f"unsupported policy_class_name {pol.policy_class_name!r}")
         self.net = net.to(self.device)
         self.ppo = PPO(net=self.net, alg=train_cfg.algorithm,
-                       policy_kind=kind)
+                       policy_kind=kind, shard=shard)
         self.generator = torch.Generator(self.device).manual_seed(seed + 1)
         self.env_params, self.env_state = env.init(self.generator)
         N = env.num_envs
@@ -235,13 +249,15 @@ class OnPolicyRunner:
         save_interval = self.cfg.runner.save_interval
         T = self.cfg.runner.num_steps_per_env
         N = self.env.num_envs
+        n_all = N if self.shard is None else self.shard.num_envs
         start = self.current_learning_iteration
         if init_at_random_ep_len and start == 0:
             # desynchronize the resets from iteration 0
             # (on_policy_runner.py:105-109)
-            self.env_state["episode_length"] = torch.randint(
-                0, self.env.max_episode_length, (N,), generator=self.generator,
-                device=self.device, dtype=torch.int32)
+            self.env_state["episode_length"] = pmesh.rows(torch.randint(
+                0, self.env.max_episode_length, (n_all,),
+                generator=self.generator, device=self.device,
+                dtype=torch.int32), self.shard)
         rows = []
         for it in range(start, start + num_learning_iterations):
             t0 = self._clock()
@@ -250,6 +266,14 @@ class OnPolicyRunner:
             update = (self.ppo.update_recurrent if self.recurrent
                       else self.ppo.update)
             stats = update(batch, self.generator)
+            if pmesh.spans(self.shard):
+                # the rollout's sums over every rank's envs, in one
+                # all_reduce (the update's stats are global already)
+                names = sorted(aux)
+                total = pmesh.all_sum(torch.stack([
+                    torch.as_tensor(aux[n], device=self.device).float()
+                    .reshape(()) for n in names]), self.shard)
+                aux = dict(zip(names, total.unbind()))
             stats = {**stats, **aux, "mean_noise_std": self.net.std.mean()}
             names = sorted(stats)
             # one device -> host transfer of every scalar of the iteration
@@ -259,12 +283,12 @@ class OnPolicyRunner:
             row = dict(zip(names, vec.tolist()),
                        collection_time=t1 - t0, learning_time=t2 - t1)
             rows.append(row)
-            self.tot_timesteps += T * N
+            self.tot_timesteps += T * n_all
             self.tot_time += t2 - t0
             if row["ep_count"] > 0:
                 self.rewbuffer.append(row["ep_rew_sum"] / row["ep_count"])
                 self.lenbuffer.append(row["ep_len_sum"] / row["ep_count"])
-            if self.log_dir is not None and it % LOG_INTERVAL == 0:
+            if self._logs and it % LOG_INTERVAL == 0:
                 self._log(it, row, t2 - t0)
             if self.log_dir is not None and it % save_interval == 0:
                 # periodic saves are light: the reference's save scope
@@ -277,9 +301,17 @@ class OnPolicyRunner:
         return rows
 
     # ------------------------------------------------------------------
+    @property
+    def _logs(self) -> bool:
+        """A log_dir and rank 0 (the only rank that logs)."""
+        return self.log_dir is not None and (self.shard is None
+                                             or self.shard.rank == 0)
+
     def _log(self, it, stats, dt_iter):
         """TensorBoard scalars matching on_policy_runner.py:187-203."""
-        fps = int(self.cfg.runner.num_steps_per_env * self.env.num_envs
+        n_all = (self.env.num_envs if self.shard is None
+                 else self.shard.num_envs)
+        fps = int(self.cfg.runner.num_steps_per_env * n_all
                   / max(dt_iter, 1e-9))
         scalars = {
             "Loss/value_function": stats["value_loss"],
@@ -327,7 +359,8 @@ class OnPolicyRunner:
         with full=True (the default) also the env state, the per-env
         params (the terrain tables are rebuilt from the seed, not saved)
         and the episode bookkeeping (not the recurrent carries, as in the
-        JAX package)."""
+        JAX package).  Sharded, every rank calls it (the env state is
+        gathered into its global layout) and rank 0 writes."""
         tree = dict(
             params=self.net.state_dict(),
             opt_state=self.ppo.optimizer.state_dict(),
@@ -337,11 +370,14 @@ class OnPolicyRunner:
             generator=self.generator.get_state(),
             generator_device=self.device.type)
         if full:
-            tree.update(env_state=self.env_state,
-                        env_params={k: v for k, v in self.env_params.items()
-                                    if k != "terrain"},
-                        log_state=self._episode_log())
-        ckpt.save(path, tree)
+            tree.update(pmesh.gather_tree(dict(
+                env_state=self.env_state,
+                env_params={k: v for k, v in self.env_params.items()
+                            if k != "terrain"},
+                log_state=self._episode_log()), self.shard))
+        if pdist.is_main():
+            ckpt.save(path, tree)
+        pdist.barrier()
 
     def _episode_log(self) -> dict:
         """The log state without the carries: the episode bookkeeping."""
@@ -360,8 +396,15 @@ class OnPolicyRunner:
         count, or of another task whose episode-sum rows differ (the
         staged x30_rough -> x30_dtc protocol), hands over the policy (and
         its optimizers) and leaves the env fresh.  The recurrent carries
-        start from zeros after any load."""
+        start from zeros after any load.  Sharded, every rank reads the
+        file and keeps its block of the env state."""
         d = ckpt.load(path, self.device)
+        if (self.shard is not None and "env_state" in d
+                and d["env_state"]["commands"].shape[0]
+                == self.shard.num_envs):
+            for k in ("env_state", "env_params", "log_state"):
+                if k in d:
+                    d[k] = pmesh.shard_tree(d[k], self.shard)
         self._fresh_carries()
         self.net.load_state_dict(d["params"])
         if load_optimizer:
