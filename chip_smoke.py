@@ -134,9 +134,18 @@ Phases (each prints its own line; any failure ends the run non-zero):
      launches the default route's; a rank that fails or outlives its
      time ends the run.  `--only 13` runs phases 1, 2 and 13 alone (and
      exits non-zero): a quicker check while the sharded path changes;
+  14. the A/B training-outcome scripts (run before phase 9's lines):
+     scripts/ab_granule.py's and ab_fused_step.py's `run_variant`, each
+     variant (G=1 and G=16; sequential and fused) at 4096 envs for 2
+     iterations, every launch counted (the init's one noise-kernel launch,
+     then the default route's kernels once a step and the gather once an
+     update), each variant's curve points and wall seconds, iteration 0
+     equal in both variants of a script; `--only 14` runs phases 1, 2 and
+     14 alone (and exits non-zero);
   9. a check that no kernel reads under its bytes read over the memory
      rate, a JSON line of the kernels (the main path's, then each at the
-     other tasks' and the scripts' shapes), the nvidia-smi line, and the
+     other tasks' and the scripts' shapes; the main path's rows also carry
+     phase 14's launches, "ab_launches"), the nvidia-smi line, and the
      result line.
 Each kernel's bound is the least time the card could take for its work:
 the larger of its bytes (each input read once, each output written once)
@@ -3210,10 +3219,62 @@ def sharded_training(card):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the A/B training-outcome scripts
+# ---------------------------------------------------------------------------
+AB_ITERS = 2
+
+
+def ab_scripts(card):
+    """Phase 14: each A/B script's `run_variant` (scripts/ab_granule.py:
+    G=1 and G=16; scripts/ab_fused_step.py: sequential and fused) at
+    NUM_ENVS envs for AB_ITERS iterations a variant, every launch of a
+    call counted from zero: the env's init resets every env once (one
+    noise-kernel launch), then each iteration launches the default
+    route's kernels once a step and the gather once; iteration 0 (the
+    first collect, before any update) the same in both variants of a
+    script.  Returns the launch counts summed over the four calls."""
+    from deep_tracking_control_tpu_torch.scripts import (ab_fused_step,
+                                                         ab_granule)
+    t_phase = time.perf_counter()
+    T = ab_granule.variant_cfgs(1, NUM_ENVS)[1].runner.num_steps_per_env
+    want = expected_launches(DEFAULT_ROUTE, AB_ITERS * T, AB_ITERS)
+    want["uniform_pm1"] += 1
+    total = dict.fromkeys(KERNELS, 0)
+    for script in (ab_granule, ab_fused_step):
+        name = script.__name__.rsplit(".", 1)[1]
+        curves = []
+        for value in script.VARIANTS:
+            zero_launches()
+            rew, ln, wall = script.run_variant(value, AB_ITERS, NUM_ENVS)
+            got = launch_counts()
+            if got != want:
+                raise AssertionError(f"{name} {value}: launches {got}, "
+                                     f"expected {want}")
+            if 0 not in rew or 0 not in ln or not all(
+                    math.isfinite(v) for v in (*rew.values(), *ln.values())):
+                raise AssertionError(f"{name} {value}: curve {rew}, {ln}")
+            for k, n in got.items():
+                total[k] += n
+            curves.append((rew, ln))
+            say(14, f"{name} {value}: learn({AB_ITERS}) at {NUM_ENVS} envs "
+                    f"{wall:.2f} s; curve rew {rew}, len {ln}; launches "
+                    f"{got} ({card})")
+        (rew_a, len_a), (rew_b, len_b) = curves
+        if (rew_a[0], len_a[0]) != (rew_b[0], len_b[0]):
+            raise AssertionError(f"{name}: iteration 0 differs between its "
+                                 f"variants: {rew_a[0]}, {len_a[0]} against "
+                                 f"{rew_b[0]}, {len_b[0]}")
+        say(14, f"{name}: iteration 0 equal in both variants (rew "
+                f"{rew_a[0]:.6f}, len {len_a[0]:.3f})")
+    say(14, f"phase 14 in {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main(only=None):
-    """Every phase, or with `only` ("13") phases 1, 2 and that one, without
-    the result lines (a quicker check of one phase; it exits non-zero so
-    that it can never stand for the whole run)."""
+    """Every phase, or with `only` ("13" or "14") phases 1, 2 and that one,
+    without the result lines (a quicker check of one phase; it exits
+    non-zero so that it can never stand for the whole run)."""
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs a GPU")
@@ -3243,10 +3304,10 @@ def main(only=None):
     for line in cuda_build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say(2, line.strip())
-    if only == "13":
-        sharded_training(card)
-        raise SystemExit("chip_smoke: phase 13 alone passed; run without "
-                         "--only for the whole run")
+    if only is not None:
+        {"13": sharded_training, "14": ab_scripts}[only](card)
+        raise SystemExit(f"chip_smoke: phase {only} alone passed; run "
+                         "without --only for the whole run")
 
     # ---- 3: kernels vs plain on a real step ------------------------------
     task, train = registry.get_cfgs("lite3_dtc")
@@ -3415,6 +3476,9 @@ def main(only=None):
     # ---- 13: the env axis sharded over torch.distributed ranks -------------
     results.update(sharded_training(card))
 
+    # ---- 14: the A/B training-outcome scripts ------------------------------
+    ab_launches = ab_scripts(card)
+
     # ---- 9: result lines ----------------------------------------------
     # each timed call found its inputs in HBM (`timing_probes`): a kernel
     # that reads under the time of its bytes read has them miscounted.
@@ -3447,7 +3511,9 @@ def main(only=None):
                     library_ms=results[k].get("library_ms"),
                     **(results[k].get("launch") or {}),
                     **{x: results[k][x] for x in EXTRA_KEYS
-                       if x in results[k]})
+                       if x in results[k]},
+                    **({"ab_launches": ab_launches[k]} if k in KERNELS
+                       else {}))
                for k in rows for base in [k.split(" (")[0]]]
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -3459,7 +3525,7 @@ def main(only=None):
 if __name__ == "__main__":
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["13"], default=None,
+    ap.add_argument("--only", choices=["13", "14"], default=None,
                     help="phases 1, 2 and this one alone (exits non-zero)")
     # a rank process of phase 13 (c), started by the phase itself
     ap.add_argument("--shard-rank", type=int, default=None)

@@ -29,6 +29,7 @@ from deep_tracking_control_tpu_torch.env.legged_env import LeggedEnv as TEnv
 from deep_tracking_control_tpu_torch.env.vec_env import VecEnv
 from deep_tracking_control_tpu_torch.runner.train import OnPolicyRunner
 from deep_tracking_control_tpu_torch.tasks import registry as treg
+from tests.xdist_once import once
 
 N = 4
 PHYS = dict(atol=2e-5, rtol=1e-5)
@@ -76,34 +77,55 @@ def _clone(tree):
     return tree.clone() if isinstance(tree, torch.Tensor) else tree
 
 
-@pytest.fixture(scope="module")
-def slice_run():
-    jenv = JEnv(_quiet(jreg))
-    params, state0 = jenv.init(jax.random.PRNGKey(0))
+def _kernel_path(jenv):
+    """The JAX env on its kernel path, kernels in interpret mode."""
     jenv._pallas_interpret = True
     jenv._pallas_physics = True
+    return jenv
+
+
+def _jax_slice():
+    """The JAX env's init and two steps, with the draws it made, as numpy
+    (the draws as the port takes them)."""
+    jenv = JEnv(_quiet(jreg))
+    params, state0 = jenv.init(jax.random.PRNGKey(0))
+    _kernel_path(jenv)
     jstep = jax.jit(jenv.step)
     rng = np.random.default_rng(0)
     actions = (0.3 * rng.normal(size=(2, N, 12))).astype(np.float32)
     keys = [jax.random.PRNGKey(100), jax.random.PRNGKey(101)]
-
-    tenv = TEnv(_quiet(treg), device="cpu")
-    tparams, tstate = env_from_jax(_np(params), _np(state0),
-                                   np.asarray(jenv.grid.height), tenv,
-                                   np.asarray(jenv.terrain_origins))
-    jstate, jouts, touts, tstates, jstates = state0, [], [], [], []
+    jstate, jouts, jstates, draws = state0, [], [], []
     for t in range(2):
         jstate, jout = jstep(params, jstate, jnp.asarray(actions[t]), keys[t])
-        tstate, tout = tenv.step(tparams, tstate, torch.from_numpy(actions[t]),
-                                 torch.Generator().manual_seed(t),
-                                 draws=_jax_draws(jenv, keys[t]))
+        draws.append(_jax_draws(jenv, keys[t]))
         jouts.append(_np(jout))
         jstates.append(_np(jstate))
+    return dict(actions=actions, params=_np(params), state0=_np(state0),
+                height=np.asarray(jenv.grid.height),
+                origins=np.asarray(jenv.terrain_origins), draws=draws,
+                jouts=jouts, jstates=jstates)
+
+
+@pytest.fixture(scope="module")
+def slice_run(tmp_path_factory):
+    """The JAX slice (once a test session: tests/xdist_once.py; the
+    outputs are checked in tests/test_torch_env_outputs.py) and the
+    port's two steps from its state with its draws."""
+    run = once(tmp_path_factory, "torch_env_slice", _jax_slice)
+    tenv = TEnv(_quiet(treg), device="cpu")
+    tparams, tstate = env_from_jax(run["params"], run["state0"],
+                                   run["height"], tenv, run["origins"])
+    touts, tstates = [], []
+    for t in range(2):
+        tstate, tout = tenv.step(tparams, tstate,
+                                 torch.from_numpy(run["actions"][t]),
+                                 torch.Generator().manual_seed(t),
+                                 draws=run["draws"][t])
         # snapshots: the port's step updates the episode sums in place
         touts.append(_clone(tout))
         tstates.append(_clone(tstate))
-    return dict(jenv=jenv, tenv=tenv, params=params, tparams=tparams,
-                jouts=jouts, touts=touts, jstates=jstates, tstates=tstates)
+    return dict(run, tenv=tenv, tparams=tparams, touts=touts,
+                tstates=tstates)
 
 
 @pytest.mark.parametrize("t", [0, 1])
@@ -131,15 +153,6 @@ def test_slice_terrain_queries_and_plan(slice_run, t):
 
 
 @pytest.mark.parametrize("t", [0, 1])
-@pytest.mark.parametrize("field", ["obs", "privileged_obs", "obs_history",
-                                   "base_vel", "rew"])
-def test_slice_outputs(slice_run, t, field):
-    jo, to = slice_run["jouts"][t], slice_run["touts"][t]
-    np.testing.assert_allclose(to[field].numpy(), jo[field], **OBS,
-                               err_msg=field)
-
-
-@pytest.mark.parametrize("t", [0, 1])
 def test_slice_done_and_metrics(slice_run, t):
     jo, to = slice_run["jouts"][t], slice_run["touts"][t]
     np.testing.assert_array_equal(to["done"].numpy(), jo["done"])
@@ -158,12 +171,12 @@ def test_reset_writes_deterministic_fields(slice_run):
     sums flushed, curriculum levels moved, everything of envs 1 and 3
     kept.  Env 0 sits on its origin (moves down a level), env 2 far off it
     (moves up), so no level leaves [0, num_rows) and no draw decides one."""
-    jenv, tenv = slice_run["jenv"], slice_run["tenv"]
+    jenv, tenv = _kernel_path(JEnv(_quiet(jreg))), slice_run["tenv"]
     js = slice_run["jstates"][1]
     tparams = slice_run["tparams"]
     js = dict(js)
     levels = np.array([1, 1, 0, 0], np.int32)
-    origins = np.asarray(jenv.terrain_origins)[levels, js["terrain_types"]]
+    origins = slice_run["origins"][levels, js["terrain_types"]]
     pos = np.array(js["phys"]["pos"])
     pos[:2, 0] = origins[0, :2]
     pos[:2, 2] = origins[2, :2] + 6.0
@@ -174,9 +187,8 @@ def test_reset_writes_deterministic_fields(slice_run):
     done = np.array([True, False, True, False])
     want = _np(jenv._apply_reset(jax.tree.map(jnp.asarray, js),
                                  jnp.asarray(done), jax.random.PRNGKey(7)))
-    _, tstate = env_from_jax(_np(slice_run["params"]), js,
-                             np.asarray(jenv.grid.height), tenv,
-                             np.asarray(jenv.terrain_origins))
+    _, tstate = env_from_jax(slice_run["params"], js, slice_run["height"],
+                             tenv, slice_run["origins"])
     got = tenv._apply_reset(tparams, tstate, torch.from_numpy(done),
                             torch.Generator().manual_seed(3))
     np.testing.assert_array_equal(got["terrain_levels"].numpy(), [0, 1, 1, 0])

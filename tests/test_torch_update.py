@@ -40,11 +40,13 @@ from deep_tracking_control_tpu_torch.agent import ppo as tppo
 from deep_tracking_control_tpu_torch.convert import (opt_state_from_optax,
                                                      params_from_flax)
 from deep_tracking_control_tpu_torch.models import networks as tnet
+from tests.xdist_once import once
 
 T, N, Z = 8, 8, 16
 SMALL_LR = 1e-7
 NET = dict(terrain_latent=32, actor_hidden=(32,), critic_hidden=(32,))
-# (fused_joint_step, shuffle_strata, minibatch_perm_granule)
+# (fused_joint_step, shuffle_strata, minibatch_perm_granule); the S=1
+# cases run here, the S=4 ones in tests/test_torch_update_strata.py
 CASES = {"fused_s1_g8": (True, 1, 8), "seq_s1_g1": (False, 1, 1),
          "fused_s4_g1": (True, 4, 1), "seq_s4_g8": (False, 4, 8)}
 
@@ -66,18 +68,25 @@ def _alg(fused, strata, granule):
                         minibatch_perm_granule=granule)
 
 
-@pytest.fixture(scope="module")
-def base():
-    rng = np.random.default_rng(0)
+def _base_params():
+    """The net's init (jitted), at trained-scale weights, as numpy."""
     jm = jnet.ActorCriticDecoder(**NET)
-    key = jax.random.PRNGKey(0)
-    params = jax.jit(jm.init)(key, jnp.zeros((1, 53)), jnp.zeros((1, 265)),
-                              jnp.zeros((1, 1389)), jnp.zeros((1, 3)),
-                              jax.random.PRNGKey(1))
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.zeros((1, 53)),
+                              jnp.zeros((1, 265)), jnp.zeros((1, 1389)),
+                              jnp.zeros((1, 3)), jax.random.PRNGKey(1))
     # trained-scale weights: the orthogonal(0.01) init makes outputs tiny
     params = jax.tree_util.tree_map_with_path(
         lambda p, v: v * 50.0 if "Dense_0" not in jax.tree_util.keystr(p)
         and "kernel" in jax.tree_util.keystr(p) else v, params)
+    return jax.tree.map(np.asarray, params)
+
+
+@pytest.fixture(scope="module")
+def base(tmp_path_factory):
+    rng = np.random.default_rng(0)
+    jm = jnet.ActorCriticDecoder(**NET)
+    params = jax.tree.map(jnp.asarray, once(
+        tmp_path_factory, "torch_update_base", _base_params))
     f = np.float32
     mu = rng.normal(0, 0.3, (T, N, 12)).astype(f)
     sigma = rng.uniform(0.8, 1.2, (T, N, 12)).astype(f)
@@ -140,10 +149,10 @@ def _flat(state_dict, names):
     return torch.cat([state_dict[n].reshape(-1) for n in names])
 
 
-@pytest.fixture(scope="module", params=sorted(CASES))
-def case(request, base):
+def run_case(base, name):
+    """Both packages' updates of case `name` from `base`."""
     jm, params, jbatch = base
-    alg = _alg(*CASES[request.param])
+    alg = _alg(*CASES[name])
     ppo = jppo.PPO(net=jm, alg=alg)
     main_opt, vae_opt = jppo.make_optimizers(alg)
     upd = jax.jit(ppo.update)
@@ -169,6 +178,11 @@ def case(request, base):
     return dict(alg=alg, jm=jm, params=params, jbatch=jbatch, tb=tb,
                 p1=p1, p2=p2, lr1=lr1, lr2=lr2, st1=st1, st2=st2,
                 pst1=pst1, port2=port2, pst2=pst2)
+
+
+@pytest.fixture(scope="module", params=["fused_s1_g8", "seq_s1_g1"])
+def case(request, base):
+    return run_case(base, request.param)
 
 
 def test_update_stats_match(case):
@@ -331,19 +345,3 @@ def test_optimizers_match_optax(base):
                 np.testing.assert_allclose(
                     mine[m][n].numpy(), want, rtol=1e-5,
                     atol=1e-6 * float(np.abs(want).max()), err_msg=f"{m} {n}")
-
-
-def test_shuffle_layout_matches_jax_rules():
-    """S and G resolution (ppo.py:287-300): auto S=1 on one device, the
-    strata shrunk until each splits into whole minibatches, G capped at
-    gcd(granule, minibatch rows per stratum)."""
-    for strata, granule, t, n_env, want in ((0, 16, 8, 8, (1, 16)),
-                                            (4, 16, 8, 8, (4, 4)),
-                                            (3, 5, 8, 6, (3, 1)),
-                                            (8, 16, 8, 12, (4, 2)),
-                                            (6, 1, 3, 6, (1, 1))):
-        alg = AlgorithmCfg(shuffle_strata=strata,
-                           minibatch_perm_granule=granule)
-        S, rows_s, mb_s, G = tppo.shuffle_layout(alg, t, n_env)
-        assert (S, G) == want
-        assert rows_s == t * n_env // S and mb_s == rows_s // 4
