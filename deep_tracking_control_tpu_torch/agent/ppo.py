@@ -49,6 +49,7 @@ import torch
 from ..env.config import AlgorithmCfg
 from ..ops import cuda_gather
 from ..parallel import mesh as pmesh
+from ..utils import trace
 from ..utils.flags import strict_parity
 from .trajectories import rnn_replay, tree_map
 
@@ -113,6 +114,7 @@ class ClippedAdam:
             i += p.numel()
         return out
 
+    @trace.spanned("dtc/update/adam")
     @torch.no_grad()
     def step(self, grads, lr):
         """One update with these gradients (a list parallel to the params,
@@ -231,8 +233,14 @@ class PPO:
                                       generator=generator, device=device),
                           self.shard)
 
+    @trace.spanned("dtc/act")
     def value(self, obs, privileged_obs, base_vel):
         """The critic of a decoder or MLP net (the MLP's reads the obs)."""
+        return self._value(obs, privileged_obs, base_vel)
+
+    def _value(self, obs, privileged_obs, base_vel):
+        # act's critic, inside act's own dtc/act span (one name's spans
+        # do not nest)
         if self.policy_kind == "decoder":
             return self.net.evaluate(obs, privileged_obs, base_vel)
         return self.net(obs, obs)[2]
@@ -245,6 +253,7 @@ class PPO:
                     log_prob=normal_log_prob(mean, std, actions),
                     mu=mean, sigma=std)
 
+    @trace.spanned("dtc/act")
     @torch.no_grad()
     def act(self, obs, obs_history, privileged_obs, base_vel,
             generator: torch.Generator, eps_z=None, eps_a=None):
@@ -258,11 +267,12 @@ class PPO:
                                          generator, obs.device)
             mean, std, _, _ = self.net.act_stats(obs, obs_history,
                                                  privileged_obs, eps_z)
-            values = self.value(obs, privileged_obs, base_vel)
+            values = self._value(obs, privileged_obs, base_vel)
         else:
             mean, std, values = self.net(obs, obs)
         return dict(self._sample(mean, std, eps_a, generator), values=values)
 
+    @trace.spanned("dtc/act")
     @torch.no_grad()
     def act_recurrent(self, obs, carry_a, carry_c,
                       generator: torch.Generator | None = None, eps_a=None):
@@ -485,6 +495,7 @@ class PPO:
         return {k: x.reshape((S, rows_s) + x.shape[1:])[:, off:off + mb_s]
                 .reshape((S * mb_s,) + x.shape[1:]) for k, x in flat.items()}
 
+    @trace.spanned("dtc/update")
     @torch.no_grad()
     def update(self, batch: dict, generator: torch.Generator | None = None,
                perm=None, eps=None) -> dict:
@@ -506,10 +517,12 @@ class PPO:
         S = shuffle_layout(alg, T, self._global_n(N), self.world)[0]
         decoder = self.policy_kind == "decoder"
         if perm is None or (decoder and eps is None):
-            dperm, deps = self.draw(T, self._global_n(N), generator, dev)
+            with trace.span("dtc/update/draw"):
+                dperm, deps = self.draw(T, self._global_n(N), generator, dev)
             perm = dperm if perm is None else perm
             eps = deps if eps is None else eps
-        flat = self.shuffle(batch, perm)
+        with trace.span("dtc/update/shuffle"):
+            flat = self.shuffle(batch, perm)
         S //= self.world
         if decoder and self.shard is not None:
             # this rank's rows of each minibatch: its strata's slices
@@ -519,22 +532,23 @@ class PPO:
         zeros = (torch.zeros((), device=dev),) * 4
         stats = []
         for i in range(alg.num_learning_epochs * alg.num_mini_batches):
-            mb = self.minibatch(flat, i, S)
-            if not decoder:
-                with torch.enable_grad():
-                    mean, std, value = self.net(mb["obs"], mb["obs"])
-                    pol = self._pol_terms(mean, std, value, mb)
-                    grads = torch.autograd.grad(pol[0], self.optimizer.params,
-                                                allow_unused=True)
-                parts = zeros
-            elif alg.fused_joint_step:
-                parts, pol, vae_grads, grads = self.joint_grads(
-                    mb, eps[i, 0], eps[i, 1])
-                self.vae_optimizer.step(vae_grads, alg.vae_learning_rate)
-            else:
-                parts, pol, grads = self._sequential_step(mb, eps[i, 0],
-                                                          eps[i, 1])
-            lr = self._step_main(pol, parts, grads, lr, stats)
+            with trace.span("dtc/update/minibatch"):
+                mb = self.minibatch(flat, i, S)
+                if not decoder:
+                    with torch.enable_grad():
+                        mean, std, value = self.net(mb["obs"], mb["obs"])
+                        pol = self._pol_terms(mean, std, value, mb)
+                        grads = torch.autograd.grad(
+                            pol[0], self.optimizer.params, allow_unused=True)
+                    parts = zeros
+                elif alg.fused_joint_step:
+                    parts, pol, vae_grads, grads = self.joint_grads(
+                        mb, eps[i, 0], eps[i, 1])
+                    self.vae_optimizer.step(vae_grads, alg.vae_learning_rate)
+                else:
+                    parts, pol, grads = self._sequential_step(mb, eps[i, 0],
+                                                              eps[i, 1])
+                lr = self._step_main(pol, parts, grads, lr, stats)
         self.learning_rate = lr
         means = torch.stack(stats).mean(dim=0)
         return dict(zip(STAT_NAMES, means.unbind()))
@@ -557,6 +571,7 @@ class PPO:
                                         allow_unused=True)
         return pol, grads
 
+    @trace.spanned("dtc/update")
     @torch.no_grad()
     def update_recurrent(self, batch: dict,
                          generator: torch.Generator | None = None,
@@ -578,7 +593,9 @@ class PPO:
         T, N = batch["values"].shape
         dev = batch["values"].device
         if env_idx is None:
-            env_idx = self.draw_recurrent(self._global_n(N), generator, dev)
+            with trace.span("dtc/update/draw"):
+                env_idx = self.draw_recurrent(self._global_n(N), generator,
+                                              dev)
         env_idx = env_idx.to(device=dev, dtype=torch.int64)
         lr = self.learning_rate
         zeros = (torch.zeros((), device=dev),) * 4
@@ -589,10 +606,11 @@ class PPO:
             mine = ((env_idx >= self.shard.row0)
                     & (env_idx < self.shard.row0 + N)).cpu()
         for i, idx in enumerate(env_idx):
-            if self.shard is not None:
-                idx = idx[mine[i].to(dev)] - self.shard.row0
-            pol, grads = self.recurrent_grads(batch, idx, count)
-            lr = self._step_main(pol, zeros, grads, lr, stats)
+            with trace.span("dtc/update/minibatch"):
+                if self.shard is not None:
+                    idx = idx[mine[i].to(dev)] - self.shard.row0
+                pol, grads = self.recurrent_grads(batch, idx, count)
+                lr = self._step_main(pol, zeros, grads, lr, stats)
         self.learning_rate = lr
         means = torch.stack(stats).mean(dim=0)
         return dict(zip(STAT_NAMES, means.unbind()))

@@ -86,6 +86,7 @@ from ..terrain import grid as tgrid
 from ..terrain import patch as tpatch
 from ..terrain.generator import DESCENT_FAMILIES, Terrain, column_families
 from ..terrain.grid import TerrainGrid
+from ..utils import trace
 from ..utils.flags import kernel_flag
 from . import cuda_obs, cuda_planner, cuda_rewards, planner
 from . import rewards as rew_mod
@@ -466,6 +467,7 @@ class LeggedEnv:
     # ------------------------------------------------------------------
     # step
     # ------------------------------------------------------------------
+    @trace.spanned("dtc/env.step")
     def step(self, params, state, actions, generator, draws=None):
         """One policy step (LeggedRobot.step + DTC post_physics_step).
 
@@ -476,7 +478,6 @@ class LeggedEnv:
         "height_noise" (N,H) and "obs_noise" (N, num_obs) uniforms in
         [-1, 1)."""
         cfg = self.cfg
-        m = self.model
         dev = self.device
         gen = generator
         T = self._t
@@ -496,32 +497,50 @@ class LeggedEnv:
         # plane has neither
         starts = patch_origin = patches = window = None
         if src is not None:
-            starts, patch_origin = tpatch.patch_starts(src,
-                                                       phys["pos"].T[:, :2])
-            if not use_sampler:
-                patches = tpatch.extract(src, starts)       # (3,N,64,128)
-            elif not kernel_flag("DTC_FUSED_WINDOW", "1"):
-                window = tpatch.extract_window(src, starts,
-                                               cuda_substep.WIN_R0,
-                                               cuda_substep.WIN_R)
-        actions_scaled = actions * cfg.control.action_scale
-        # action-lag indices: one randint(1,5) shared across envs per sim
-        # step (legged_robot.py:608-614)
-        choices = self._draw(draws, "lag", lambda: torch.randint(
-            1, 5, (cfg.control.decimation,), generator=gen, device=dev))
-        choices = choices.to(device=dev, dtype=torch.long)
-        # PD goals per substep: the lag-buffer roll does not depend on q,
-        # so all `decimation` targets are computed up front
-        goals = []
-        for s in range(cfg.control.decimation):
-            lag = torch.cat([lag[:, 1:], actions_scaled[:, None, :]], dim=1)
-            g = lag.index_select(1, choices[s:s + 1])[:, 0] + T["default_q"]
-            g = torch.maximum(torch.minimum(g, T["pos_hi"]), T["pos_lo"])
-            goals.append(g.T)
-        if not use_kernel:
-            return self._plain_physics_step(params, state, actions, lag,
-                                            goals, patches, patch_origin,
-                                            gen, draws)
+            with trace.span("dtc/env.step/terrain"):
+                starts, patch_origin = tpatch.patch_starts(
+                    src, phys["pos"].T[:, :2])
+                if not use_sampler:
+                    patches = tpatch.extract(src, starts)   # (3,N,64,128)
+                elif not kernel_flag("DTC_FUSED_WINDOW", "1"):
+                    window = tpatch.extract_window(src, starts,
+                                                   cuda_substep.WIN_R0,
+                                                   cuda_substep.WIN_R)
+        with trace.span("dtc/env.step/physics"):
+            actions_scaled = actions * cfg.control.action_scale
+            # action-lag indices: one randint(1,5) shared across envs per
+            # sim step (legged_robot.py:608-614)
+            choices = self._draw(draws, "lag", lambda: torch.randint(
+                1, 5, (cfg.control.decimation,), generator=gen, device=dev))
+            choices = choices.to(device=dev, dtype=torch.long)
+            # PD goals per substep: the lag-buffer roll does not depend on
+            # q, so all `decimation` targets are computed up front
+            goals = []
+            for s in range(cfg.control.decimation):
+                lag = torch.cat([lag[:, 1:], actions_scaled[:, None, :]],
+                                dim=1)
+                g = (lag.index_select(1, choices[s:s + 1])[:, 0]
+                     + T["default_q"])
+                g = torch.maximum(torch.minimum(g, T["pos_hi"]), T["pos_lo"])
+                goals.append(g.T)
+            if use_kernel:
+                state, info = self._kernel_physics_step(
+                    params, state, actions, lag, goals, phys, starts,
+                    patch_origin, patches, window, use_sampler)
+            else:
+                state, info = self._plain_physics_step(
+                    params, state, actions, lag, goals, patches, patch_origin)
+        return self._post_physics_step(params, state, info, gen, draws)
+
+    def _kernel_physics_step(self, params, state, actions, lag, goals, phys,
+                             starts, patch_origin, patches, window,
+                             use_sampler):
+        """The `decimation` sim steps in one decimation kernel call (K1, or
+        K1w on a materialized window)."""
+        cfg = self.cfg
+        m = self.model
+        T = self._t
+        src = params["terrain"]
         hs = src.horizontal_scale
         goals = torch.stack(goals).contiguous()
         kp_eff = (T["p_gains"] * state["kp_factors"]).T.contiguous()
@@ -544,10 +563,10 @@ class LeggedEnv:
                  "body_pts": kinfo["body_pts"]}
         info = dict(kinfo, patch_origin=patch_origin, starts=starts,
                     patches=patches, use_kernel=True, use_sampler=use_sampler)
-        return self._post_physics_step(params, state, info, gen, draws)
+        return state, info
 
     def _plain_physics_step(self, params, state, actions, lag, goals,
-                            patches, patch_origin, gen, draws):
+                            patches, patch_origin):
         """The JAX package's XLA decimation loop (legged_env.py:496-529):
         per sim step the PD torque (motor strength and offset, clipped at
         the torque limit) and `sim_step`, every contact point sampling the
@@ -587,7 +606,7 @@ class LeggedEnv:
                     use_kernel=False, use_sampler=False)
         state = {**state, "phys": phys, "anchors": anchors, "lag_buffer": lag,
                  "actions": actions, "torques": tau}
-        return self._post_physics_step(params, state, info, gen, draws)
+        return state, info
 
     # ------------------------------------------------------------------
     def _post_physics_step(self, params, state, info, gen, draws):
@@ -605,7 +624,8 @@ class LeggedEnv:
         base_quat = phys["quat"].T
         base_lin_vel = qm.quat_rotate_inverse(base_quat, phys["lin_vel"].T)
         base_ang_vel = qm.quat_rotate_inverse(base_quat, phys["ang_vel"].T)
-        gvec = torch.tensor([0.0, 0.0, -1.0], device=dev).expand(N, 3)
+        with trace.sync("dtc/sync/gravity"):
+            gvec = torch.tensor([0.0, 0.0, -1.0], device=dev).expand(N, 3)
         projected_gravity = qm.quat_rotate_inverse(base_quat, gvec)
         dof_pos = phys["q"].T
         dof_vel = phys["qd"].T
@@ -620,74 +640,81 @@ class LeggedEnv:
             [state["ang_vel_buffer"][:, 1:], base_ang_vel[:, None, 2:3]], dim=1)
 
         # commands (legged_robot.py:529-564)
-        resample_every = int(cfg.commands.resampling_time / cfg.dt)
-        need_resample = (episode_length % resample_every) == 0
-        commands = self._resample_commands_where(
-            state["commands"], need_resample, state["command_lin_vel_x"], gen)
-        commands = self._clamp_descent_commands(
-            commands, state["terrain_types"], state["terrain_levels"])
-        if cfg.commands.heading_command:                          # :536-539
-            fwd = qm.quat_rotate(base_quat, torch.tensor(
-                [1.0, 0.0, 0.0], device=dev).expand(N, 3))
-            heading = torch.atan2(fwd[:, 1], fwd[:, 0])
-            commands = commands.clone()
-            commands[:, 2] = torch.clamp(
-                0.5 * qm.wrap_to_pi(commands[:, 3] - heading), -1.5, 1.5)
-        cmd_buffer = torch.cat([state["cmd_buffer"][:, 1:], commands[:, None, :]],
-                               dim=1)
+        with trace.span("dtc/env.step/commands"):
+            resample_every = int(cfg.commands.resampling_time / cfg.dt)
+            need_resample = (episode_length % resample_every) == 0
+            commands = self._resample_commands_where(
+                state["commands"], need_resample, state["command_lin_vel_x"],
+                gen)
+            commands = self._clamp_descent_commands(
+                commands, state["terrain_types"], state["terrain_levels"])
+            if cfg.commands.heading_command:                      # :536-539
+                with trace.sync("dtc/sync/heading"):
+                    xvec = torch.tensor([1.0, 0.0, 0.0], device=dev)
+                fwd = qm.quat_rotate(base_quat, xvec.expand(N, 3))
+                heading = torch.atan2(fwd[:, 1], fwd[:, 0])
+                commands = commands.clone()
+                commands[:, 2] = torch.clamp(
+                    0.5 * qm.wrap_to_pi(commands[:, 3] - heading), -1.5, 1.5)
+            cmd_buffer = torch.cat(
+                [state["cmd_buffer"][:, 1:], commands[:, None, :]], dim=1)
 
         # the terrain queries of the step: the min3 height scan, the max10
         # foot clearance and the next step's body planes
-        hp = T["height_points"]
-        cy, sy = qm.yaw_rot2d(base_quat)
-        scan = (cy[:, None] * hp[None, :, 0] - sy[:, None] * hp[None, :, 1]
-                + base_pos[:, 0:1],
-                sy[:, None] * hp[None, :, 0] + cy[:, None] * hp[None, :, 1]
-                + base_pos[:, 1:2])
-        bp = state["body_pts"]                                   # (Pb,3,N)
-        nb, nf, nh = bp.shape[0], foot_positions.shape[1], self.num_height_points
-        h10 = planes_next = None
-        if info["use_sampler"]:
-            # every query of the step in one fused sampler call
-            def packq(c):
-                fill = base_pos[:, c:c + 1]
-                return torch.cat([
-                    scan[c], fill.expand(N, cuda_sampler.Q_MIN3 - nh),
-                    foot_positions[..., c],
-                    fill.expand(N, cuda_sampler.Q_MAX10 - nf),
-                    bp[:, c].T, fill.expand(N, cuda_sampler.Q_BIL - nb)], dim=1)
+        with trace.span("dtc/env.step/terrain"):
+            hp = T["height_points"]
+            cy, sy = qm.yaw_rot2d(base_quat)
+            scan = (cy[:, None] * hp[None, :, 0] - sy[:, None] * hp[None, :, 1]
+                    + base_pos[:, 0:1],
+                    sy[:, None] * hp[None, :, 0] + cy[:, None] * hp[None, :, 1]
+                    + base_pos[:, 1:2])
+            bp = state["body_pts"]                               # (Pb,3,N)
+            nb, nf = bp.shape[0], foot_positions.shape[1]
+            nh = self.num_height_points
+            h10 = planes_next = None
+            if info["use_sampler"]:
+                # every query of the step in one fused sampler call
+                def packq(c):
+                    fill = base_pos[:, c:c + 1]
+                    return torch.cat([
+                        scan[c], fill.expand(N, cuda_sampler.Q_MIN3 - nh),
+                        foot_positions[..., c],
+                        fill.expand(N, cuda_sampler.Q_MAX10 - nf),
+                        bp[:, c].T, fill.expand(N, cuda_sampler.Q_BIL - nb)],
+                        dim=1)
 
-            h_all, gxs, gys = cuda_sampler.sample_all(
-                params["terrain"], info["starts"], info["patch_origin"],
-                packq(0), packq(1))
-            measured_heights = h_all[:, :nh]
-            h10 = h_all[:, cuda_sampler.Q_MIN3:cuda_sampler.Q_MIN3 + nf]
-            off = cuda_sampler.Q_MIN3 + cuda_sampler.Q_MAX10
-            planes_next = torch.stack(
-                [h_all[:, off:off + nb].T, gxs[:, :nb].T, gys[:, :nb].T,
-                 bp[:, 0], bp[:, 1]], dim=1)                     # (Pb,5,N)
-        elif info["patches"] is not None:
-            # the plain samplers on the materialized patches
-            # (legged_env.py:626-650, 666-675 of the JAX package)
-            patches, origin = info["patches"], info["patch_origin"]
-            hs = params["terrain"].horizontal_scale
-            measured_heights = (
-                tpatch.sample_nearest(patches[1], origin, hs, scan[0], scan[1])
-                if cfg.terrain.measure_heights
-                else torch.zeros((N, nh), device=dev))
-            h10 = tpatch.sample_nearest(patches[2], origin, hs,
-                                        foot_positions[..., 0],
-                                        foot_positions[..., 1])
-            if info["use_kernel"]:
-                # the kernel's next-step body planes; the plain loop
-                # samples every point each substep and keeps none
-                h0, gx0, gy0, _ = tpatch.sample_bilinear_slope(
-                    patches[0], origin, hs, bp[:, 0].T, bp[:, 1].T)
+                h_all, gxs, gys = cuda_sampler.sample_all(
+                    params["terrain"], info["starts"], info["patch_origin"],
+                    packq(0), packq(1))
+                measured_heights = h_all[:, :nh]
+                h10 = h_all[:, cuda_sampler.Q_MIN3:cuda_sampler.Q_MIN3 + nf]
+                off = cuda_sampler.Q_MIN3 + cuda_sampler.Q_MAX10
                 planes_next = torch.stack(
-                    [h0.T, gx0.T, gy0.T, bp[:, 0], bp[:, 1]], dim=1)
-        else:
-            # a plane: zero heights (legged_robot.py:1292-1293)
-            measured_heights = torch.zeros((N, nh), device=dev)
+                    [h_all[:, off:off + nb].T, gxs[:, :nb].T, gys[:, :nb].T,
+                     bp[:, 0], bp[:, 1]], dim=1)                 # (Pb,5,N)
+            elif info["patches"] is not None:
+                # the plain samplers on the materialized patches
+                # (legged_env.py:626-650, 666-675 of the JAX package)
+                patches, origin = info["patches"], info["patch_origin"]
+                hs = params["terrain"].horizontal_scale
+                measured_heights = (
+                    tpatch.sample_nearest(patches[1], origin, hs, scan[0],
+                                          scan[1])
+                    if cfg.terrain.measure_heights
+                    else torch.zeros((N, nh), device=dev))
+                h10 = tpatch.sample_nearest(patches[2], origin, hs,
+                                            foot_positions[..., 0],
+                                            foot_positions[..., 1])
+                if info["use_kernel"]:
+                    # the kernel's next-step body planes; the plain loop
+                    # samples every point each substep and keeps none
+                    h0, gx0, gy0, _ = tpatch.sample_bilinear_slope(
+                        patches[0], origin, hs, bp[:, 0].T, bp[:, 1].T)
+                    planes_next = torch.stack(
+                        [h0.T, gx0.T, gy0.T, bp[:, 0], bp[:, 1]], dim=1)
+            else:
+                # a plane: zero heights (legged_robot.py:1292-1293)
+                measured_heights = torch.zeros((N, nh), device=dev)
 
         # random pushes (legged_robot.py:546-556, 673-678)
         push_force = state["push_force"]
@@ -724,28 +751,30 @@ class LeggedEnv:
         # kernel route; debug viz needs the score tensor, which only the
         # plain planner returns.  Without the planner the foothold obs are
         # zero and the "optimal" footholds are the feet.
-        debug = None
-        if cfg.use_dtc_planner and cfg.terrain.measure_heights:
-            hips = info["thigh_pos"].permute(2, 0, 1)
-            use_planner_kernel = (info["use_kernel"]
-                                  and not cfg.env.debug_viz
-                                  and kernel_flag("DTC_PALLAS_PLANNER", "1"))
-            plan_fn = (cuda_planner.plan_footholds_fused
-                       if use_planner_kernel else planner.plan_footholds)
-            plan = plan_fn(cfg, base_pos, base_quat, base_lin_vel, commands,
-                           hips, measured_heights, self.height_points,
-                           cfg.terrain.measured_points_x,
-                           cfg.terrain.measured_points_y)
-            foothold_obs = plan["foothold_obs"]
-            optimal_footholds_world = plan["optimal_footholds_world"]
-            if cfg.env.debug_viz:
-                debug = dict(heights_world=plan["heights_world"],
-                             foothold_score=plan["foothold_score"],
-                             pred_footholds=plan["pred_footholds"],
-                             foot_positions=foot_positions)
-        else:
-            foothold_obs = state["foothold_obs"] * 0.0
-            optimal_footholds_world = foot_positions
+        with trace.span("dtc/env.step/planner"):
+            debug = None
+            if cfg.use_dtc_planner and cfg.terrain.measure_heights:
+                hips = info["thigh_pos"].permute(2, 0, 1)
+                use_planner_kernel = (
+                    info["use_kernel"] and not cfg.env.debug_viz
+                    and kernel_flag("DTC_PALLAS_PLANNER", "1"))
+                plan_fn = (cuda_planner.plan_footholds_fused
+                           if use_planner_kernel else planner.plan_footholds)
+                plan = plan_fn(cfg, base_pos, base_quat, base_lin_vel,
+                               commands, hips, measured_heights,
+                               self.height_points,
+                               cfg.terrain.measured_points_x,
+                               cfg.terrain.measured_points_y)
+                foothold_obs = plan["foothold_obs"]
+                optimal_footholds_world = plan["optimal_footholds_world"]
+                if cfg.env.debug_viz:
+                    debug = dict(heights_world=plan["heights_world"],
+                                 foothold_score=plan["foothold_score"],
+                                 pred_footholds=plan["pred_footholds"],
+                                 foot_positions=foot_positions)
+            else:
+                foothold_obs = state["foothold_obs"] * 0.0
+                optimal_footholds_world = foot_positions
 
         # termination (dtc.py:229-251 / legged_robot.py:178-198)
         if len(self.termination_idx):
@@ -783,60 +812,61 @@ class LeggedEnv:
         reset_buf = term_contact | time_out_buf | term_gravity | term_height
 
         # rewards (legged_robot.py:274-291)
-        ctx = dict(
-            dt=cfg.dt,
-            base_lin_vel=base_lin_vel, base_ang_vel=base_ang_vel,
-            projected_gravity=projected_gravity,
-            dof_pos=dof_pos, dof_vel=dof_vel,
-            last_dof_vel=state["last_dof_vel"],
-            actions=state["actions"], last_actions=state["last_actions"],
-            last_actions_2=state["last_actions_2"],
-            torques=state["torques"],
-            contact_forces=contact_forces,
-            feet_idx=T["feet_idx"], penalised_idx=T["penalised_idx"],
-            hip_dof_idx=T["hip_dof_idx"],
-            feet_contact=feet_contact, last_contacts=last_contacts,
-            contact_filt=contact_filt,
-            feet_air_time=state["feet_air_time"],
-            stumb_buffer=state["stumb_buffer"],
-            commands=commands,
-            cmd_buffer=cmd_buffer, lin_vel_buffer=lin_vel_buffer,
-            ang_vel_buffer=ang_vel_buffer,
-            lin_vel_x_max=state["command_lin_vel_x"][1],
-            ang_vel_yaw_max=cfg.commands.ranges.ang_vel_yaw[1],
-            tracking_sigma=cfg.rewards.tracking_sigma,
-            # without an env dim, as the other tables: the reward kernel
-            # stages an input with an env dim per env, and at one env a
-            # (1, nq) table would take an env's row
-            default_dof_pos=T["default_q"],
-            soft_dof_pos_limits=(T["soft_lo"], T["soft_hi"]),
-            dof_vel_limit=T["dof_vel_limits"],
-            soft_dof_vel_limit=cfg.rewards.soft_dof_vel_limit,
-            torque_limit=T["torque_limits"],
-            soft_torque_limit=cfg.rewards.soft_torque_limit,
-            max_contact_force=cfg.rewards.max_contact_force,
-            max_acc=cfg.rewards.max_acc,
-            base_height_target=cfg.rewards.base_height_target,
-            robot_mass=params["robot_mass"],
-            foot_positions=foot_positions, foot_velocities=foot_velocities,
-            last_foot_velocities=state["last_foot_velocities"],
-            measured_foot_clearance=measured_foot_clearance,
-            measured_heights=measured_heights,
-            plane_pinv=T["plane_pinv"],
-            pitch_est=state["pitch_est"],
-            terrain_levels=state["terrain_levels"],
-            acc_points=T["acc_points"],
-            optimal_footholds_world=optimal_footholds_world,
-            root_z=base_pos[:, 2],
-            env_origin_z=state["env_origins"][:, 2],
-            reset_buf=reset_buf, time_out_buf=time_out_buf,
-        )
-        # in place: the (K, N) sums are the widest per-step accumulator
-        episode_sums = state["episode_sums"]
-        rew_buf, upd = cuda_rewards.compute_rewards_fused(
-            self.reward_names, self.reward_scales_dt, ctx,
-            cfg.rewards.only_positive_rewards, self.termination_scale_dt,
-            self.episode_sum_names, episode_sums)
+        with trace.span("dtc/env.step/rewards"):
+            ctx = dict(
+                dt=cfg.dt,
+                base_lin_vel=base_lin_vel, base_ang_vel=base_ang_vel,
+                projected_gravity=projected_gravity,
+                dof_pos=dof_pos, dof_vel=dof_vel,
+                last_dof_vel=state["last_dof_vel"],
+                actions=state["actions"], last_actions=state["last_actions"],
+                last_actions_2=state["last_actions_2"],
+                torques=state["torques"],
+                contact_forces=contact_forces,
+                feet_idx=T["feet_idx"], penalised_idx=T["penalised_idx"],
+                hip_dof_idx=T["hip_dof_idx"],
+                feet_contact=feet_contact, last_contacts=last_contacts,
+                contact_filt=contact_filt,
+                feet_air_time=state["feet_air_time"],
+                stumb_buffer=state["stumb_buffer"],
+                commands=commands,
+                cmd_buffer=cmd_buffer, lin_vel_buffer=lin_vel_buffer,
+                ang_vel_buffer=ang_vel_buffer,
+                lin_vel_x_max=state["command_lin_vel_x"][1],
+                ang_vel_yaw_max=cfg.commands.ranges.ang_vel_yaw[1],
+                tracking_sigma=cfg.rewards.tracking_sigma,
+                # without an env dim, as the other tables: the reward kernel
+                # stages an input with an env dim per env, and at one env a
+                # (1, nq) table would take an env's row
+                default_dof_pos=T["default_q"],
+                soft_dof_pos_limits=(T["soft_lo"], T["soft_hi"]),
+                dof_vel_limit=T["dof_vel_limits"],
+                soft_dof_vel_limit=cfg.rewards.soft_dof_vel_limit,
+                torque_limit=T["torque_limits"],
+                soft_torque_limit=cfg.rewards.soft_torque_limit,
+                max_contact_force=cfg.rewards.max_contact_force,
+                max_acc=cfg.rewards.max_acc,
+                base_height_target=cfg.rewards.base_height_target,
+                robot_mass=params["robot_mass"],
+                foot_positions=foot_positions, foot_velocities=foot_velocities,
+                last_foot_velocities=state["last_foot_velocities"],
+                measured_foot_clearance=measured_foot_clearance,
+                measured_heights=measured_heights,
+                plane_pinv=T["plane_pinv"],
+                pitch_est=state["pitch_est"],
+                terrain_levels=state["terrain_levels"],
+                acc_points=T["acc_points"],
+                optimal_footholds_world=optimal_footholds_world,
+                root_z=base_pos[:, 2],
+                env_origin_z=state["env_origins"][:, 2],
+                reset_buf=reset_buf, time_out_buf=time_out_buf,
+            )
+            # in place: the (K, N) sums are the widest per-step accumulator
+            episode_sums = state["episode_sums"]
+            rew_buf, upd = cuda_rewards.compute_rewards_fused(
+                self.reward_names, self.reward_scales_dt, ctx,
+                cfg.rewards.only_positive_rewards, self.termination_scale_dt,
+                self.episode_sum_names, episode_sums)
 
         mid_state = {**state,
                      "phys": phys,
@@ -864,20 +894,22 @@ class LeggedEnv:
                      "optimal_footholds_world": optimal_footholds_world,
                      "planes": (state["planes"] if planes_next is None
                                 else planes_next)}
-        metrics = self._reset_metrics(mid_state, reset_buf)
-        # per-cause termination tally (causes overlap)
-        metrics["term_contact"] = term_contact.float().sum()
-        metrics["term_gravity"] = term_gravity.float().sum()
-        metrics["term_height"] = term_height.float().sum()
-        metrics["term_timeout"] = time_out_buf.float().sum()
-        new_state = self._apply_reset(params, mid_state, reset_buf, gen)
-        metrics["terrain_level"] = pmesh.mean(
-            new_state["terrain_levels"].float(), self._sh)
+        with trace.span("dtc/env.step/reset"):
+            metrics = self._reset_metrics(mid_state, reset_buf)
+            # per-cause termination tally (causes overlap)
+            metrics["term_contact"] = term_contact.float().sum()
+            metrics["term_gravity"] = term_gravity.float().sum()
+            metrics["term_height"] = term_height.float().sum()
+            metrics["term_timeout"] = time_out_buf.float().sum()
+            new_state = self._apply_reset(params, mid_state, reset_buf, gen)
+            metrics["terrain_level"] = pmesh.mean(
+                new_state["terrain_levels"].float(), self._sh)
 
         # observations (dtc.py:254-288)
-        new_state, obs_out = self._compute_observations(
-            new_state, base_pos[:, 2], base_lin_vel, base_ang_vel,
-            projected_gravity, measured_heights, gen, draws)
+        with trace.span("dtc/env.step/obs"):
+            new_state, obs_out = self._compute_observations(
+                new_state, base_pos[:, 2], base_lin_vel, base_ang_vel,
+                projected_gravity, measured_heights, gen, draws)
 
         # post-step bookkeeping (dtc.py:215-223)
         new_state = {**new_state,
@@ -1022,15 +1054,17 @@ class LeggedEnv:
 
         # root reset (dtc.py:291-315): origin + U(-0.5,0.5) xy (U(-1,1)
         # without the planner; none on a plane), vel U(-0.5,0.5)
-        init_pos = torch.tensor(cfg.init_state.pos, dtype=F32, device=dev)
+        with trace.sync("dtc/sync/reset_pos"):
+            init_pos = torch.tensor(cfg.init_state.pos, dtype=F32, device=dev)
         xy_off = 0.5 if cfg.use_dtc_planner else 1.0
         pos_new = env_origins + init_pos[None, :]
         if self.terrain is not None:
             pos_new = torch.cat([pos_new[:, :2] + u[:, m.nq:m.nq + 2] * xy_off,
                                  pos_new[:, 2:]], dim=1)
         pos = masked(pos_new, phys["pos"])
-        quat_new = torch.tensor(cfg.init_state.rot, dtype=F32,
-                                device=dev).expand(N, 4)
+        with trace.sync("dtc/sync/reset_rot"):
+            quat_new = torch.tensor(cfg.init_state.rot, dtype=F32,
+                                    device=dev).expand(N, 4)
         quat = masked(quat_new, phys["quat"])
         vel6 = u[:, m.nq + 2:] * 0.5
         lin_vel = masked(vel6[:, :3], phys["lin_vel"])

@@ -19,6 +19,7 @@ import math
 import torch
 
 from .. import cuda_build
+from ..utils import trace
 
 MAX_FIELDS = 32           # csrc/gather.cu
 
@@ -78,7 +79,8 @@ def permute_groups(flat: dict, perm, G: int) -> dict:
     if C == 0 or not flat:
         return out
     lo, hi = torch.aminmax(perm)
-    lo, hi = torch.stack([lo, hi]).tolist()          # one sync per call
+    with trace.sync("dtc/sync/perm_check"):          # one sync per call
+        lo, hi = torch.stack([lo, hi]).tolist()
     if lo < 0 or hi >= chunks:
         raise ValueError(f"perm: values in [{lo}, {hi}], the batch has "
                          f"{chunks} groups")

@@ -15,7 +15,9 @@ device; the stats leave the device once per iteration as one packed
 tensor.  The JAX runner's iters_per_dispatch,
 perf_split and asynchronous saves were host tricks of a remote TPU and
 have no counterpart: the collection and learning seconds are measured
-every iteration (synchronized) and logged under the reference's names.
+every iteration (synchronized) and logged under the reference's names,
+beside the tracer's host time per span, syncs and kernel launches
+(utils/trace.py) that each iteration's row carries.
 
 An env built with a `shard` (parallel/mesh.py EnvShard, from
 parallel/distributed.py `global_shard`) makes the runner one rank of a
@@ -46,7 +48,7 @@ from ..models.networks import (ActorCritic, ActorCriticDecoder,
                                ActorCriticRecurrent)
 from ..parallel import distributed as pdist
 from ..parallel import mesh as pmesh
-from ..utils import flags
+from ..utils import flags, trace
 from . import checkpoint as ckpt
 
 LOG_INTERVAL = 10        # iterations between log lines (the reference's default)
@@ -84,7 +86,6 @@ class OnPolicyRunner:
         self.writer = writer
         self.current_learning_iteration = 0
         self.tot_timesteps = 0
-        self.tot_time = 0.0
         seed = train_cfg.runner.seed
         # weights are drawn on the CPU, so a seed gives the same net on
         # every device; the rollout and the update draw from a generator on
@@ -150,6 +151,7 @@ class OnPolicyRunner:
             self.log_state.update(carry_a=self.init_carry(N),
                                   carry_c=self.init_carry(N))
 
+    @trace.spanned("dtc/collect")
     @torch.no_grad()
     def collect(self):
         """One rollout of num_steps_per_env steps + GAE.
@@ -186,47 +188,50 @@ class OnPolicyRunner:
             else:
                 a = ppo.act(obs, hist, priv, base_vel, gen)
             state, out = env.step(params, state, a["actions"], gen)
-            # timeout bootstrap (ppo.py:160-163)
-            rew = out["rew"] + gamma * a["values"] * out["time_out"]
-            step = dict(obs=obs, actions=a["actions"], values=a["values"],
-                        old_log_prob=a["log_prob"], old_mu=a["mu"],
-                        old_sigma=a["sigma"], rewards=rew, dones=out["done"])
-            if not recurrent:
-                step.update(privileged_obs=priv.to(store_dt),
-                            obs_history=hist.to(store_dt),
-                            base_vel=base_vel, next_obs=out["obs"])
-            steps.append(step)
-            # episode bookkeeping (on_policy_runner.py:130-140)
-            crs = log["cur_reward_sum"] + out["rew"]
-            cel = log["cur_episode_length"] + 1.0
-            done_f = out["done"].float()
-            ep["ep_rew_sum"] = ep["ep_rew_sum"] + (crs * done_f).sum()
-            ep["ep_len_sum"] = ep["ep_len_sum"] + (cel * done_f).sum()
-            ep["ep_count"] = ep["ep_count"] + done_f.sum()
-            log = dict(cur_reward_sum=crs * (1.0 - done_f),
-                       cur_episode_length=cel * (1.0 - done_f))
-            if recurrent:
-                # the carries restart after a done (ppo.py:170)
-                reset = out["done"][:, None]
-                log["carry_a"], log["carry_c"] = (
-                    tree_map(lambda c: torch.where(reset, 0.0, c), x)
-                    for x in (ca, cc))
-            for k, v in out["metrics"].items():
-                metrics[k] = metrics[k] + v if k in metrics else v
+            with trace.span("dtc/collect/loop"):
+                # timeout bootstrap (ppo.py:160-163)
+                rew = out["rew"] + gamma * a["values"] * out["time_out"]
+                step = dict(obs=obs, actions=a["actions"], values=a["values"],
+                            old_log_prob=a["log_prob"], old_mu=a["mu"],
+                            old_sigma=a["sigma"], rewards=rew,
+                            dones=out["done"])
+                if not recurrent:
+                    step.update(privileged_obs=priv.to(store_dt),
+                                obs_history=hist.to(store_dt),
+                                base_vel=base_vel, next_obs=out["obs"])
+                steps.append(step)
+                # episode bookkeeping (on_policy_runner.py:130-140)
+                crs = log["cur_reward_sum"] + out["rew"]
+                cel = log["cur_episode_length"] + 1.0
+                done_f = out["done"].float()
+                ep["ep_rew_sum"] = ep["ep_rew_sum"] + (crs * done_f).sum()
+                ep["ep_len_sum"] = ep["ep_len_sum"] + (cel * done_f).sum()
+                ep["ep_count"] = ep["ep_count"] + done_f.sum()
+                log = dict(cur_reward_sum=crs * (1.0 - done_f),
+                           cur_episode_length=cel * (1.0 - done_f))
+                if recurrent:
+                    # the carries restart after a done (ppo.py:170)
+                    reset = out["done"][:, None]
+                    log["carry_a"], log["carry_c"] = (
+                        tree_map(lambda c: torch.where(reset, 0.0, c), x)
+                        for x in (ca, cc))
+                for k, v in out["metrics"].items():
+                    metrics[k] = metrics[k] + v if k in metrics else v
 
-        batch = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
-        if recurrent:
-            last_values = self.net(state["obs"], state["obs"],
-                                   log["carry_a"], log["carry_c"])[2]
-        else:
-            last_values = ppo.value(state["obs"], state["privileged_obs"],
-                                    state["base_vel"])
-        dones = batch.pop("dones")
-        batch["returns"], batch["advantages"] = ppo.compute_gae(
-            batch.pop("rewards"), dones, batch["values"], last_values)
-        if recurrent:
-            batch.update(dones=dones, init_carry_a=init_a,
-                         init_carry_c=init_c)
+        with trace.span("dtc/collect/gae"):
+            batch = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
+            if recurrent:
+                last_values = self.net(state["obs"], state["obs"],
+                                       log["carry_a"], log["carry_c"])[2]
+            else:
+                last_values = ppo.value(state["obs"], state["privileged_obs"],
+                                        state["base_vel"])
+            dones = batch.pop("dones")
+            batch["returns"], batch["advantages"] = ppo.compute_gae(
+                batch.pop("rewards"), dones, batch["values"], last_values)
+            if recurrent:
+                batch.update(dones=dones, init_carry_a=init_a,
+                             init_carry_c=init_c)
         self.env_state, self.log_state = state, log
         aux = {**{"metric_" + k: v for k, v in metrics.items()}, **ep}
         return batch, aux
@@ -235,7 +240,8 @@ class OnPolicyRunner:
     def _clock(self) -> float:
         """Host seconds after the device has finished the queued work."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with trace.sync("dtc/sync/clock", explicit=True):
+                torch.cuda.synchronize(self.device)
         return time.perf_counter()
 
     def learn(self, num_learning_iterations: int,
@@ -244,8 +250,10 @@ class OnPolicyRunner:
 
         Returns one dict per iteration: the update's stats, the rollout's
         metric and episode sums, mean_noise_std, and the synchronized
-        seconds of the two phases, collection_time and learning_time.
-        With a log_dir, every LOG_INTERVAL-th iteration is logged."""
+        seconds of the two phases, collection_time and learning_time;
+        while tracing is on (utils/trace.py), under "trace" the
+        iteration's spans, syncs and kernel launches.  With a log_dir,
+        every LOG_INTERVAL-th iteration is logged."""
         save_interval = self.cfg.runner.save_interval
         T = self.cfg.runner.num_steps_per_env
         N = self.env.num_envs
@@ -260,31 +268,40 @@ class OnPolicyRunner:
                 dtype=torch.int32), self.shard)
         rows = []
         for it in range(start, start + num_learning_iterations):
-            t0 = self._clock()
-            batch, aux = self.collect()
-            t1 = self._clock()
-            update = (self.ppo.update_recurrent if self.recurrent
-                      else self.ppo.update)
-            stats = update(batch, self.generator)
-            if pmesh.spans(self.shard):
-                # the rollout's sums over every rank's envs, in one
-                # all_reduce (the update's stats are global already)
-                names = sorted(aux)
-                total = pmesh.all_sum(torch.stack([
-                    torch.as_tensor(aux[n], device=self.device).float()
-                    .reshape(()) for n in names]), self.shard)
-                aux = dict(zip(names, total.unbind()))
-            stats = {**stats, **aux, "mean_noise_std": self.net.std.mean()}
-            names = sorted(stats)
-            # one device -> host transfer of every scalar of the iteration
-            vec = torch.stack([torch.as_tensor(stats[n], device=self.device)
-                               .float().reshape(()) for n in names]).cpu()
-            t2 = time.perf_counter()
+            trace.begin(it)
+            with trace.span("dtc/learn"):
+                t0 = self._clock()
+                batch, aux = self.collect()
+                t1 = self._clock()
+                update = (self.ppo.update_recurrent if self.recurrent
+                          else self.ppo.update)
+                stats = update(batch, self.generator)
+                if pmesh.spans(self.shard):
+                    # the rollout's sums over every rank's envs, in one
+                    # all_reduce (the update's stats are global already)
+                    names = sorted(aux)
+                    total = pmesh.all_sum(torch.stack([
+                        torch.as_tensor(aux[n], device=self.device).float()
+                        .reshape(()) for n in names]), self.shard)
+                    aux = dict(zip(names, total.unbind()))
+                stats = {**stats, **aux, "mean_noise_std": self.net.std.mean()}
+                names = sorted(stats)
+                # one device -> host transfer of every scalar of the
+                # iteration
+                with trace.span("dtc/learn/stats"):
+                    vec = torch.stack([
+                        torch.as_tensor(stats[n], device=self.device)
+                        .float().reshape(()) for n in names])
+                    with trace.sync("dtc/sync/stats"):
+                        vec = vec.cpu()
+                t2 = time.perf_counter()
             row = dict(zip(names, vec.tolist()),
                        collection_time=t1 - t0, learning_time=t2 - t1)
+            tr = trace.end()
+            if tr is not None:
+                row["trace"] = tr
             rows.append(row)
             self.tot_timesteps += T * n_all
-            self.tot_time += t2 - t0
             if row["ep_count"] > 0:
                 self.rewbuffer.append(row["ep_rew_sum"] / row["ep_count"])
                 self.lenbuffer.append(row["ep_len_sum"] / row["ep_count"])
@@ -308,7 +325,10 @@ class OnPolicyRunner:
                                              or self.shard.rank == 0)
 
     def _log(self, it, stats, dt_iter):
-        """TensorBoard scalars matching on_policy_runner.py:187-203."""
+        """TensorBoard scalars matching on_policy_runner.py:187-203, and
+        the tracer's: Perf/host_ms/<span> (host ms in each span of the
+        iteration), Perf/syncs (its blocking syncs, explicit ones
+        included) and Perf/launches/<kernel>."""
         n_all = (self.env.num_envs if self.shard is None
                  else self.shard.num_envs)
         fps = int(self.cfg.runner.num_steps_per_env * n_all
@@ -338,6 +358,16 @@ class OnPolicyRunner:
             scalars["Episode/terrain_level"] = (
                 float(stats["metric_terrain_level"])
                 / self.cfg.runner.num_steps_per_env)
+        tr = stats.get("trace")
+        if tr is not None:
+            # the iteration's spans, blocking syncs and kernel launches
+            # (utils/trace.py)
+            for name, agg in tr["spans"].items():
+                scalars["Perf/host_ms/" + name] = 1e3 * agg["host_s"]
+            scalars["Perf/syncs"] = tr["syncs"] + tr["explicit_syncs"]
+            for k, n in tr["launches"].items():
+                if n:
+                    scalars["Perf/launches/" + k] = n
         if len(self.rewbuffer) > 0:
             scalars["Train/mean_reward"] = float(np.mean(self.rewbuffer))
             scalars["Train/mean_episode_length"] = float(

@@ -2,10 +2,11 @@
 lite3_dtc task's 4096 envs, taken as chip_smoke.py phases 4 and 5 take
 them: one warm-up collect, then 3 timed collects; one warm-up learn(1),
 then a timed learn(3), with each of its iterations' collection and
-learning (update) seconds.  Then one collect and one update, each under
-torch.profiler, for the host's side: wall ms, CPU-side op calls, kernel
-launch calls, their self CPU ms, the synchronisations' count and ms, and
-device ms and device ops.
+learning (update) seconds and the tracer's aggregates (utils/trace.py:
+host seconds per span, blocking syncs, kernel launches).  Then one collect
+and one update, each under torch.profiler: wall ms, the launch calls'
+self CPU ms, device ms and device ops.  Last the tracer's own cost: host
+ns per span with tracing on and off.
 
     python deep_tracking_control_tpu_torch/scripts/env_steps.py
 
@@ -22,6 +23,7 @@ import sys
 import time
 
 ITERS = 3
+SPANS = 100_000           # spans timed for the tracer's cost
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx")
 
@@ -39,19 +41,32 @@ def host_profile(torch, fn):
         wall = time.perf_counter() - t0
     ev = prof.key_averages()
     launch = [e for e in ev if e.key in LAUNCH_CALLS]
-    sync = [e for e in ev if "Synchronize" in e.key or "Memcpy" in e.key]
     return out, dict(
         wall_ms=wall * 1e3,
-        cpu_op_calls=sum(e.count for e in ev if e.key.startswith("aten::")),
-        launch_calls=sum(e.count for e in launch),
         launch_cpu_ms=sum(e.self_cpu_time_total for e in launch) / 1e3,
-        sync_calls=sum(e.count for e in sync),
-        sync_cpu_ms=sum(e.self_cpu_time_total for e in sync) / 1e3,
         # the kernels alone: a CPU op's entry repeats its kernels' time
         device_ms=sum(e.self_device_time_total for e in ev
                       if e.device_type == DeviceType.CUDA) / 1e3,
         device_ops=sum(e.count for e in ev
                        if e.device_type == DeviceType.CUDA))
+
+
+def span_ns(trace, on: bool) -> float:
+    """Host ns of one span, opened and closed inside an open span, with
+    tracing on or off (the median of 5 runs of SPANS spans)."""
+    was, trace.enabled = trace.enabled, on
+    try:
+        runs = []
+        for _ in range(5):
+            with trace.span("dtc/cost"):
+                t0 = time.perf_counter_ns()
+                for _ in range(SPANS):
+                    with trace.span("dtc/cost/inner"):
+                        pass
+                runs.append((time.perf_counter_ns() - t0) / SPANS)
+        return sorted(runs)[2]
+    finally:
+        trace.enabled = was
 
 
 def main():
@@ -64,6 +79,7 @@ def main():
     from deep_tracking_control_tpu_torch.env.legged_env import LeggedEnv
     from deep_tracking_control_tpu_torch.runner.train import OnPolicyRunner
     from deep_tracking_control_tpu_torch.tasks import registry
+    from deep_tracking_control_tpu_torch.utils import trace
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(
@@ -99,7 +115,9 @@ def main():
         collect_s=collect_s, learn_s=learn_s,
         learn_collection_s=[r["collection_time"] for r in rows],
         learn_update_s=[r["learning_time"] for r in rows],
-        collect_profile=collect_prof, update_profile=update_prof)))
+        learn_trace=[r["trace"] for r in rows],
+        collect_profile=collect_prof, update_profile=update_prof,
+        span_ns_on=span_ns(trace, True), span_ns_off=span_ns(trace, False))))
 
 
 if __name__ == "__main__":

@@ -382,7 +382,7 @@ def test_three_leg_learns_saves_and_loads(three_leg_registered, tmp_path):
     before = {k: v.clone() for k, v in runner.net.state_dict().items()}
     rows = runner.learn(1)
     assert runner.current_learning_iteration == 1
-    assert all(np.isfinite(v) for v in rows[0].values())
+    assert all(np.isfinite(v) for k, v in rows[0].items() if k != "trace")
     moved = [k for k, v in runner.net.state_dict().items()
              if not torch.equal(v, before[k])]
     assert moved, "the params did not move"

@@ -958,7 +958,7 @@ def test_sharded_learn_matches_unsharded(job_b_run):
     assert torch.equal(a["generator"], b["generator"])
     for r in ranks:
         row = r["rows"][1]
-        assert all(np.isfinite(v) for v in row.values())
+        assert all(np.isfinite(v) for k, v in row.items() if k != "trace")
 
 
 def test_checkpoints_cross_world_sizes(job_b_run):
