@@ -59,6 +59,12 @@ The step updates the (K, N) episode sums of the state it is given in
 place (they are the widest per-step accumulator); do not step one state
 twice.
 
+Inside `graphed_steps` (the runner's collect), a step on the default
+kernel route on the card, unsharded and without injected draws, runs as
+a CUDA graph of its body (env/step_graph.py): the tensors it returns
+then stay valid only until the next step.  The step reads its constant
+vectors from the device (`_t`), so its body makes no host-device copy.
+
 With `shard` (parallel/mesh.py EnvShard) the env steps one rank's block
 of envs of a run sharded over torch.distributed ranks: `num_envs` is the
 block's count.  `init` builds the whole world's state and keeps the
@@ -70,6 +76,8 @@ the command curriculum reads its counts over all envs.  The step's
 metrics are the block's sums (the runner adds them up over the ranks).
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -88,7 +96,7 @@ from ..terrain.generator import DESCENT_FAMILIES, Terrain, column_families
 from ..terrain.grid import TerrainGrid
 from ..utils import trace
 from ..utils.flags import kernel_flag
-from . import cuda_obs, cuda_planner, cuda_rewards, planner
+from . import cuda_obs, cuda_planner, cuda_rewards, planner, step_graph
 from . import rewards as rew_mod
 from .config import TaskCfg
 
@@ -258,7 +266,9 @@ class LeggedEnv:
             termination_idx=t(self.termination_idx, torch.long),
             hip_dof_idx=t(self.hip_dof_idx, torch.long),
             thigh_dyn_idx=t(self.thigh_dyn_idx, torch.long),
-            win_offset=t([cuda_substep.WIN_R0, cuda_substep.WIN_C0]))
+            win_offset=t([cuda_substep.WIN_R0, cuda_substep.WIN_C0]),
+            gravity=t([0.0, 0.0, -1.0]), heading_axis=t([1.0, 0.0, 0.0]),
+            init_pos=t(cfg.init_state.pos), init_rot=t(cfg.init_state.rot))
         # the decimation kernel for a 4x3 quadruped at one substep on
         # blocked tables (legged_env.py:194-198 of the JAX package); else
         # the plain decimation loop over sim_step: DTC_PALLAS_PHYSICS=0,
@@ -273,6 +283,10 @@ class LeggedEnv:
             m, self.geom, cfg.sim, self.thigh_dyn_idx,
             cfg.terrain.horizontal_scale), device=dev)
             if self._kernel_physics else None)
+        # the step's CUDA graphs (env/step_graph.py), one a (params,
+        # generator), engaged inside `graphed_steps` alone
+        self._graph_scope = False
+        self._step_graphs = {}
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -467,6 +481,33 @@ class LeggedEnv:
     # ------------------------------------------------------------------
     # step
     # ------------------------------------------------------------------
+    @contextlib.contextmanager
+    def graphed_steps(self):
+        """Within: a step on the graph route (`_graph_route`) replays a CUDA
+        graph of itself (env/step_graph.py), whose returned tensors stay
+        valid only until the next step of the same (params, generator):
+        copy what is kept past it.  runner/train.py `collect` opts in."""
+        was, self._graph_scope = self._graph_scope, True
+        try:
+            yield
+        finally:
+            self._graph_scope = was
+
+    def _graph_route(self, draws) -> bool:
+        """Whether a step can run as a CUDA graph: inside `graphed_steps`,
+        on the card, unsharded (the sharded step reduces over the ranks),
+        without injected draws, and on the kernel route that has no host
+        sync: the decimation kernel reading the blocked tables (K1), the
+        fused sampler (K2) and, where the planner runs, its kernel (K3)."""
+        cfg = self.cfg
+        return (self._graph_scope and draws is None
+                and self.device.type == "cuda" and self._sh is None
+                and self._kernel_physics and cfg.terrain.measure_heights
+                and not cfg.env.debug_viz
+                and kernel_flag("DTC_PALLAS_SAMPLER", "1")
+                and kernel_flag("DTC_FUSED_WINDOW", "1")
+                and kernel_flag("DTC_PALLAS_PLANNER", "1"))
+
     @trace.spanned("dtc/env.step")
     def step(self, params, state, actions, generator, draws=None):
         """One policy step (LeggedRobot.step + DTC post_physics_step).
@@ -476,7 +517,20 @@ class LeggedEnv:
         inject "lag" (decimation,) int64 lag indices and "noise_seed", the
         (2,) int64 seed of the obs noise; on the CPU also the noise itself,
         "height_noise" (N,H) and "obs_noise" (N, num_obs) uniforms in
-        [-1, 1)."""
+        [-1, 1).  Inside `graphed_steps`, on the graph route, the step's
+        CUDA graph for (params, generator) runs it."""
+        if self._graph_route(draws):
+            key = (id(params), id(generator))
+            graph = self._step_graphs.get(key)
+            if graph is None:
+                graph = self._step_graphs[key] = step_graph.StepGraph(
+                    params, generator)
+            return graph(self._step, params, state, actions)
+        trace.graph_call(step_graph.NAME, "eager")
+        return self._step(params, state, actions, generator, draws)
+
+    def _step(self, params, state, actions, generator, draws=None):
+        """The step's body (see `step`)."""
         cfg = self.cfg
         dev = self.device
         gen = generator
@@ -624,9 +678,8 @@ class LeggedEnv:
         base_quat = phys["quat"].T
         base_lin_vel = qm.quat_rotate_inverse(base_quat, phys["lin_vel"].T)
         base_ang_vel = qm.quat_rotate_inverse(base_quat, phys["ang_vel"].T)
-        with trace.sync("dtc/sync/gravity"):
-            gvec = torch.tensor([0.0, 0.0, -1.0], device=dev).expand(N, 3)
-        projected_gravity = qm.quat_rotate_inverse(base_quat, gvec)
+        projected_gravity = qm.quat_rotate_inverse(
+            base_quat, T["gravity"].expand(N, 3))
         dof_pos = phys["q"].T
         dof_vel = phys["qd"].T
         foot_positions = info["foot_pos"].permute(2, 0, 1)        # (N,4,3)
@@ -649,9 +702,8 @@ class LeggedEnv:
             commands = self._clamp_descent_commands(
                 commands, state["terrain_types"], state["terrain_levels"])
             if cfg.commands.heading_command:                      # :536-539
-                with trace.sync("dtc/sync/heading"):
-                    xvec = torch.tensor([1.0, 0.0, 0.0], device=dev)
-                fwd = qm.quat_rotate(base_quat, xvec.expand(N, 3))
+                fwd = qm.quat_rotate(base_quat,
+                                     T["heading_axis"].expand(N, 3))
                 heading = torch.atan2(fwd[:, 1], fwd[:, 0])
                 commands = commands.clone()
                 commands[:, 2] = torch.clamp(
@@ -1054,18 +1106,13 @@ class LeggedEnv:
 
         # root reset (dtc.py:291-315): origin + U(-0.5,0.5) xy (U(-1,1)
         # without the planner; none on a plane), vel U(-0.5,0.5)
-        with trace.sync("dtc/sync/reset_pos"):
-            init_pos = torch.tensor(cfg.init_state.pos, dtype=F32, device=dev)
         xy_off = 0.5 if cfg.use_dtc_planner else 1.0
-        pos_new = env_origins + init_pos[None, :]
+        pos_new = env_origins + T["init_pos"][None, :]
         if self.terrain is not None:
             pos_new = torch.cat([pos_new[:, :2] + u[:, m.nq:m.nq + 2] * xy_off,
                                  pos_new[:, 2:]], dim=1)
         pos = masked(pos_new, phys["pos"])
-        with trace.sync("dtc/sync/reset_rot"):
-            quat_new = torch.tensor(cfg.init_state.rot, dtype=F32,
-                                    device=dev).expand(N, 4)
-        quat = masked(quat_new, phys["quat"])
+        quat = masked(T["init_rot"].expand(N, 4), phys["quat"])
         vel6 = u[:, m.nq + 2:] * 0.5
         lin_vel = masked(vel6[:, :3], phys["lin_vel"])
         ang_vel = masked(vel6[:, 3:], phys["ang_vel"])

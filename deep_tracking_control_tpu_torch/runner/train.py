@@ -176,47 +176,61 @@ class OnPolicyRunner:
         params, state, log = self.env_params, self.env_state, self.log_state
         if recurrent:
             init_a, init_c = log["carry_a"], log["carry_c"]
+
+        def held(st):
+            """Copies of what the batch keeps of a step's state (obs; priv,
+            hist and base velocity): inside `graphed_steps` the next step
+            overwrites the tensors a step returned."""
+            if recurrent:
+                return st["obs"].clone(), {}
+            return st["obs"].clone(), dict(
+                privileged_obs=st["privileged_obs"].to(store_dt, copy=True),
+                obs_history=st["obs_history"].to(store_dt, copy=True),
+                base_vel=st["base_vel"].clone())
         steps = []
         metrics = {}
         ep = dict(ep_rew_sum=0.0, ep_len_sum=0.0, ep_count=0.0)
-        for _ in range(T):
-            obs, priv = state["obs"], state["privileged_obs"]
-            hist, base_vel = state["obs_history"], state["base_vel"]
-            if recurrent:
-                a, ca, cc = ppo.act_recurrent(obs, log["carry_a"],
-                                              log["carry_c"], gen)
-            else:
-                a = ppo.act(obs, hist, priv, base_vel, gen)
-            state, out = env.step(params, state, a["actions"], gen)
-            with trace.span("dtc/collect/loop"):
-                # timeout bootstrap (ppo.py:160-163)
-                rew = out["rew"] + gamma * a["values"] * out["time_out"]
-                step = dict(obs=obs, actions=a["actions"], values=a["values"],
-                            old_log_prob=a["log_prob"], old_mu=a["mu"],
-                            old_sigma=a["sigma"], rewards=rew,
-                            dones=out["done"])
-                if not recurrent:
-                    step.update(privileged_obs=priv.to(store_dt),
-                                obs_history=hist.to(store_dt),
-                                base_vel=base_vel, next_obs=out["obs"])
-                steps.append(step)
-                # episode bookkeeping (on_policy_runner.py:130-140)
-                crs = log["cur_reward_sum"] + out["rew"]
-                cel = log["cur_episode_length"] + 1.0
-                done_f = out["done"].float()
-                ep["ep_rew_sum"] = ep["ep_rew_sum"] + (crs * done_f).sum()
-                ep["ep_len_sum"] = ep["ep_len_sum"] + (cel * done_f).sum()
-                ep["ep_count"] = ep["ep_count"] + done_f.sum()
-                log = dict(cur_reward_sum=crs * (1.0 - done_f),
-                           cur_episode_length=cel * (1.0 - done_f))
+        obs, kept = held(state)
+        with env.graphed_steps():
+            for _ in range(T):
                 if recurrent:
-                    # the carries restart after a done (ppo.py:170)
-                    reset = out["done"][:, None]
-                    log["carry_a"], log["carry_c"] = (
-                        tree_map(lambda c: torch.where(reset, 0.0, c), x)
-                        for x in (ca, cc))
-                for k, v in out["metrics"].items():
-                    metrics[k] = metrics[k] + v if k in metrics else v
+                    a, ca, cc = ppo.act_recurrent(state["obs"], log["carry_a"],
+                                                  log["carry_c"], gen)
+                else:
+                    a = ppo.act(state["obs"], state["obs_history"],
+                                state["privileged_obs"], state["base_vel"],
+                                gen)
+                state, out = env.step(params, state, a["actions"], gen)
+                with trace.span("dtc/collect/loop"):
+                    # timeout bootstrap (ppo.py:160-163)
+                    rew = out["rew"] + gamma * a["values"] * out["time_out"]
+                    step = dict(obs=obs, actions=a["actions"],
+                                values=a["values"],
+                                old_log_prob=a["log_prob"], old_mu=a["mu"],
+                                old_sigma=a["sigma"], rewards=rew,
+                                dones=out["done"].clone(), **kept)
+                    obs, kept = held(state)
+                    if not recurrent:
+                        step["next_obs"] = obs
+                    steps.append(step)
+                    # episode bookkeeping (on_policy_runner.py:130-140)
+                    crs = log["cur_reward_sum"] + out["rew"]
+                    cel = log["cur_episode_length"] + 1.0
+                    done_f = out["done"].float()
+                    ep["ep_rew_sum"] = ep["ep_rew_sum"] + (crs * done_f).sum()
+                    ep["ep_len_sum"] = ep["ep_len_sum"] + (cel * done_f).sum()
+                    ep["ep_count"] = ep["ep_count"] + done_f.sum()
+                    log = dict(cur_reward_sum=crs * (1.0 - done_f),
+                               cur_episode_length=cel * (1.0 - done_f))
+                    if recurrent:
+                        # the carries restart after a done (ppo.py:170)
+                        reset = out["done"][:, None]
+                        log["carry_a"], log["carry_c"] = (
+                            tree_map(lambda c: torch.where(reset, 0.0, c), x)
+                            for x in (ca, cc))
+                    for k, v in out["metrics"].items():
+                        metrics[k] = (metrics[k] + v if k in metrics
+                                      else v.clone())
 
         with trace.span("dtc/collect/gae"):
             batch = {k: torch.stack([s[k] for s in steps]) for k in steps[0]}
@@ -328,7 +342,8 @@ class OnPolicyRunner:
         """TensorBoard scalars matching on_policy_runner.py:187-203, and
         the tracer's: Perf/host_ms/<span> (host ms in each span of the
         iteration), Perf/syncs (its blocking syncs, explicit ones
-        included) and Perf/launches/<kernel>."""
+        included), Perf/launches/<kernel> and
+        Perf/graphs/<graph>/{captures, replays, eager}."""
         n_all = (self.env.num_envs if self.shard is None
                  else self.shard.num_envs)
         fps = int(self.cfg.runner.num_steps_per_env * n_all
@@ -368,6 +383,9 @@ class OnPolicyRunner:
             for k, n in tr["launches"].items():
                 if n:
                     scalars["Perf/launches/" + k] = n
+            for name, calls in tr["graphs"].items():
+                for kind, n in calls.items():
+                    scalars[f"Perf/graphs/{name}/{kind}"] = n
         if len(self.rewbuffer) > 0:
             scalars["Train/mean_reward"] = float(np.mean(self.rewbuffer))
             scalars["Train/mean_episode_length"] = float(

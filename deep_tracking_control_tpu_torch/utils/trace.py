@@ -4,10 +4,10 @@ iteration.
 
     from ..utils import trace
 
-    with trace.span("dtc/env.step"):              # a layer's boundary
+    with trace.span("dtc/learn/stats"):           # a layer's boundary
         ...
-        with trace.sync("dtc/sync/gravity"):      # a blocking point
-            g = torch.tensor([0.0, 0.0, -1.0], device=dev)
+        with trace.sync("dtc/sync/stats"):        # a blocking point
+            vec = vec.cpu()
 
     @trace.spanned("dtc/act")                      # a whole function
     def act(...): ...
@@ -27,11 +27,14 @@ and a name is either a span or a sync.
 
 runner/train.py `learn` brackets each iteration with begin(it) and end();
 end() returns what its row holds under "trace": the iteration number,
-per span name count, host_s and wait_s, syncs, explicit_syncs, and the
+per span name count, host_s and wait_s, syncs, explicit_syncs, the
 launches of each kernel wrapper (K1-K9) in the iteration, the deltas of
-their `.launches` counters.  Only aggregates are kept, never an event,
-and a span touches no tensor: it launches nothing, syncs nothing and
-allocates no device memory.
+their `.launches` counters, and per CUDA graph name (env/step_graph.py:
+"env.step") its calls in the iteration by kind, "captures", "replays" and
+"eager" (`graph_call`).  A replay runs no wrapper, so it adds the
+launches its capture counted to the counters (`add_launches`).  Only
+aggregates are kept, never an event, and a span touches no tensor: it
+launches nothing, syncs nothing and allocates no device memory.
 
 While torch.profiler records, a span also opens
 torch.profiler.record_function(name), so the program's spans are
@@ -59,6 +62,8 @@ _spans: dict = {}             # name -> _Span, with its aggregates
 _syncs = [0, 0, 0]            # closed spans of each kind (syncs: 1 and 2)
 _iteration = None             # the open iteration's number
 _launches0: dict = {}         # the launch counters at begin()
+GRAPH_CALLS = ("captures", "replays", "eager")
+_graphs: dict = {}            # graph name -> {kind: calls this iteration}
 
 
 class _Span:
@@ -139,23 +144,60 @@ def spanned(name: str):
     return wrap
 
 
-def _launches() -> dict:
-    """The kernel wrappers' launch counters, read through their modules'
-    fixed references (a caller may wrap the public functions)."""
+_COUNTERS = None
+
+
+def _counters() -> tuple:
+    """(kernel, holder, attribute) of each kernel wrapper's launch counter,
+    through their modules' fixed references (a caller may wrap the public
+    functions)."""
+    global _COUNTERS
+    if _COUNTERS is None:
+        _COUNTERS = _find_counters()
+    return _COUNTERS
+
+
+def _find_counters() -> tuple:
     from ..env import cuda_obs, cuda_planner, cuda_rewards
     from ..ops import cuda_gather, cuda_patch, cuda_rng
     from ..physics import cuda_substep
     from ..terrain import cuda_sampler
     k1 = cuda_substep._counter
-    return {"K1": k1.launches, "K1w": k1.window_launches,
-            "K1f64": k1.f64_launches, "K2": cuda_sampler._counter.launches,
-            "K3": cuda_planner._counter.launches,
-            "K4": cuda_patch._patches.launches,
-            "K5": cuda_patch._windows.launches,
-            "K6": cuda_rewards._counter.launches,
-            "K7": cuda_obs._counter.launches,
-            "K8": cuda_rng._counter.launches,
-            "K9": cuda_gather._counter.launches}
+    return (("K1", k1, "launches"), ("K1w", k1, "window_launches"),
+            ("K1f64", k1, "f64_launches"),
+            ("K2", cuda_sampler._counter, "launches"),
+            ("K3", cuda_planner._counter, "launches"),
+            ("K4", cuda_patch._patches, "launches"),
+            ("K5", cuda_patch._windows, "launches"),
+            ("K6", cuda_rewards._counter, "launches"),
+            ("K7", cuda_obs._counter, "launches"),
+            ("K8", cuda_rng._counter, "launches"),
+            ("K9", cuda_gather._counter, "launches"))
+
+
+def launches() -> dict:
+    """The kernel wrappers' launch counters."""
+    return {k: getattr(o, a) for k, o, a in _counters()}
+
+
+def add_launches(counts: dict):
+    """Add `counts` {kernel: launches} to the wrappers' counters: what a
+    CUDA graph's replay launched, which its capture counted.  Counts
+    whether or not tracing is on, as the wrappers do."""
+    for k, o, a in _counters():
+        if counts.get(k):
+            setattr(o, a, getattr(o, a) + counts[k])
+
+
+def graph_call(name: str, kind: str):
+    """Count one call of CUDA graph `name` (env/step_graph.py) of `kind`, a
+    GRAPH_CALLS entry: a capture, a replay, or an eager run of the body.
+    A no-op while tracing is off."""
+    if enabled:
+        calls = _graphs.get(name)
+        if calls is None:
+            calls = _graphs[name] = dict.fromkeys(GRAPH_CALLS, 0)
+        calls[kind] += 1
 
 
 def begin(iteration: int):
@@ -168,7 +210,9 @@ def begin(iteration: int):
     for s in _spans.values():
         s.count = s.host_ns = s.wait_ns = 0
     _syncs[:] = [0, 0, 0]
-    _launches0 = _launches()
+    for calls in _graphs.values():
+        calls.update(dict.fromkeys(GRAPH_CALLS, 0))
+    _launches0 = launches()
     _iteration = iteration
 
 
@@ -184,6 +228,7 @@ def end():
     out = dict(iteration=_iteration, spans=spans, syncs=_syncs[_SYNC],
                explicit_syncs=_syncs[_EXPLICIT],
                launches={k: v - _launches0[k]
-                         for k, v in _launches().items()})
+                         for k, v in launches().items()},
+               graphs={k: dict(v) for k, v in _graphs.items()})
     _iteration = None
     return out

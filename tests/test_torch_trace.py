@@ -38,10 +38,6 @@ PARENT = {"dtc/collect": "dtc/learn", "dtc/update": "dtc/learn",
           "dtc/env.step/rewards": "dtc/env.step",
           "dtc/env.step/reset": "dtc/env.step",
           "dtc/env.step/obs": "dtc/env.step",
-          "dtc/sync/gravity": "dtc/env.step",
-          "dtc/sync/heading": "dtc/env.step/commands",
-          "dtc/sync/reset_pos": "dtc/env.step/reset",
-          "dtc/sync/reset_rot": "dtc/env.step/reset",
           "dtc/update/draw": "dtc/update", "dtc/update/shuffle": "dtc/update",
           "dtc/update/minibatch": "dtc/update",
           "dtc/update/adam": "dtc/update/minibatch"}
@@ -156,13 +152,12 @@ def test_row_trace(traced):
     runner, row, _ = traced
     tr = row["trace"]
     assert set(tr) == {"iteration", "spans", "syncs", "explicit_syncs",
-                       "launches"}
+                       "launches", "graphs"}
     assert tr["iteration"] == runner.current_learning_iteration - 1 == 0
     s = tr["spans"]
     want = {"dtc/learn": 1, "dtc/collect": 1, "dtc/update": 1,
             "dtc/env.step": T, "dtc/act": T + 1, "dtc/collect/loop": T,
-            "dtc/env.step/terrain": 2 * T, "dtc/sync/gravity": T,
-            "dtc/sync/heading": T, "dtc/update/minibatch": MB,
+            "dtc/env.step/terrain": 2 * T, "dtc/update/minibatch": MB,
             "dtc/update/adam": 2 * MB, "dtc/sync/stats": 1}
     assert {k: s[k]["count"] for k in want} == want
     assert set(s) == set(PARENT) | {"dtc/learn", "dtc/act"}
@@ -174,6 +169,9 @@ def test_row_trace(traced):
     assert s["dtc/learn"]["wait_s"] == pytest.approx(
         sum(s[k]["wait_s"] for k in syncs), rel=1e-9)
     assert tr["launches"] == dict.fromkeys(KERNELS, 0)   # plain versions
+    # the step's constants live on the device: its one sync is the stats'
+    assert tr["syncs"] == 1
+    assert tr["graphs"] == {"env.step": dict(captures=0, replays=0, eager=T)}
 
 
 def test_spans_are_user_annotations_inside_their_parents(traced):
@@ -237,3 +235,7 @@ def test_log_writes_the_tracer_scalars(traced, capsys):
         assert w.scalars["Perf/host_ms/" + k] == pytest.approx(
             1e3 * a["host_s"])
     assert not any(k.startswith("Perf/launches/") for k in w.scalars)
+    assert {k: v for k, v in w.scalars.items()
+            if k.startswith("Perf/graphs/")} == {
+        "Perf/graphs/env.step/captures": 0,
+        "Perf/graphs/env.step/replays": 0, "Perf/graphs/env.step/eager": T}
