@@ -46,10 +46,36 @@ KERNELS = {
 }
 
 TABLE = Path(__file__).resolve().parent / "kernels.json"
+CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 
 
 def table() -> dict:
     return json.loads(TABLE.read_text())
+
+
+def _launch_shapes(cfg: dict) -> tuple:
+    """What a launch's counts follow: the task (the env's kernels), the
+    rollout's length and the algorithm (the update's gather, which every
+    policy but the recurrent one, launching none, lays out alike)."""
+    train = cfg["train"]
+    return (cfg["task"], train["runner"]["num_steps_per_env"],
+            train["algorithm"])
+
+
+def for_config(name: str, cfg: dict) -> dict | None:
+    """The counts of configuration `name` (its file's data `cfg`): its own
+    entry, else that of a configuration of the table with the same task,
+    rollout length and algorithm (another policy on a task the table
+    holds); None where none matches."""
+    t = table()
+    if name in t:
+        return t[name]
+    for other, counts in t.items():
+        path = CONFIGS / f"{other}.json"
+        if path.is_file() and _launch_shapes(
+                json.loads(path.read_text())) == _launch_shapes(cfg):
+            return counts
+    return None
 
 
 def launch(counts: dict, num_envs: int) -> dict:

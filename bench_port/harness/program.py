@@ -4,9 +4,9 @@ at their boundaries for the correctness check.
 
 Only this module imports the port (deep_tracking_control_tpu_torch).  The
 ranges of a traced run wrap the runner's `collect`, its env's `step` and
-its PPO's `act` and `update`; the capture wraps `collect`, and its
-optimizers' `step` in the first call alone, and reads the rest between
-calls.  Both are taken off again; nothing of the port is edited.
+its PPO's `act` and `update` (`act_recurrent` and `update_recurrent` for
+the recurrent policy); the capture wraps `collect`, and its optimizers'
+`step` in the first call alone, and reads the rest between calls.  Both are taken off again; nothing of the port is edited.
 """
 from __future__ import annotations
 
@@ -77,8 +77,10 @@ def ranges(runner):
         return around
     undo = [_wrap(runner, "collect", named("collect")),
             _wrap(runner.ppo, "act", named("act")),
+            _wrap(runner.ppo, "act_recurrent", named("act")),
             _wrap(runner.env, "step", named("env.step")),
-            _wrap(runner.ppo, "update", named("update"))]
+            _wrap(runner.ppo, "update", named("update")),
+            _wrap(runner.ppo, "update_recurrent", named("update"))]
     try:
         yield
     finally:
@@ -118,6 +120,10 @@ class Capture:
                    step, the one reading inside a call (an optimizer step
                    run inside a CUDA graph's capture is not read)
       params_end   the weights after the last call
+    and of a recurrent policy
+      params_at[i] the weights as call i's collect starts
+      carries_end  the runner's carries (carry_a, carry_c) after the last
+                   collect; call i's rollout-start ones are in batch[i]
 
     `seconds` is the time spent copying, which set-up does not count.  The
     capture lets go of the runner after its last call.
@@ -138,6 +144,8 @@ class Capture:
         self.params0 = _host(_params(runner.net))
         self.states, self.gen, self.batch, self.gen_update = {}, {}, {}, {}
         self.first_step, self.params_end = {}, None
+        self.recurrent = runner.recurrent
+        self.params_at, self.carries_end = {}, None
         self.it = -1
         self._stop(t)
 
@@ -165,7 +173,8 @@ class Capture:
                 return x.numel() * x.element_size()
             return 0
         return walk([self.state0, self.params0, self.states, self.batch,
-                     self.first_step, self.params_end])
+                     self.first_step, self.params_end, self.params_at,
+                     self.carries_end])
 
     def call(self, mix: dict, first: bool = False):
         """One checked call of the window's own kind; returns its row."""
@@ -186,6 +195,9 @@ class Capture:
         if self.it == self.calls - 1:
             self.states[self.calls] = _host(r.env_state)
             self.params_end = _host(_params(r.net))
+            if self.recurrent:
+                self.carries_end = _host((r.log_state["carry_a"],
+                                          r.log_state["carry_c"]))
             self.runner = None
         self._stop(t)
         return row
@@ -207,6 +219,8 @@ class Capture:
             t = self._start()
             self.states[self.it] = _host(self.runner.env_state)
             self.gen[self.it] = self.runner.generator.get_state().clone()
+            if self.recurrent:
+                self.params_at[self.it] = _host(_params(self.runner.net))
             self._stop(t)
             batch, aux = fn(*a, **k)
             t = self._start()

@@ -11,11 +11,13 @@ from .trace import is_kernel
 
 def share(run, names) -> float | None:
     """100 x sum of bounds / sum of measured times over the launches of
-    the kernels `names` (K-numbers) in run.trace; None without any."""
+    the kernels `names` (K-numbers) in run.trace; None without any, or
+    without counts for the configuration."""
     tr = run.trace
-    if tr is None:
+    counts = kc.for_config(run.cell["config"]["name"],
+                           run.cell["config_file"])
+    if tr is None or counts is None:
         return None
-    counts = kc.table()[run.cell["config"]["name"]]
     bound = spent = 0.0
     for k in names:
         if k not in counts:

@@ -1,11 +1,12 @@
 """The readings that the limits of bench_port/limits/<cell>.json are set
 from: the numbers of `correct` for sound runs of the program on many
 seeds, and for stand-ins judged in the program's place: the control (the
-reference with every bf16 product's operands rounded to float8), the
-witness (the reference with every bf16 product's inner width padded to a
-multiple of 8 and its bias added in the product's epilogue: a sound
-rewrite, the same sums in another order), the update's half-batch fault
-(each minibatch's second half left out) and the env step's faults (its
+reference with every bf16 product's operands rounded to float8 and every
+float32 product's to TF32), the witness (the reference with every
+product's inner width padded to a multiple of 8 and its bias added in the
+product's epilogue: a sound rewrite, the same sums in another order), the
+update's half-batch fault (each minibatch's second half left out; its
+second half of envs in a recurrent update) and the env step's faults (its
 state returned unchanged; half the envs left unstepped).
 
     python bench_port/readings.py --workload NAME --seeds 1 2 3 \\
@@ -14,7 +15,8 @@ state returned unchanged; half the envs left unstepped).
 
 One process for all seeds (the kernels are built once); each seed builds
 its program, runs the checked calls and one call of the window, and is
-judged.  Prints one JSON line a seed.
+judged.  Prints one JSON line a seed, with the set-up and check seconds,
+the device, and the rate and device memory peak of that one call.
 """
 import argparse
 import json
@@ -44,9 +46,11 @@ def main():
         run, nums, others, dev = hm.run_cell(
             cell, seed, 0.0, False, args.device, t0, mix_override=over,
             stand_ins=tuple(args.stand_ins))
-        print(json.dumps(dict(seed=seed, numbers=nums, stand_ins=others,
-                              setup_s=run.setup_s,
-                              check_s=run.extra["check_s"])), flush=True)
+        print(json.dumps(dict(
+            seed=seed, numbers=nums, stand_ins=others, setup_s=run.setup_s,
+            check_s=run.extra["check_s"], device=dev,
+            **{m: manifest.reader(m)(run) for m in
+               ("env_steps_per_s", "peak_device_gib")})), flush=True)
 
 
 if __name__ == "__main__":

@@ -55,8 +55,8 @@ from .trajectories import rnn_replay, tree_map
 POLICY_KINDS = ("decoder", "mlp", "recurrent")
 
 # A fault for the correctness check's readings (bench_port/harness/
-# check.py): True leaves out the second half of every minibatch, each
-# mean taken over the rest.
+# check.py): True leaves out the second half of every minibatch (its rows;
+# in the recurrent update its envs), each mean taken over the rest.
 HALF_BATCH = False
 
 # the nine stats of an update, averaged over its minibatch steps
@@ -602,6 +602,8 @@ class PPO:
         for i, idx in enumerate(env_idx):
             if self.shard is not None:
                 idx = idx[mine[i].to(dev)] - self.shard.row0
+            if HALF_BATCH:
+                idx = idx[:idx.shape[0] // 2]
             pol, grads = self.recurrent_grads(batch, idx, count)
             lr = self._step_main(pol, zeros, grads, lr, stats)
         self.learning_rate = lr

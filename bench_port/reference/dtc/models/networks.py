@@ -55,10 +55,14 @@ _ACTIVATIONS = {"elu": F.elu, "relu": F.relu, "selu": F.selu, "crelu": F.relu,
 # the port does, in bf16 products; a float8 dtype rounds both operands of
 # every bf16 product to it first, each scaled by its largest magnitude.
 LOWER = None
-# The witness (the check's sound reading): True computes every bf16 product
-# with its inner width zero-padded to a multiple of 8 and the bias added in
-# the product's epilogue (one rounding, torch.addmm), as a sound rewrite
-# of the networks would: the same sums in another order.
+# The control's float32 products: True rounds both operands of every
+# float32 product (the recurrent cells, the CE-net's latent heads) to TF32,
+# the 10-bit mantissa the card's tensor cores read with allow_tf32 on.
+TF32 = False
+# The witness (the check's sound reading): True computes every product,
+# bf16 or float32, with its inner width zero-padded to a multiple of 8 and
+# the bias added in the product's epilogue (one rounding, torch.addmm), as
+# a sound rewrite of the networks would: the same sums in another order.
 WITNESS = False
 
 
@@ -69,6 +73,17 @@ def _witness_linear(x, w, b):
     w2 = F.pad(w, (0, pad))
     y = (torch.addmm(b, x2, w2.t()) if b is not None else x2 @ w2.t())
     return y.reshape(x.shape[:-1] + (w.shape[0],))
+
+
+def _tf32(t):
+    """t (float32) with its mantissa rounded to TF32's 10 bits, to nearest
+    and ties away from zero, as the conversion to TF32 rounds; the
+    gradient passes through the rounding unchanged."""
+    if not TF32:
+        return t
+    bits = t.detach().contiguous().view(torch.int32)
+    r = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return t + (r - t.detach())
 
 
 def _lower(t):
@@ -107,7 +122,9 @@ class Dense(nn.Module):
                                        else self.bias.to(BF16))
             y = F.linear(_lower(x), _lower(self.weight.to(BF16)))
             return y if self.bias is None else y + self.bias.to(BF16)
-        return F.linear(x, self.weight, self.bias)
+        if WITNESS:
+            return _witness_linear(x, self.weight, self.bias)
+        return F.linear(_tf32(x), _tf32(self.weight), self.bias)
 
 
 class MLP(nn.Module):
